@@ -1,0 +1,19 @@
+"""qwen1.5-4b [dense] — MHA with QKV bias.
+
+40L d_model=2560 20H (kv=20) d_ff=6912 vocab=151936 [hf:Qwen/Qwen1.5-0.5B].
+"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b",
+    family="dense",
+    n_layers=40,
+    d_model=2560,
+    n_heads=20,
+    n_kv_heads=20,
+    head_dim=128,
+    d_ff=6912,
+    vocab=151936,
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)

@@ -1,0 +1,21 @@
+"""qwen2-0.5b [dense] — GQA with QKV bias. Doubles as the CoSine drafter-family
+config (the paper's Qwen pair uses Qwen2.5-0.5B as drafter).
+
+24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151936 [arXiv:2407.10671].
+"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=896,
+    n_heads=14,
+    n_kv_heads=2,
+    head_dim=64,
+    d_ff=4864,
+    vocab=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    rope_theta=1000000.0,
+)

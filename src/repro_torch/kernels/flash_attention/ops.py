@@ -1,0 +1,216 @@
+"""Flash-attention partials: the Hopper kernel's wrapper, its plain
+PyTorch version and the launch counter.
+
+`attend_partial` is the one entry point the model calls. It computes
+blocked online-softmax attention and returns the unnormalised partials
+(m, l, acc) in the model's layout:
+
+  q      (B, T, Hkv, G, Dk)  GQA group folded into the query
+  k, v   (P, S, Hkv, Dk/Dv)  P = B, or a resident slot pool read through
+                             `slot_idx` (B,) without a gathered copy
+  q_pos  (B, T) int32; k_pos (P, S) int32, -1 = empty slot
+  mask   optional (B, T, S) bool, ANDed in (tree masks)
+  -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
+
+Rows are token-major (row r = t * G + g), which is the (B, Hkv, R, D)
+contract of the JAX package's Pallas kernel
+(`repro/kernels/common.py::flash_attention_partial`) seen through
+strides; `flash_attention_partial` below is that contract, for tests.
+
+On a CUDA tensor the wrapper launches the kernel of
+`csrc/flash_attention.cu` or raises; on a CPU tensor it runs the plain
+version, a transcription of the reference's `attend_partial` arithmetic.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+_KV_DTYPES = (torch.float32, torch.bfloat16)
+
+#: kernel launches made by `attend_partial` (a plain integer; reset it
+#: to 0 before a run whose launches should be counted)
+LAUNCHES = 0
+
+
+# =====================================================================
+# plain version
+# =====================================================================
+
+def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
+                         window=0, mask=None, slot_idx=None, block=1024):
+    """Plain PyTorch partials, same arguments and results as
+    `attend_partial`: the reference's `attend_partial` (a scan over KV
+    blocks of `block` keys) written out with einsum."""
+    if slot_idx is not None:
+        k, v, k_pos = k[slot_idx], v[slot_idx], k_pos[slot_idx]
+    B, T, Hkv, G, Dk = q.shape
+    S = k.shape[1]
+    Dv = v.shape[-1]
+    qf = q.float()
+    block = max(1, min(block, S))
+    m = torch.full((B, T, Hkv, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, T, Hkv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, T, Hkv, G, Dv), dtype=torch.float32,
+                      device=q.device)
+    for s0 in range(0, S, block):
+        kc = k[:, s0: s0 + block].float()
+        vc = v[:, s0: s0 + block].float()
+        kpc = k_pos[:, s0: s0 + block]
+        s = torch.einsum("bthgd,bshd->bthgs", qf, kc) * scale
+        valid = (kpc[:, None, :] >= 0).expand(B, T, kpc.shape[1])
+        if causal:
+            valid = valid & (kpc[:, None, :] <= q_pos[:, :, None])
+        if window:
+            valid = valid & (q_pos[:, :, None] - kpc[:, None, :] < window)
+        if mask is not None:
+            valid = valid & mask[:, :, s0: s0 + block]
+        vb = valid[:, :, None, None, :]
+        s = torch.where(vb, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        # zero fully-masked rows (exp(NEG_INF - NEG_INF) = 1 otherwise)
+        p = torch.where(vb, p, torch.zeros_like(p))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bthgs,bshd->bthgd",
+                                                   p, vc)
+        m = m_new
+    return m, l, acc
+
+
+# =====================================================================
+# kernel wrapper
+# =====================================================================
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(f"flash-attention kernel: {msg}")
+
+
+def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
+            slot_idx):
+    from repro_torch.kernels.flash_attention import build
+
+    B, T, Hkv, G, Dk = q.shape
+    P, S = k.shape[0], k.shape[1]
+    Dv = v.shape[-1]
+    dev = q.device
+    _check(Dk == Dv and Dk in SUPPORTED_HEAD_DIMS,
+           f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
+           f"{SUPPORTED_HEAD_DIMS}")
+    _check(q.dtype in _KV_DTYPES and k.dtype in _KV_DTYPES
+           and v.dtype == k.dtype, f"dtypes q={q.dtype} k={k.dtype} "
+           f"v={v.dtype}; supported float32 / bfloat16, k and v alike")
+    _check(tuple(k.shape) == (P, S, Hkv, Dk)
+           and tuple(v.shape) == (P, S, Hkv, Dv), "k/v shapes")
+    _check(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
+           "q, k and v need a contiguous last (head) dimension")
+    for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos),
+                    ("mask", mask), ("slot_idx", slot_idx)):
+        _check(t is None or t.device == dev,
+               f"{name} is on {getattr(t, 'device', None)}, q on {dev}")
+    _check(tuple(q_pos.shape) == (B, T) and tuple(k_pos.shape) == (P, S),
+           "q_pos (B, T) / k_pos (P, S) shapes")
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.to(torch.int32).contiguous()
+    if slot_idx is None:
+        _check(P == B, f"k/v batch {P} != q batch {B} without slot_idx")
+    else:
+        _check(tuple(slot_idx.shape) == (B,), "slot_idx must be (B,)")
+        slot_idx = slot_idx.to(torch.int32).contiguous()
+    if mask is not None:
+        _check(tuple(mask.shape) == (B, T, S) and mask.dtype == torch.bool,
+               "mask must be a (B, T, S) bool tensor")
+        mask = mask.contiguous()
+
+    acc = torch.empty((B, T, Hkv, G, Dv), dtype=torch.float32, device=dev)
+    m = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    l = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    if B * T * G == 0:
+        return m.fill_(NEG_INF), l.zero_(), acc.zero_()
+
+    fn = build.load().fa_partial_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
+            0 if slot_idx is None else slot_idx.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            B, T, G, Hkv, S, Dk,
+            qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
+            vs[0], vs[1], vs[2], k_pos.stride(0), q_pos.stride(0),
+            0 if mask is None else mask.stride(0),
+            0 if mask is None else mask.stride(1),
+            float(scale), int(bool(causal)), int(window),
+            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return m, l, acc
+
+
+def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
+                   mask=None, slot_idx=None, block=1024):
+    """Online-softmax partials (m, l, acc); see the module docstring.
+
+    CUDA tensors launch the Hopper kernel (or raise on what it does not
+    take); CPU tensors run `attend_partial_plain`. `block` is the plain
+    version's KV block (the kernel tiles keys itself)."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
+                       window=window, mask=mask, slot_idx=slot_idx)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash-attention: unsupported device {q.device}")
+    return attend_partial_plain(q, k, v, q_pos, k_pos, scale=scale,
+                                causal=causal, window=window, mask=mask,
+                                slot_idx=slot_idx, block=block)
+
+
+# =====================================================================
+# merge, and the Pallas kernel's (B, Hkv, R, D) contract
+# =====================================================================
+
+def merge_two(a, b):
+    """Exactly merge two (m, l, acc) partial states."""
+    m_a, l_a, acc_a = a
+    m_b, l_b, acc_b = b
+    m = torch.maximum(m_a, m_b)
+    ea = torch.exp(m_a - m)
+    eb = torch.exp(m_b - m)
+    return m, l_a * ea + l_b * eb, acc_a * ea[..., None] + acc_b * eb[..., None]
+
+
+def finalize(partial):
+    """Normalise (m, l, acc); a fully masked row (l = 0) gives 0."""
+    _m, l, acc = partial
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return acc / l[..., None]
+
+
+def flash_attention_partial(q, k, v, q_pos, k_pos, *, scale, causal=True,
+                            window=0, mask=None):
+    """The Pallas kernel's contract: q (B, Hkv, R, Dk); k (B, Hkv, S, Dk);
+    v (B, Hkv, S, Dv); q_pos (B, R); k_pos (B, S); mask (B, R, S) bool.
+    Returns acc (B, Hkv, R, Dv), m (B, Hkv, R), l (B, Hkv, R), all f32."""
+    qm = q.permute(0, 2, 1, 3).unsqueeze(3)          # (B, R, Hkv, 1, Dk)
+    m, l, acc = attend_partial(
+        qm, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), q_pos, k_pos,
+        scale=scale, causal=causal, window=window, mask=mask,
+        block=max(8, min(128, k.shape[2])))
+    return (acc[:, :, :, 0].permute(0, 2, 1, 3), m[..., 0].permute(0, 2, 1),
+            l[..., 0].permute(0, 2, 1))
+
+
+def merge_partials(parts):
+    """Merge [(acc, m, l), ...] in the kernel layout; normalised output."""
+    acc, m, l = parts[0]
+    state = (m, l, acc)
+    for acc2, m2, l2 in parts[1:]:
+        state = merge_two(state, (m2, l2, acc2))
+    return finalize(state)

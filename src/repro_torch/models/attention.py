@@ -1,0 +1,272 @@
+"""GQA attention over slot caches (port of `repro.models.attention`,
+GQA path only).
+
+Every attention of the forward pass goes through
+`kernels.flash_attention.ops.attend_partial`: on CUDA tensors it runs the
+hand-written Hopper kernel, on CPU tensors its plain PyTorch version.
+
+KV caches are dicts of tensors:
+  {"k": (B, C, Hkv, Dk), "v": (B, C, Hkv, Dv), "slot_pos": (B, C) int32}
+`slot_pos` holds the absolute position stored in each slot (-1 = empty);
+masking is always against `slot_pos`, so ring caches (sliding window)
+stay correct as long as C >= window + the largest written segment.
+
+Unlike the reference, whose arrays are immutable, the port writes new
+KV rows IN PLACE: into the resident slot pool through `slot_idx`, or into
+a plain batch cache (drafting snapshots and single-request caches are
+owned by their caller and never reused after a step). Reads of the pool
+go through `slot_idx` inside the kernel, without a gathered copy.
+
+MLA, cross-attention, int8 KV caches and paged pools are not ported yet
+and raise `NotImplementedError` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm_headwise
+from repro_torch.models.quantize import qdot
+
+NEG_INF = -1e30
+RING_MARGIN = 128  # extra ring slots beyond the window (max verify segment)
+
+PAGED_ROADMAP = "the paged KV pool is not ported yet (ROADMAP queue 1 item 9)"
+INT8_KV_ROADMAP = ("kv_dtype='int8' caches are not ported yet "
+                   "(ROADMAP queue 1 item 11)")
+MLA_ROADMAP = "MLA attention is not ported yet (ROADMAP queue 1 item 11)"
+CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
+                 "(ROADMAP queue 1 item 11)")
+
+
+# =====================================================================
+# blocked online-softmax attention primitive
+# =====================================================================
+
+def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
+                   extra_mask=None, block=1024, slot_idx=None):
+    """Online-softmax partials (m, l, acc) — the kernel's wrapper.
+
+    q: (B, T, Hkv, G, Dk); k: (P, S, Hkv, Dk); v: (P, S, Hkv, Dv);
+    q_pos: (B, T); k_pos: (P, S) (-1 empty); extra_mask: (B, T, S) bool;
+    slot_idx: (B,) rows of a pool (P > B) read in place, or None (P = B).
+    Returns (B,T,Hkv,G), (B,T,Hkv,G), (B,T,Hkv,G,Dv), all f32."""
+    return fa.attend_partial(q, k, v, q_pos, k_pos, scale=scale,
+                             causal=causal, window=window, mask=extra_mask,
+                             slot_idx=slot_idx, block=block)
+
+
+def finalize_partial(partial, out_dtype):
+    """acc / l with fully masked rows (l = 0) giving 0."""
+    return fa.finalize(partial).to(out_dtype)
+
+
+def blocked_attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
+                      extra_mask=None, block=1024, segment=None,
+                      slot_idx=None):
+    """History partial over (k, v) — read through `slot_idx` when given —
+    merged with an optional `segment` = (k_seg, v_seg, pos_seg, mask_seg)
+    of freshly drafted tokens (tree verification), then normalised."""
+    partial = attend_partial(q, k, v, q_pos, k_pos, scale=scale,
+                             causal=causal, window=window,
+                             extra_mask=extra_mask, block=block,
+                             slot_idx=slot_idx)
+    if segment is not None:
+        k_s, v_s, pos_s, mask_s = segment
+        p2 = attend_partial(q, k_s, v_s, q_pos, pos_s, scale=scale,
+                            causal=causal, window=window, extra_mask=mask_s,
+                            block=max(k_s.shape[1], 1))
+        partial = fa.merge_two(partial, p2)
+    return finalize_partial(partial, q.dtype)
+
+
+# =====================================================================
+# KV cache helpers
+# =====================================================================
+
+def make_kv_cache(batch, capacity, n_kv, dk, dv=None, dtype=torch.bfloat16,
+                  quantized=False, device=None):
+    """Empty cache: zero K/V (finite, so masked keys add exactly 0) and
+    slot_pos -1."""
+    if quantized:
+        raise NotImplementedError(INT8_KV_ROADMAP)
+    dv = dv or dk
+    return {
+        "k": torch.zeros((batch, capacity, n_kv, dk), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, capacity, n_kv, dv), dtype=dtype,
+                         device=device),
+        "slot_pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def cache_capacity(cfg: ModelConfig, max_len: int, layer_window: int) -> int:
+    if layer_window:
+        return min(max_len, layer_window + RING_MARGIN)
+    return max_len
+
+
+def kv_rows(cache, k_new, v_new, positions):
+    """New-token KV rows in storage form: {"k", "v", "slot_pos"} with
+    leading (B, T)."""
+    if "k_scale" in cache:
+        raise NotImplementedError(INT8_KV_ROADMAP)
+    return {"slot_pos": positions.to(torch.int32),
+            "k": k_new.to(cache["k"].dtype),
+            "v": v_new.to(cache["v"].dtype)}
+
+
+def set_rows(cache, rows, positions, slot_idx=None):
+    """Write `kv_rows` in place at column = position % capacity of cache
+    row slot_idx[b] (or b). Duplicate rows (scratch-slot padding) resolve
+    arbitrarily; no request reads them."""
+    C = cache["slot_pos"].shape[1]
+    col = (positions % C).long()                             # (B, T)
+    if slot_idx is None:
+        bidx = torch.arange(positions.shape[0], device=col.device)[:, None]
+    else:
+        bidx = slot_idx.long()[:, None]
+    for key, val in rows.items():
+        cache[key][bidx, col] = val
+    return cache
+
+
+def take_rows(cache, slot_idx, page_view=None):
+    """Gathered copy of the active rows of a resident cache (the attention
+    path itself reads in place through `slot_idx`)."""
+    if page_view is not None:
+        raise NotImplementedError(PAGED_ROADMAP)
+    if slot_idx is None:
+        return cache
+    idx = slot_idx.long()
+    return {k: v.index_select(0, idx) for k, v in cache.items()}
+
+
+def _attend_cached(qg, k_new, v_new, cache, positions, *, scale, window,
+                   block, seg_mask, slot_idx, write, token_mask=None,
+                   page_view=None):
+    """Cache-backed attention core.
+
+    Plain decode/extend (write, no seg_mask): the new rows are written in
+    place, then the queries attend over the written cache. No-commit
+    scoring or tree masks: the queries attend over the cache as it was
+    (fully causal) merged with the fresh segment under its mask; a write
+    asked for alongside a seg_mask lands after that read.
+
+    token_mask: (B, T) bool — suffix shape-padding rows (False) are
+    written with slot_pos = -1 at their real columns: invisible to every
+    read and overwritten by the next real tokens there.
+    Returns (out, cache | None)."""
+    if page_view is not None:
+        raise NotImplementedError(PAGED_ROADMAP)
+    B, T = positions.shape
+    k_pos = (positions if token_mask is None
+             else torch.where(token_mask, positions,
+                              torch.full_like(positions, -1)))
+    if write and seg_mask is None:
+        set_rows(cache, kv_rows(cache, k_new, v_new, k_pos), positions,
+                 slot_idx)
+        out = blocked_attention(
+            qg, cache["k"], cache["v"], positions, cache["slot_pos"],
+            scale=scale, causal=True, window=window, block=block,
+            slot_idx=slot_idx)
+        return out, cache
+    mask_s = seg_mask
+    if mask_s is None:
+        mask_s = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                       device=positions.device)
+                            ).expand(B, T, T)
+    out = blocked_attention(
+        qg, cache["k"], cache["v"], positions, cache["slot_pos"],
+        scale=scale, causal=True, window=window, block=block,
+        segment=(k_new, v_new, k_pos, mask_s), slot_idx=slot_idx)
+    if write:
+        set_rows(cache, kv_rows(cache, k_new, v_new, k_pos), positions,
+                 slot_idx)
+        return out, cache
+    return out, None
+
+
+# =====================================================================
+# GQA attention layer
+# =====================================================================
+
+def gqa_params(gen, cfg: ModelConfig, device, cross: bool = False):
+    if cross:
+        raise NotImplementedError(CROSS_ROADMAP)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    p = {
+        "wq": dense_init(gen, (d, hq * hd), device),
+        "wk": dense_init(gen, (d, hkv * hd), device),
+        "wv": dense_init(gen, (d, hkv * hd), device),
+        "wo": dense_init(gen, (hq * hd, d), device),
+    }
+    if cfg.qkv_bias:
+        p.update(bq=torch.zeros(hq * hd, device=device),
+                 bk=torch.zeros(hkv * hd, device=device),
+                 bv=torch.zeros(hkv * hd, device=device))
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones(hd, device=device),
+                 k_norm=torch.ones(hd, device=device))
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x, positions, rope: bool):
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = qdot(x, p["wq"])
+    k = qdot(x, p["wk"])
+    v = qdot(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, T, cfg.n_heads, hd)
+    k = k.reshape(B, T, cfg.n_kv_heads, hd)
+    v = v.reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm_headwise(p["k_norm"], k, cfg.norm_eps)
+    if rope and cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
+                  seg_mask=None, window=0, block=1024, slot_idx=None,
+                  write=True, token_mask=None, page_view=None):
+    """Self-attention for any mode.
+
+    x: (B, T, d); positions: (B, T) absolute positions of these tokens.
+    cache=None  -> self-contained: attends within x only.
+    cache=dict  -> decode/verify/prefill with a cache (see _attend_cached).
+    seg_mask: (B, T, T) mask among the fresh tokens (tree verification).
+    slot_idx: (B,) — cache is a resident slot pool; row b of x lives in
+              pool row slot_idx[b]; reads and writes go there in place.
+    write=False -> no-commit scoring (returns None for the cache).
+    Returns (out, cache | None)."""
+    if cfg.attention == "mla":
+        raise NotImplementedError(MLA_ROADMAP)
+    B, T, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    scale = hd ** -0.5
+    q, k, v = _project_qkv(p, cfg, x, positions, rope=True)
+    qg = q.reshape(B, T, hkv, g, hd)
+    if cache is not None and cfg.decode_block:
+        block = cfg.decode_block
+
+    if cache is None:
+        out = blocked_attention(qg, k, v, positions, positions, scale=scale,
+                                causal=True, window=window,
+                                extra_mask=seg_mask, block=block)
+        new_cache = None
+    else:
+        out, new_cache = _attend_cached(
+            qg, k, v, cache, positions, scale=scale, window=window,
+            block=block, seg_mask=seg_mask, slot_idx=slot_idx, write=write,
+            token_mask=token_mask, page_view=page_view)
+    out = out.reshape(B, T, hq * hd)
+    return qdot(out, p["wo"]), new_cache

@@ -1,0 +1,54 @@
+"""Weight bridge: the reference's parameter tree -> the port's.
+
+The JAX package stacks the parameters of each stage of its layer plan
+along a leading `reps` axis (its `lax.scan` layout):
+  {"embed", "stages": [tuple(sublayer dict with leading reps)],
+   "final_norm", "head"?}
+`params_from_numpy` splits that axis into one dict per layer, in layer
+order, and moves every leaf to a tensor on `device`. The leaves must
+already be numpy arrays (convert with `np.asarray` on the JAX side), so
+this module needs neither JAX nor the reference package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import layer_plan, layer_specs
+
+
+def _to_tensor(a, device):
+    # a private, writable copy: the leaves may be read-only views of JAX
+    # buffers, and torch tensors must not share them
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    return fn(x)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """Port parameters from the reference's `init_params` tree (numpy
+    leaves); the per-stage `reps` axis becomes per-layer tensors."""
+    dev = resolve_device(device)
+    layer_specs(cfg)                       # refuse unported layer kinds
+    layers = []
+    for (pattern, reps), stage in zip(layer_plan(cfg), tree["stages"]):
+        for r in range(reps):
+            for j in range(len(pattern)):
+                layers.append(_tree(stage[j],
+                                    lambda a, r=r: _to_tensor(a[r], dev)))
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, config has "
+                         f"{cfg.n_layers}")
+    out = {"embed": _to_tensor(tree["embed"], dev), "layers": layers,
+           "final_norm": _tree(tree["final_norm"],
+                               lambda a: _to_tensor(a, dev))}
+    for key in ("head", "pos"):
+        if key in tree:
+            out[key] = _to_tensor(tree[key], dev)
+    return out

@@ -1,0 +1,391 @@
+"""Dense transformer assembly (port of `repro.models.model`, dense path).
+
+Parameters and caches are plain dicts of tensors, one entry per layer
+(the reference's `lax.scan` over stacked stages is a Python loop here):
+
+  params = {"embed": (Vp, d), "layers": [{"ln1", "mixer", "ln2", "ffn"}],
+            "final_norm": {...}, "head": (d, Vp) unless tied}
+  cache  = {"layers": [{"self": kv cache}], "lengths": (B,) int32}
+
+One `apply()` serves scoring, prefill, decode and speculative
+verification (chain or tree), as in the reference; the mode follows from
+(cache, seg_mask, write). Caches are updated IN PLACE (the reference
+returns new arrays): the slot steps write only the new tokens' rows of
+the active slots of the resident pool, which is what the reference's
+`_scatter_stage_delta` does after its scan.
+
+Only dense attention families are ported; SSM/hybrid mixers, MoE FFNs,
+MLA and cross-attention raise `NotImplementedError` naming their ROADMAP
+item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import attention as attn
+from repro_torch.models import quantize
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
+                                       mlp_params, norm_params)
+
+SSM_ROADMAP = "SSM and hybrid mixers are not ported yet (ROADMAP queue 1 item 10)"
+MOE_ROADMAP = "MoE layers are not ported yet (ROADMAP queue 1 item 11)"
+
+
+# ====================================================== layer plan
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str          # "attn" | "mla" | "ssm"
+    cross: bool         # has a cross-attention sub-block
+    ffn: str            # "dense" | "moe" | "none"
+
+
+def _spec_for(cfg: ModelConfig, idx: int) -> LayerSpec:
+    kind = cfg.layer_kind(idx)
+    if kind == "ssm":
+        mixer = "ssm"
+    elif cfg.attention == "mla":
+        mixer = "mla"
+    else:
+        mixer = "attn"
+    if cfg.family == "ssm":
+        ffn = "none" if cfg.d_ff == 0 else "dense"
+    elif cfg.is_moe_layer(idx):
+        ffn = "moe"
+    else:
+        ffn = "dense"
+    cross = cfg.is_cross_layer(idx) or cfg.is_encdec
+    return LayerSpec(mixer=mixer, cross=cross, ffn=ffn)
+
+
+def _compress(specs: list) -> list:
+    """Greedy max-coverage run-length stage compression.
+
+    Returns [(pattern tuple, repeats), ...] with sum(len(p)*r) == len(specs).
+    """
+    stages = []
+    i = 0
+    n = len(specs)
+    while i < n:
+        best_p, best_k = 1, 1
+        for p in range(1, (n - i) // 2 + 1):
+            k = 1
+            while specs[i + k * p: i + (k + 1) * p] == specs[i: i + p]:
+                k += 1
+            if k > 1 and (p * k > best_p * best_k
+                          or (p * k == best_p * best_k and p < best_p)):
+                best_p, best_k = p, k
+        if best_k == 1:  # no repetition: take the longest non-repeating run
+            best_p = n - i
+        stages.append((tuple(specs[i: i + best_p]), best_k))
+        i += best_p * best_k
+    return stages
+
+
+def layer_plan(cfg: ModelConfig) -> list:
+    """The reference's stage plan [(pattern, repeats), ...]; the port
+    runs layer by layer but keeps the plan to read the reference's
+    stacked parameter and cache layout (`models/convert.py`)."""
+    return _compress([_spec_for(cfg, i) for i in range(cfg.n_layers)])
+
+
+def layer_specs(cfg: ModelConfig) -> list:
+    """Per-layer specs; raises on the layer kinds not ported yet."""
+    specs = [_spec_for(cfg, i) for i in range(cfg.n_layers)]
+    for s in specs:
+        if s.mixer == "ssm":
+            raise NotImplementedError(SSM_ROADMAP)
+        if s.mixer == "mla":
+            raise NotImplementedError(attn.MLA_ROADMAP)
+        if s.cross:
+            raise NotImplementedError(attn.CROSS_ROADMAP)
+        if s.ffn == "moe":
+            raise NotImplementedError(MOE_ROADMAP)
+    if cfg.kv_dtype == "int8":
+        raise NotImplementedError(attn.INT8_KV_ROADMAP)
+    return specs
+
+
+def effective_window(cfg: ModelConfig) -> int:
+    if cfg.attention == "swa" and cfg.sliding_window:
+        return cfg.sliding_window
+    if cfg.long_context == "swa":
+        return cfg.long_context_window
+    return 0
+
+
+# ====================================================== params
+
+def _generator(seed_or_gen, device) -> torch.Generator:
+    if isinstance(seed_or_gen, torch.Generator):
+        return seed_or_gen
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed_or_gen))
+    return gen
+
+
+def init_params(cfg: ModelConfig, seed=0, device=None):
+    """Random parameters (f32) drawn from `seed` (an int or a
+    torch.Generator on `device`). Runs on CUDA unless device="cpu"."""
+    dev = resolve_device(device)
+    specs = layer_specs(cfg)
+    gen = _generator(seed, dev)
+    params = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dev)}
+    layers = []
+    for spec in specs:
+        p = {"ln1": norm_params(cfg, cfg.d_model, dev),
+             "mixer": attn.gqa_params(gen, cfg, dev)}
+        if spec.ffn != "none":
+            p["ln2"] = norm_params(cfg, cfg.d_model, dev)
+            p["ffn"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev)
+        layers.append(p)
+    params["layers"] = layers
+    params["final_norm"] = norm_params(cfg, cfg.d_model, dev)
+    if not cfg.tie_embeddings:
+        params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab), dev)
+    if cfg.pos_embed == "learned":
+        params["pos"] = embed_init(gen, (cfg.max_position, cfg.d_model), dev)
+    return params
+
+
+# ====================================================== caches
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Decode/prefill cache: one KV cache per layer plus `lengths`."""
+    dev = resolve_device(device)
+    specs = layer_specs(cfg)
+    window = effective_window(cfg)
+    cap = attn.cache_capacity(cfg, max_len, window)
+    hd = cfg.resolved_head_dim
+    dt = torch_dtype(dtype)
+    layers = [{"self": attn.make_kv_cache(batch, cap, cfg.n_kv_heads, hd, hd,
+                                          dt, device=dev)}
+              for _ in specs]
+    return {"layers": layers,
+            "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def _map_cache(cache, fn):
+    return [{key: {f: fn(t) for f, t in sub.items()}
+             for key, sub in layer.items()} for layer in cache["layers"]]
+
+
+# ====================================================== slotted caches
+#
+# Continuous batching: one device-resident cache whose batch axis is a
+# pool of request slots. The slot steps pass slot_idx down to attention,
+# which writes the new tokens' rows of the active slots in place and reads
+# the active rows through slot_idx. gather_slots makes the speculative
+# snapshots (decode-and-discard rollback); scatter_slots/reset_slots reset
+# a slot on admission.
+
+def gather_slots(cache, slot_idx):
+    """Compact copy of the slots `slot_idx` (B,), shaped like a batch
+    cache, so every step function runs on it unchanged."""
+    idx = slot_idx.long()
+    return {"layers": _map_cache(cache, lambda t: t.index_select(0, idx)),
+            "lengths": cache["lengths"].index_select(0, idx)}
+
+
+def scatter_slots(cache, sub, slot_idx):
+    """Write sub-cache rows back into their slots, in place. Duplicate
+    indices (scratch padding) resolve arbitrarily."""
+    idx = slot_idx.long()
+    for layer, sub_layer in zip(cache["layers"], sub["layers"]):
+        for key, c in layer.items():
+            for f, t in c.items():
+                t[idx] = sub_layer[key][f]
+    cache["lengths"][idx] = sub["lengths"]
+    return cache
+
+
+def reset_slots(cache, slot_idx):
+    """Empty the slots `slot_idx` in place (zero K/V, slot_pos -1,
+    length 0): what scattering a pristine cache into them does."""
+    idx = slot_idx.long()
+    for layer in cache["layers"]:
+        for c in layer.values():
+            for f, t in c.items():
+                t[idx] = -1 if f == "slot_pos" else 0
+    cache["lengths"][idx] = 0
+    return cache
+
+
+def concat_slots(cache, extra):
+    """Append `extra`'s slots after `cache`'s (capacity growth)."""
+    layers = [{key: {f: torch.cat([t, e[key][f]], dim=0)
+                     for f, t in sub.items()}
+               for key, sub in layer.items()}
+              for layer, e in zip(cache["layers"], extra["layers"])]
+    return {"layers": layers,
+            "lengths": torch.cat([cache["lengths"], extra["lengths"]])}
+
+
+def slot_decode_step(params, cfg: ModelConfig, tokens, cache, slot_idx,
+                     frontend=None, page_view=None):
+    """One decode step resident in the slotted cache. tokens: (B, 1);
+    slot_idx: (B,). Rows mapped to the scratch slot are compute padding."""
+    positions = cache["lengths"][slot_idx.long()][:, None]
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 frontend=frontend, write=True, slot_idx=slot_idx,
+                 page_view=page_view)
+
+
+def slot_extend(params, cfg: ModelConfig, tokens, cache, slot_idx,
+                frontend=None, token_mask=None, page_view=None):
+    """Commit a (B, G) chain of tokens into the slotted cache in place.
+
+    token_mask: optional (B, G) bool — True for real tokens, False for a
+    suffix of shape padding: written with slot_pos = -1, and `lengths`
+    advances by the real-token count only."""
+    G = tokens.shape[1]
+    positions = (cache["lengths"][slot_idx.long()][:, None]
+                 + torch.arange(G, dtype=torch.int32, device=tokens.device))
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 frontend=frontend, write=True, slot_idx=slot_idx,
+                 token_mask=token_mask, page_view=page_view)
+
+
+def slot_verify_chunk(params, cfg: ModelConfig, tokens, cache, slot_idx,
+                      rel_pos, seg_mask, page_view=None):
+    """Tree/chain verification against the slotted cache (no commit).
+    rel_pos: (B, G) node depths relative to each slot's length."""
+    positions = cache["lengths"][slot_idx.long()][:, None] + rel_pos
+    logits, _, _ = apply(params, cfg, tokens, positions, cache=cache,
+                         seg_mask=seg_mask, write=False, slot_idx=slot_idx,
+                         page_view=page_view)
+    return logits
+
+
+# ====================================================== apply
+
+def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
+                 *, seg_mask, write, slot_idx=None, token_mask=None):
+    window = effective_window(cfg)
+    h = apply_norm(p["ln1"], x, cfg)
+    self_cache = cache["self"] if cache is not None else None
+    out, _ = attn.gqa_attention(
+        p["mixer"], cfg, h, positions, cache=self_cache, seg_mask=seg_mask,
+        window=window, slot_idx=slot_idx, write=write, token_mask=token_mask)
+    # the reference rounds the residual stream to cfg.dtype after a block
+    x = (x + out).to(x.dtype)
+    if spec.ffn != "none":
+        h = apply_norm(p["ln2"], x, cfg)
+        x = (x + apply_mlp(p["ffn"], h, cfg)).to(x.dtype)
+    return x
+
+
+def _logits(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        logits = quantize.tied_logits(params["embed"], x).float()
+    else:
+        logits = quantize.qdot(x, params["head"]).float()
+    if cfg.padded_vocab != cfg.vocab:
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
+          frontend=None, seg_mask=None, write=True, slot_idx=None,
+          token_mask=None, page_view=None):
+    """Unified forward.
+
+    tokens:    (B, T) int
+    positions: (B, T) absolute positions (default arange)
+    cache:     None (self-contained) or a dict from init_cache
+    seg_mask:  (B, T, T) intra-segment mask (tree verification)
+    write:     commit new KV into the cache (in place)
+    slot_idx:  (B,) — `cache` is a resident slot pool; row b of tokens
+               lives in pool slot slot_idx[b]
+    token_mask: (B, T) bool — real tokens True, suffix padding False
+               (slot path only)
+    Returns (logits (B,T,Vp) f32, cache, aux_loss); the returned cache
+    is the argument, updated in place."""
+    if frontend is not None:
+        raise NotImplementedError(attn.CROSS_ROADMAP)
+    if page_view is not None:
+        raise NotImplementedError(attn.PAGED_ROADMAP)
+    if token_mask is not None and slot_idx is None:
+        raise ValueError("token_mask requires the slot path")
+    specs = layer_specs(cfg)
+    B, T = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=dev).expand(B, T)
+    dtype = torch_dtype(cfg.dtype)
+    x = quantize.embed_lookup(params["embed"], tokens, dtype)
+    if cfg.pos_embed == "learned":
+        x = x + params["pos"][positions.long()].to(dtype)
+
+    layer_caches = cache["layers"] if cache is not None else [None] * len(specs)
+    for spec, lp, lc in zip(specs, params["layers"], layer_caches):
+        x = _apply_layer(spec, lp, lc, x, positions, cfg, seg_mask=seg_mask,
+                         write=write, slot_idx=slot_idx,
+                         token_mask=token_mask)
+
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = _logits(params, cfg, x)
+
+    if cache is not None and write:
+        lengths = cache["lengths"]
+        if slot_idx is None:
+            cache["lengths"] = torch.maximum(
+                lengths, (positions[:, -1] + 1).to(lengths.dtype))
+        else:
+            # masked suffix tokens never advance the slot length (an
+            # all-masked row yields -1 and leaves the length as it is)
+            last = (positions[:, -1] if token_mask is None
+                    else torch.where(token_mask, positions,
+                                     torch.full_like(positions, -1)
+                                     ).amax(-1))
+            idx = slot_idx.long()
+            lengths[idx] = torch.maximum(lengths[idx],
+                                         (last + 1).to(lengths.dtype))
+    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+
+
+# ====================================================== convenience wrappers
+
+def prefill(params, cfg: ModelConfig, tokens, cache, frontend=None):
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device).expand(tokens.shape)
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 frontend=frontend, write=True)
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, frontend=None):
+    """tokens: (B, 1) next tokens at positions cache['lengths']."""
+    positions = cache["lengths"][:, None]
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 frontend=frontend, write=True)
+
+
+def verify_chunk(params, cfg: ModelConfig, tokens, cache, positions=None,
+                 seg_mask=None, write=False):
+    """Score a draft segment (chain or tree) against the cache without
+    committing. tokens: (B, G); positions default chain continuation."""
+    B, G = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = cache["lengths"][:, None] + torch.arange(
+            G, dtype=torch.int32, device=dev)
+    if seg_mask is None:
+        seg_mask = torch.tril(torch.ones((G, G), dtype=torch.bool,
+                                         device=dev)).expand(B, G, G)
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 seg_mask=seg_mask, write=write)
+
+
+def extend(params, cfg: ModelConfig, tokens, cache, frontend=None):
+    """Commit accepted tokens (chain) into the cache; returns logits too."""
+    B, G = tokens.shape
+    positions = cache["lengths"][:, None] + torch.arange(
+        G, dtype=torch.int32, device=tokens.device)
+    return apply(params, cfg, tokens, positions, cache=cache,
+                 frontend=frontend, write=True)
