@@ -5,21 +5,28 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the hand-written Hopper flash-attention kernel from the sources
-in the checkout, holds it against its plain PyTorch version at the
-serving path's own shapes (timing both, with the work's lower bound and
-one `scaled_dot_product_attention` call as a yardstick), then serves the
-CoSine main path end to end through `SpeculativeEngine.submit/run`:
+It builds the port's three hand-written Hopper kernels from the sources
+in the checkout (one `nvcc` each, in parallel), holds each against its
+plain PyTorch version at the serving path's own shapes (timing both, with
+the work's lower bound and one library call as a yardstick), then serves
+the CoSine path end to end through `SpeculativeEngine.submit/run`:
 
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
            (prompts of 64..600 tokens) of 32 new tokens each;
   phase B  the same target with two "perfect" drafters that share its
-           weights (mean acceptance must exceed 1).
+           weights (mean acceptance must exceed 1);
+  phase C  phase A on the paged KV pool (page_size 64, a pool of 16
+           pages per model that must grow): every pool read goes through
+           the paged-attention kernel, and the committed streams equal
+           phase A's;
+  phase D  phase A with drafter 0 as int8 weights beside a
+           full-precision drafter 1: every quantized product goes
+           through the int8 GEMV kernel.
 
 Each committed stream is held against the port's own greedy reference
-(`prefill` + `decode_step`), and the kernel's launch counter must show
-that every attention of the run went through the kernel. The last line is
+(`prefill` + `decode_step`), and each kernel's launch counter must equal
+the model's calls of that kernel in the phase. The last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Without CUDA, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -44,9 +51,26 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dens
 # f32 summation order: relative ~1e-6, on partials (acc, l) that grow to
 # O(100) over ~600 keys and on O(1) normalised outputs
 KERNEL_TOL = 1e-4
+# int8 GEMV vs its plain version: the same exact int8 -> f32 and bf16 ->
+# f32 conversions and f32 products, summed in another order over K <=
+# 4864 terms: relative ~1e-6 on outputs of O(1)
+INT8_TOL = 1e-4
 MAX_LEN = 1024
 NEW_TOKENS = 32
 PROMPT_LENS = (64, 200, 350, 600)
+PAGE_SIZE = 64
+POOL_PAGES = 16
+KERNEL_SOURCES = {
+    "flash_attention_partial": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
+    "paged_flash_decode": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:127"),
+    "int8_gemv_call": (
+        "src/repro_torch/kernels/int8_gemv/csrc/int8_gemv.cu",
+        "src/repro/kernels/int8_gemv/kernel.py:51"),
+}
 
 
 def fail(msg: str) -> None:
@@ -111,6 +135,13 @@ def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
     return kv_bytes + other, flops
 
 
+def _bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def kernel_phase(torch, fa):
     """Kernel vs plain version at the main path's shapes; returns rows."""
     gen = torch.Generator(device="cuda")
@@ -143,15 +174,8 @@ def kernel_phase(torch, fa):
         # target tree verification, cache pass + segment pass: Hkv=20,
         # G=1, D=128, a 10-node tree (fused chain of 5 + side branches)
         T = 10
-        parent = [-1, 0, 1, 2, 3, 0, 1, 2, 3, 4]
-        depth = [0, 1, 2, 3, 4, 1, 2, 3, 4, 5]
-        tree = torch.zeros((T, T), dtype=torch.bool)
-        for i in range(T):
-            j = i
-            while j >= 0:
-                tree[i, j] = True
-                j = parent[j]
-        rel = torch.tensor(depth, dtype=torch.int32, device="cuda")
+        tree = _tree_mask(torch)
+        rel = torch.tensor(TREE_DEPTH, dtype=torch.int32, device="cuda")
         qpos = (cur[:, None] + rel[None, :]).to(torch.int32)
         kpt = pool_pos(9, MAX_LEN, lens)
         cases.append(dict(
@@ -166,8 +190,7 @@ def kernel_phase(torch, fa):
             q=rnd((4, T, 20, 1, 128), torch.float32),
             k=rnd((4, T, 20, 128), dtype), v=rnd((4, T, 20, 128), dtype),
             q_pos=qpos, k_pos=qpos.clone(), slot_idx=None,
-            mask=tree.to("cuda").expand(4, T, T).contiguous(),
-            causal=True))
+            mask=tree.expand(4, T, T).contiguous(), causal=True))
         # a 512-row causal prefill chunk of the target, written into slot 1
         P = 512
         kpp = pool_pos(9, MAX_LEN, [0, P, 0, 0, 0, 0, 0, 0, 0])
@@ -188,52 +211,72 @@ def kernel_phase(torch, fa):
         got = fa.attend_partial(*args, **kw)
         want = fa.attend_partial_plain(*args, **kw)
         torch.cuda.synchronize()
-        for part, a, b in zip(("m", "l", "acc"), got, want):
-            if not torch.isfinite(a).all():
-                fail(f"{c['name']}: kernel {part} not finite")
-            if not torch.allclose(a, b, rtol=KERNEL_TOL, atol=KERNEL_TOL):
-                fail(f"{c['name']}: kernel {part} vs plain max |err| "
-                     f"{float((a - b).abs().max()):.3e} outside rtol=atol="
-                     f"{KERNEL_TOL}")
-        # reported error: the normalised attention output
-        err = float((fa.finalize(got) - fa.finalize(want)).abs().max())
-        if err > KERNEL_TOL:
-            fail(f"{c['name']}: normalised output max |err| {err:.3e} > "
-                 f"{KERNEL_TOL}")
+        err = _check_partials(torch, fa, c["name"], got, want)
         ms = _graph_ms(torch, lambda: fa.attend_partial(*args, **kw))
         plain_ms = _graph_ms(torch, lambda: fa.attend_partial_plain(
             *args, **kw), reps=3)
-        lib_ms = _library_ms(torch, c)
+        lib_ms = _library_ms(torch, c["q"], c["k"], c["v"], c["q_pos"],
+                             c["k_pos"], c["slot_idx"], c["mask"])
         nbytes, flops = _work(torch, *args, c["slot_idx"], c["mask"],
                               c["causal"])
         kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[kv_type] * 1e3
+        bound, by = _bound(nbytes, flops, kv_type)
         rows.append(dict(name=c["name"], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops
-                         else "operations", library_ms=lib_ms,
-                         bytes=nbytes, flops=flops))
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=lib_ms, bytes=nbytes, flops=flops,
+                         dtype=kv_type))
         print(f"kernel {c['name']}: max|err| {err:.2e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  bound {max(t_bytes, t_ops):.4f} ms "
-              f"({rows[-1]['bound_by']})  sdpa {lib_ms:.4f} ms", flush=True)
+              f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+              f"sdpa {lib_ms:.4f} ms", flush=True)
     return rows
 
 
-def _library_ms(torch, c):
+# a 10-node tree as phase A verifies: a fused chain of 5 + side branches
+TREE_PARENT = [-1, 0, 1, 2, 3, 0, 1, 2, 3, 4]
+TREE_DEPTH = [0, 1, 2, 3, 4, 1, 2, 3, 4, 5]
+
+
+def _tree_mask(torch):
+    T = len(TREE_PARENT)
+    tree = torch.zeros((T, T), dtype=torch.bool)
+    for i in range(T):
+        j = i
+        while j >= 0:
+            tree[i, j] = True
+            j = TREE_PARENT[j]
+    return tree.to("cuda")
+
+
+def _check_partials(torch, fa, name, got, want):
+    """Every partial finite and within KERNEL_TOL of the plain version;
+    returns the max |error| of the normalised output."""
+    for part, a, b in zip(("m", "l", "acc"), got, want):
+        if not torch.isfinite(a).all():
+            fail(f"{name}: kernel {part} not finite")
+        if not torch.allclose(a, b, rtol=KERNEL_TOL, atol=KERNEL_TOL):
+            fail(f"{name}: kernel {part} vs plain max |err| "
+                 f"{float((a - b).abs().max()):.3e} outside rtol=atol="
+                 f"{KERNEL_TOL}")
+    err = float((fa.finalize(got) - fa.finalize(want)).abs().max())
+    if err > KERNEL_TOL:
+        fail(f"{name}: normalised output max |err| {err:.3e} > "
+             f"{KERNEL_TOL}")
+    return err
+
+
+def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
     """One scaled_dot_product_attention call computing the normalised
     output on the same inputs (gathered, GQA-expanded K/V and a boolean
     mask prepared outside the timed call). A yardstick only."""
     import torch.nn.functional as F
-    q, k, v = c["q"], c["k"], c["v"]
     B, T, H, G, D = q.shape
-    kp = c["k_pos"]
-    if c["slot_idx"] is not None:
-        idx = c["slot_idx"].long()
+    kp = k_pos
+    if slot_idx is not None:
+        idx = slot_idx.long()
         k, v, kp = k[idx], v[idx], kp[idx]
-    valid = (kp >= 0)[:, None, :] & (kp[:, None, :] <= c["q_pos"][:, :, None])
-    if c["mask"] is not None:
-        valid = valid & c["mask"]
+    valid = (kp >= 0)[:, None, :] & (kp[:, None, :] <= q_pos[:, :, None])
+    if mask is not None:
+        valid = valid & mask
     qs = q.to(k.dtype).reshape(B, T, H * G, D).transpose(1, 2).contiguous()
     ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
@@ -242,46 +285,311 @@ def _library_ms(torch, c):
         qs, ks, vs, attn_mask=am, scale=D ** -0.5))
 
 
+def paged_kernel_phase(torch, fa, pa):
+    """The paged kernel at phase C's pool reads: against its plain version
+    and, bit for bit, against the flash-attention kernel on the gathered
+    view; returns rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    perm = torch.Generator().manual_seed(7)
+    lens = [80, 230, 380, 630]           # phase A's requests mid-run
+
+    def pool(H, D, held, rows_per_req):
+        """A page pool holding positions [0, held[b]) of request b on
+        pages handed out in a scrambled order, with the view of
+        `rows_per_req` columns per request (power of two pages, NULL
+        filler), as the runner builds it."""
+        n_req_pages = [-(-n // PAGE_SIZE) for n in held]
+        P = 2 + sum(n_req_pages) + 8
+        k = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
+        v = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
+        pos = torch.full((P, PAGE_SIZE), -1, dtype=torch.int32,
+                         device="cuda")
+        need = max(-(-n // PAGE_SIZE) for n in rows_per_req)
+        nv = 1 << (need - 1).bit_length()
+        tbl = torch.ones((len(held), nv), dtype=torch.int32, device="cuda")
+        free = (torch.randperm(P - 2, generator=perm) + 2).tolist()
+        for b, n in enumerate(held):
+            for j in range(n_req_pages[b]):
+                page = free.pop()
+                cnt = min(PAGE_SIZE, n - j * PAGE_SIZE)
+                pos[page, :cnt] = j * PAGE_SIZE + torch.arange(
+                    cnt, dtype=torch.int32, device="cuda")
+                tbl[b, j] = page
+        return k, v, pos, tbl
+
+    def rows_from(start, T):
+        return torch.tensor([[s + t for t in range(T)] for s in start],
+                            dtype=torch.int32, device="cuda")
+
+    cases = []
+    # decode, one token per request: written at position lens[b], then
+    # read with the lens[b] keys before it (target, then drafter)
+    held = [n + 1 for n in lens]
+    for H, G, D, who in ((20, 1, 128, "target"), (2, 7, 64, "drafter")):
+        k, v, pos, tbl = pool(H, D, held, held)
+        cases.append(dict(
+            name=f"{who}_decode_B4_T1_H{H}_G{G}_D{D}_f32",
+            q=torch.randn((4, 1, H, G, D), generator=gen, device="cuda"),
+            k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 1)))
+    # target verification, cache pass: the pool as it was (write=0 view)
+    k, v, pos, tbl = pool(20, 128, lens, lens)
+    cases.append(dict(
+        name="target_verify_cache_B4_T10_H20_D128_f32",
+        q=torch.randn((4, 10, 20, 1, 128), generator=gen, device="cuda"),
+        k=k, v=v, pos=pos, tbl=tbl,
+        q_pos=(torch.tensor(lens, device="cuda")[:, None]
+               + torch.tensor(TREE_DEPTH, device="cuda")[None]).to(
+                   torch.int32)))
+    # target commit of 5 accepted tokens: written first, then read
+    held = [n + 5 for n in lens]
+    k, v, pos, tbl = pool(20, 128, held, held)
+    cases.append(dict(
+        name="target_commit_B4_T5_H20_D128_f32",
+        q=torch.randn((4, 5, 20, 1, 128), generator=gen, device="cuda"),
+        k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 5)))
+    # a 512-row target prefill chunk on the pool
+    k, v, pos, tbl = pool(20, 128, [512], [512])
+    cases.append(dict(
+        name="target_prefill_B1_T512_H20_D128_f32",
+        q=torch.randn((1, 512, 20, 1, 128), generator=gen, device="cuda"),
+        k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from([0], 512)))
+    # a drafter commit (one-behind: the previous token + 4 accepted)
+    k, v, pos, tbl = pool(2, 64, held, held)
+    cases.append(dict(
+        name="drafter_commit_B4_T5_H2_G7_D64_f32",
+        q=torch.randn((4, 5, 2, 7, 64), generator=gen, device="cuda"),
+        k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 5)))
+
+    rows = []
+    for c in cases:
+        D = c["q"].shape[-1]
+        args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"], c["tbl"])
+        kw = dict(scale=D ** -0.5)
+        got = pa.paged_attend_partial(*args, **kw)
+        want = pa.paged_attend_partial_plain(*args, **kw)
+        kv = pa.gather_view(c["k"], c["tbl"])
+        vv = pa.gather_view(c["v"], c["tbl"])
+        kpv = pa.gather_view(c["pos"], c["tbl"])
+        k1_args = (c["q"], kv, vv, c["q_pos"], kpv)
+        k1 = fa.attend_partial(*k1_args, **kw)
+        torch.cuda.synchronize()
+        err = _check_partials(torch, fa, c["name"], got, want)
+        vs_k1 = max(float((a - b).abs().max()) for a, b in zip(got, k1))
+        ms = _graph_ms(torch, lambda: pa.paged_attend_partial(*args, **kw))
+        plain_ms = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
+            *args, **kw), reps=3)
+        k1_ms = _graph_ms(torch, lambda: fa.attend_partial(*k1_args, **kw))
+        lib_ms = _library_ms(torch, c["q"], kv, vv, c["q_pos"], kpv, None,
+                             None)
+        nbytes, flops = _work(torch, *k1_args, None, None, True)
+        nbytes += c["tbl"].numel() * 4
+        bound, by = _bound(nbytes, flops, "float32")
+        rows.append(dict(name=c["name"], max_abs_err=err,
+                         max_abs_diff_vs_kernel1=vs_k1, ms=ms,
+                         plain_ms=plain_ms, kernel1_gathered_ms=k1_ms,
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                         bytes=nbytes, flops=flops, dtype="float32"))
+        print(f"kernel paged {c['name']}: max|err| {err:.2e}  |paged - "
+              f"kernel 1 on the gathered view| {vs_k1:.3g}  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  kernel 1 gathered "
+              f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
+              f"{lib_ms:.4f} ms", flush=True)
+    return rows
+
+
+def int8_kernel_phase(torch, ig, quantize):
+    """The int8 GEMV at qwen2-0.5b's quantized products (4 bf16 rows of
+    drafter decode, the tied-logits head through the transposed table,
+    and one 512-row prefill product) against its plain version, and the
+    model's wrapper `int8_gemv` against the kernel's f32 output cast to
+    bf16 (bit for bit); returns rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    V = 151936
+    cases = []
+    for M_, K, N, what in ((4, 896, 896, "wq/wo"), (4, 896, 128, "wk/wv"),
+                           (4, 896, 4864, "wg/wu"), (4, 4864, 896, "wd"),
+                           (512, 896, 4864, "wg/wu prefill")):
+        w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
+        q = quantize.quantize_weight(w)
+        cases.append(dict(name=f"{what}_M{M_}_K{K}_N{N}_bf16", M=M_, K=K,
+                          N=N, w8=q["w8"], scale=q["scale"],
+                          dense=quantize.dequantize_weight(q, torch.bfloat16)))
+    emb = torch.randn((V, 896), generator=gen, device="cuda") * 0.02
+    q = quantize.quantize_weight(emb, axis=-1)
+    cases.append(dict(name=f"tied_logits_M4_K896_N{V}_bf16", M=4, K=896,
+                      N=V, w8=q["w8"].t(), scale=q["scale"],
+                      dense=quantize.dequantize_weight(q, torch.bfloat16).t()))
+    del emb, w, q
+
+    rows = []
+    for c in cases:
+        x = torch.randn((c["M"], c["K"]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        got = ig._launch(x, c["w8"], c["scale"])
+        want = ig.int8_gemv_plain(x, c["w8"], c["scale"])
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"int8 {c['name']}: kernel output not finite")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL):
+            fail(f"int8 {c['name']}: kernel vs plain max |err| {err:.3e} "
+                 f"outside rtol=atol={INT8_TOL}")
+        wrapped = ig.int8_gemv(x, c["w8"], c["scale"])
+        torch.cuda.synchronize()
+        if wrapped.dtype != x.dtype or not torch.equal(wrapped,
+                                                       got.to(x.dtype)):
+            fail(f"int8 {c['name']}: the wrapper int8_gemv differs from the "
+                 "kernel's output cast to bf16")
+        ms = _graph_ms(torch, lambda: ig._launch(x, c["w8"], c["scale"]))
+        plain_ms = _graph_ms(torch, lambda: ig.int8_gemv_plain(
+            x, c["w8"], c["scale"]), reps=3)
+        dense = c["dense"]
+        lib_ms = _graph_ms(torch, lambda: torch.matmul(x, dense))
+        M_, K, N = c["M"], c["K"], c["N"]
+        nbytes = K * N + 4 * N + x.numel() * 2 + 4 * M_ * N
+        bound, by = _bound(nbytes, 2 * M_ * K * N, "bfloat16")
+        rows.append(dict(name=c["name"], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=lib_ms, bytes=nbytes,
+                         flops=2 * M_ * K * N, dtype="bfloat16",
+                         layout="cols" if c["w8"].stride(1) == 1
+                         else "rows"))
+        print(f"kernel int8 {c['name']}: max|err| {err:.2e}  kernel "
+              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
+              f"({by})  bf16 matmul {lib_ms:.4f} ms", flush=True)
+        del c["dense"]
+    return rows
+
+
 # =====================================================================
 # serving phases
 # =====================================================================
 
-class AttentionCalls:
-    """Counts the model's attention calls (by form) and any call of the
-    plain version, to hold the kernel's launch counter against them."""
+class PathCounters:
+    """Counts, during one serving run, the model's calls of each kernel —
+    resident attention reads by form, page-pool reads by form, int8
+    products (from the quantized leaves of each forward's params) — and
+    the snapshot gathers with their `take_rows` copies, to hold every
+    kernel's launch counter against them; also counts any call of a
+    plain version (there must be none)."""
 
-    def __init__(self, attn_mod, fa):
-        self.attn_mod, self.fa = attn_mod, fa
-        self.orig = attn_mod.attend_partial
-        self.orig_plain = fa.attend_partial_plain
-        self.by_form = {}
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.int8_gemv import ops as ig
+        from repro_torch.kernels.paged_attention import ops as pa
+        from repro_torch.models import attention as attn
+        from repro_torch.models import model as M
+        from repro_torch.models import quantize
+        self.fa, self.pa, self.ig, self.attn, self.M = fa, pa, ig, attn, M
+        self.quantize = quantize
+        self.resident, self.paged = {}, {}
+        self.int8_products = 0
+        self.int8_per_forward = {}
+        self.snapshots_layers = 0
+        self.take_rows_calls = 0
         self.plain_calls = 0
+        self._saved = []
+
+    def _patch(self, mod, name, fn):
+        self._saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def _n_int8(self, params):
+        key = id(params)
+        if key not in self.int8_per_forward:
+            q = self.quantize.is_quantized
+            n = sum(q(w) for layer in params["layers"]
+                    for sub in ("mixer", "ffn") for w in layer[sub].values())
+            n += q(params.get("head")) + q(params["embed"])
+            self.int8_per_forward[key] = n
+        return self.int8_per_forward[key]
 
     def __enter__(self):
-        def counted(q, k, v, q_pos, k_pos, **kw):
+        orig_attend = self.attn.attend_partial
+        orig_paged = self.pa.paged_attend_partial
+        orig_apply = self.M.apply
+        orig_gather = self.M.gather_paged_slots
+        orig_take = self.attn.take_rows
+
+        def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
             form = ("segment" if kw.get("extra_mask") is not None
+                    else "snapshot" if kw.get("slot_idx") is None
                     else "decode" if T == 1
                     else "prefill" if T > 64 else "commit/verify")
-            self.by_form[form] = self.by_form.get(form, 0) + 1
-            return self.orig(q, k, v, q_pos, k_pos, **kw)
+            self.resident[form] = self.resident.get(form, 0) + 1
+            return orig_attend(q, k, v, q_pos, k_pos, **kw)
 
-        def plain(*a, **kw):
-            self.plain_calls += 1
-            return self.orig_plain(*a, **kw)
+        def paged(q, *a, **kw):
+            T = q.shape[1]
+            form = ("decode" if T == 1 else "prefill" if T > 64
+                    else "commit/verify")
+            self.paged[form] = self.paged.get(form, 0) + 1
+            return orig_paged(q, *a, **kw)
 
-        self.attn_mod.attend_partial = counted
-        self.fa.attend_partial_plain = plain
-        self.fa.LAUNCHES = 0
+        def apply(params, *a, **kw):
+            self.int8_products += self._n_int8(params)
+            return orig_apply(params, *a, **kw)
+
+        def gather(cfg, cache, *a, **kw):
+            self.snapshots_layers += len(cache["layers"])
+            return orig_gather(cfg, cache, *a, **kw)
+
+        def take(*a, **kw):
+            self.take_rows_calls += 1
+            return orig_take(*a, **kw)
+
+        def plain(orig):
+            def call(*a, **kw):
+                self.plain_calls += 1
+                return orig(*a, **kw)
+            return call
+
+        self._patch(self.attn, "attend_partial", attend)
+        self._patch(self.pa, "paged_attend_partial", paged)
+        self._patch(self.M, "apply", apply)
+        self._patch(self.M, "gather_paged_slots", gather)
+        self._patch(self.attn, "take_rows", take)
+        for mod, name in ((self.fa, "attend_partial_plain"),
+                          (self.pa, "paged_attend_partial_plain"),
+                          (self.ig, "int8_gemv_plain")):
+            self._patch(mod, name, plain(getattr(mod, name)))
+        self.fa.LAUNCHES = self.pa.LAUNCHES = self.ig.LAUNCHES = 0
         return self
 
     def __exit__(self, *exc):
-        self.attn_mod.attend_partial = self.orig
-        self.fa.attend_partial_plain = self.orig_plain
+        self.launches = dict(flash_attention_partial=self.fa.LAUNCHES,
+                             paged_flash_decode=self.pa.LAUNCHES,
+                             int8_gemv_call=self.ig.LAUNCHES)
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
 
-    @property
-    def calls(self):
-        return sum(self.by_form.values())
+    def check(self, label, paged_path: bool, int8_path: bool):
+        """Launch counters against the model's calls; each kernel of the
+        phase's path launched at least once, the others never."""
+        res, pag = sum(self.resident.values()), sum(self.paged.values())
+        L = self.launches
+        if self.plain_calls:
+            fail(f"{label}: {self.plain_calls} plain-version calls")
+        if L["flash_attention_partial"] != res or res == 0:
+            fail(f"{label}: {L['flash_attention_partial']} flash-attention "
+                 f"launches for {res} resident attention calls")
+        if L["paged_flash_decode"] != pag or (pag > 0) != paged_path:
+            fail(f"{label}: {L['paged_flash_decode']} paged launches for "
+                 f"{pag} pool reads")
+        if paged_path and set(self.resident) - {"segment", "snapshot"}:
+            fail(f"{label}: resident reads {self.resident} on the paged "
+                 "path (only segment passes and snapshots may use kernel 1)")
+        if L["int8_gemv_call"] != self.int8_products \
+                or (self.int8_products > 0) != int8_path:
+            fail(f"{label}: {L['int8_gemv_call']} int8 GEMV launches for "
+                 f"{self.int8_products} quantized products")
+        if self.take_rows_calls != self.snapshots_layers:
+            fail(f"{label}: {self.take_rows_calls} take_rows copies for "
+                 f"{self.snapshots_layers} snapshot layer gathers (a pool "
+                 "read went through a gathered copy)")
 
 
 def greedy_reference(torch, M, cfg, params, prompt, n):
@@ -338,44 +646,55 @@ def teacher_forced_gaps(torch, M, cfg, params, prompt, toks):
     return (rows.max(dim=1).values - picked).tolist()
 
 
-def serve_phase(torch, label, target, drafters, prompts, kernel_err):
+def target_references(torch, M, cfg, params, prompts):
+    """Greedy reference, top-1/top-2 gaps and path noise of each prompt
+    (shared by every phase: all serve the same target and prompts)."""
+    out = []
+    for p in prompts:
+        ref, gaps = greedy_reference(torch, M, cfg, params, p, NEW_TOKENS)
+        out.append(dict(ref=ref, gaps=gaps,
+                        noise=path_noise(torch, M, cfg, params, p, ref)))
+    return out
+
+
+def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
+                paged=False, int8=False, observe=None):
+    """Serve `prompts` through the engine and check the run; returns
+    (summary, committed streams, launches by kernel)."""
     from repro_torch.config import CoSineConfig
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import attention as attn_mod
     from repro_torch.models import model as M
     from repro_torch.serving.engine import SpeculativeEngine
 
     cos = CoSineConfig(n_drafters=len(drafters), drafters_per_request=2,
-                       tree_width=2)
+                       tree_width=2, paged_pool=paged, page_size=PAGE_SIZE,
+                       pool_pages=POOL_PAGES)
     t0 = time.perf_counter()
     eng = SpeculativeEngine(target, drafters, cos, strategy="cosine",
                             max_len=MAX_LEN, seed=0, device="cuda")
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    extra = observe(eng) if observe is not None else None
     torch.cuda.reset_peak_memory_stats()
-    with AttentionCalls(attn_mod, fa) as calls:
+    with PathCounters() as calls:
         t0 = time.perf_counter()
         stats = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fa.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if launches == 0 or launches != calls.calls or calls.plain_calls:
-        fail(f"{label}: {launches} kernel launches for {calls.calls} "
-             f"attention calls ({calls.plain_calls} plain-version calls)")
+    calls.check(label, paged, int8)
     if stats.total_committed != len(prompts) * NEW_TOKENS:
         fail(f"{label}: committed {stats.total_committed} tokens, expected "
              f"{len(prompts) * NEW_TOKENS}")
 
     tcfg, tparams = target
-    results = []
-    for r, p in zip(reqs, prompts):
+    results, streams = [], []
+    for r, p, rf in zip(reqs, prompts, refs):
         gen = list(map(int, r.generated))
+        streams.append(gen)
         if len(gen) != NEW_TOKENS:
             fail(f"{label}: request {r.rid} generated {len(gen)} tokens")
-        ref, gaps = greedy_reference(torch, M, tcfg, tparams, p, NEW_TOKENS)
-        noise = path_noise(torch, M, tcfg, tparams, p, ref)
+        ref, gaps, noise = rf["ref"], rf["gaps"], rf["noise"]
         # a divergence is accepted only at a near-tie of the reference:
         # its top-1/top-2 gap must be under 4x the measured logit noise
         # between two of the port's own paths (that noise, not the
@@ -419,16 +738,104 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err):
         mean_acceptance=stats.mean_acceptance,
         wall_s=wall, wall_tokens_per_s=stats.total_committed / wall,
         sim_ms=stats.sim_ms, sim_throughput_tps=stats.throughput_tps,
-        kernel_launches=launches, attention_calls_by_form=calls.by_form,
+        kernel_launches=calls.launches, resident_attention_calls=calls.resident,
+        pool_reads=calls.paged, int8_products=calls.int8_products,
+        int8_products_per_forward=sorted(set(
+            calls.int8_per_forward.values())),
+        snapshot_layer_gathers=calls.snapshots_layers,
         setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results)
+    if extra is not None:
+        summary.update(extra())
     print(f"{label}: wall clock {wall:.2f} s for {stats.total_committed} "
           f"tokens ({stats.total_committed / wall:.1f} tokens/s on the "
           f"card); simulated-clock throughput {stats.throughput_tps:.1f} "
           f"tokens/s (the engine's latency model, not a measurement); "
-          f"mean acceptance {stats.mean_acceptance:.3f}; kernel launches "
-          f"{launches} = attention calls {calls.by_form}", flush=True)
+          f"mean acceptance {stats.mean_acceptance:.3f}; launches "
+          f"{calls.launches} = resident attention calls {calls.resident}, "
+          f"pool reads {calls.paged}, int8 products {calls.int8_products}",
+          flush=True)
     eng.backend.shutdown()
-    return summary, launches
+    return summary, streams, calls.launches
+
+
+def observe_pools(eng):
+    """Phase C: peak pages held by each model's pool, and pages held and
+    fragmentation when the first request completes (all four live)."""
+    from repro_torch.serving.runner import PagedSlotCacheManager
+    names = ["target"] + [f"drafter {i}" for i in range(len(eng.drafters))]
+    mgrs = [r.slots for r in [eng.target] + list(eng.drafters)]
+    for m in mgrs:
+        if not isinstance(m, PagedSlotCacheManager):
+            fail("phase C: the runners did not get a paged pool")
+    seen = {id(m): dict(peak=0, at_first_release=None) for m in mgrs}
+    for m in mgrs:
+        alloc, release = m._alloc_page, m.release
+
+        def alloc_page(m=m, alloc=alloc):
+            page = alloc()
+            s = seen[id(m)]
+            s["peak"] = max(s["peak"], m.pages_held() + 1)
+            return page
+
+        def rel(rid, m=m, release=release):
+            s = seen[id(m)]
+            if s["at_first_release"] is None:
+                s["at_first_release"] = (m.pages_held(), m.fragmentation())
+            return release(rid)
+
+        m._alloc_page, m.release = alloc_page, rel
+
+    def report():
+        out = {}
+        for name, m in zip(names, mgrs):
+            s = seen[id(m)]
+            held, frag = s["at_first_release"]
+            out[name] = dict(page_size=m.page_size, pool_pages=m.n_pages,
+                             pool_growths=m.n_page_growths,
+                             peak_pages_held=s["peak"],
+                             pages_held_at_first_completion=held,
+                             fragmentation_at_first_completion=frag,
+                             pages_held_at_end=m.pages_held())
+            print(f"phase C {name} pool: page size {m.page_size}, "
+                  f"{POOL_PAGES} -> {m.n_pages} pages ({m.n_page_growths} "
+                  f"growths), peak {s['peak']} pages held; at the first "
+                  f"completion {held} pages held, fragmentation "
+                  f"{frag:.3f}; at the end {m.pages_held()}", flush=True)
+            if m.n_page_growths < 1:
+                fail(f"phase C: the {name} pool never grew")
+        return dict(pools=out)
+
+    return report
+
+
+def observe_drafter_steps(eng):
+    """Phase D: mean wall ms of each drafter's decode step (one batched
+    snapshot decode, ending with the logits on the host)."""
+    import torch
+    times = [[] for _ in eng.drafters]
+    for i, runner in enumerate(eng.drafters):
+        orig = runner.decode
+
+        def timed(*a, orig=orig, i=i, **kw):
+            t0 = time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        runner.decode = timed
+
+    def report():
+        means = [sum(t) / max(len(t), 1) for t in times]
+        for i, (m, t) in enumerate(zip(means, times)):
+            kind = "int8" if eng.drafters[i].cfg.quant == "int8" else "f32"
+            print(f"phase D drafter {i} ({kind} weights): {len(t)} decode "
+                  f"steps, mean {m:.3f} ms per step (host clock, logits on "
+                  f"the host)", flush=True)
+        return dict(drafter_decode_ms=means,
+                    drafter_decode_steps=[len(t) for t in times])
+
+    return report
 
 
 def main() -> int:
@@ -440,9 +847,13 @@ def main() -> int:
         return 2
     try:
         from repro_torch.configs import QWEN1_5_4B, QWEN2_0_5B
-        from repro_torch.kernels.flash_attention import build
+        from repro_torch.configs.drafters import int8_variant
+        from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.int8_gemv import ops as ig
+        from repro_torch.kernels.paged_attention import ops as pa
         from repro_torch.models import model as M
+        from repro_torch.models import quantize
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -457,64 +868,102 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    build.load()
-    print(f"kernel build+load {time.perf_counter() - t0:.1f} s", flush=True)
-    if build.build_log:
+    libraries = [fa.LIBRARY, pa.LIBRARY, ig.LIBRARY]
+    build.build_all(libraries)
+    print(f"kernel build+load (3 nvcc in parallel) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for lib in libraries:
         # ptxas report per instantiation: registers, shared memory, spills
-        for line in build.build_log.splitlines():
+        for line in (lib.build_log or "").splitlines():
             if "Used" in line or "spill" in line:
-                print(line.strip(), flush=True)
+                print(f"{lib.name}: {line.strip()}", flush=True)
 
-    rows = kernel_phase(torch, fa)
-    kernel_err = max(r["max_abs_err"] for r in rows)
+    fa_rows = kernel_phase(torch, fa)
+    pa_rows = paged_kernel_phase(torch, fa, pa)
+    ig_rows = int8_kernel_phase(torch, ig, quantize)
+    kernel_err = max(r["max_abs_err"] for r in fa_rows + pa_rows)
+    paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, QWEN1_5_4B.vocab, n).tolist()
                for n in PROMPT_LENS]
 
-    # phase A: qwen1.5-4b target + two qwen2-0.5b drafters
     t0 = time.perf_counter()
     tparams = M.init_params(QWEN1_5_4B, seed=0, device="cuda")
-    drafters = [(QWEN2_0_5B, M.init_params(QWEN2_0_5B, seed=1 + i,
-                                           device="cuda"), f"d{i}")
-                for i in range(2)]
+    dparams = [M.init_params(QWEN2_0_5B, seed=1 + i, device="cuda")
+               for i in range(2)]
     torch.cuda.synchronize()
-    print(f"phase A weights {time.perf_counter() - t0:.1f} s", flush=True)
-    sum_a, launches_a = serve_phase(torch, "phase A", (QWEN1_5_4B, tparams),
-                                    drafters, prompts, kernel_err)
-    del drafters
-    gc.collect()
-    torch.cuda.empty_cache()
+    print(f"weights {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    refs = target_references(torch, M, QWEN1_5_4B, tparams, prompts)
+    print(f"greedy references {time.perf_counter() - t0:.1f} s", flush=True)
+    target = (QWEN1_5_4B, tparams)
+    launches = {name: 0 for name in KERNEL_SOURCES}
+    summaries = []
 
+    def run(label, drafters, **kw):
+        summary, streams, counts = serve_phase(
+            torch, label, target, drafters, prompts, kernel_err, refs, **kw)
+        for name, n in counts.items():
+            launches[name] += n
+        summaries.append(summary)
+        gc.collect()
+        torch.cuda.empty_cache()
+        return summary, streams
+
+    # phase A: qwen1.5-4b target + two qwen2-0.5b drafters
+    full = [(QWEN2_0_5B, dparams[i], f"d{i}") for i in range(2)]
+    _, streams_a = run("phase A", full)
     # phase B: perfect drafters sharing the target's weights
-    perfect = [(QWEN1_5_4B, tparams, f"p{i}") for i in range(2)]
-    sum_b, launches_b = serve_phase(torch, "phase B", (QWEN1_5_4B, tparams),
-                                    perfect, prompts, kernel_err)
+    sum_b, _ = run("phase B", [(QWEN1_5_4B, tparams, f"p{i}")
+                               for i in range(2)])
     if not sum_b["mean_acceptance"] > 1.0:
         fail(f"phase B mean acceptance {sum_b['mean_acceptance']:.3f} <= 1")
-    del perfect, tparams
+    # phase C: phase A on the paged KV pool
+    _, streams_c = run("phase C", full, paged=True, observe=observe_pools)
+    same = sum(a == c for a, c in zip(streams_a, streams_c))
+    print(f"phase C: {same}/{len(prompts)} committed streams equal phase "
+          f"A's token for token (paged kernel bitwise equal to kernel 1 "
+          f"on the gathered view: {paged_exact})", flush=True)
+    if paged_exact and same != len(prompts):
+        fail("phase C: the paged pool committed other tokens than the "
+             "resident pool although the kernels agree bit for bit")
+    # phase D: drafter 0 with int8 weights beside a full-precision drafter 1
+    mixed = [(int8_variant(QWEN2_0_5B), dparams[0], "d0"),
+             (QWEN2_0_5B, dparams[1], "d1")]
+    sum_d, _ = run("phase D", mixed, int8=True,
+                   observe=observe_drafter_steps)
+    per_fwd = sum_d["int8_products_per_forward"]
+    if per_fwd != [0, QWEN2_0_5B.n_layers * 7 + 1]:
+        fail(f"phase D: quantized products per forward {per_fwd}, expected "
+             f"0 and {QWEN2_0_5B.n_layers * 7 + 1}")
+    del tparams, dparams, full, mixed, target
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(json.dumps({"serving": [sum_a, sum_b]}), flush=True)
-    tot = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "library_ms")}
-    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["flops"] / PEAK_FLOPS["bfloat16" if "bf16" in r["name"]
-                                       else "float32"] for r in rows) * 1e3
-    kernel = dict(
-        name="flash_attention_partial", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
-        replaces="src/repro/kernels/common.py:139",
-        launches=launches_a + launches_b, max_abs_err=kernel_err,
-        ms=tot["ms"], plain_ms=tot["plain_ms"],
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=tot["library_ms"],
-        note="times are sums over one call of each shape below",
-        shapes=rows)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"serving": summaries}), flush=True)
+    kernels = []
+    for name, rows in (("flash_attention_partial", fa_rows),
+                       ("paged_flash_decode", pa_rows),
+                       ("int8_gemv_call", ig_rows)):
+        source, replaces = KERNEL_SOURCES[name]
+        tot = {k: sum(r[k] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms")}
+        t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+        t_ops = sum(r["flops"] / PEAK_FLOPS[r["dtype"]] for r in rows) * 1e3
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=tot["library_ms"],
+            note="times are sums over one call of each shape below",
+            shapes=rows))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,18 @@ version, a transcription of the reference's `attend_partial` arithmetic.
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
+
+from repro_torch.kernels.build import CSRC, KernelLibrary
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+#: keys per tile of the kernel; the model's cache reads run the plain
+#: version with the same tile on the CPU
+KEY_TILE = 32
 _KV_DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches made by `attend_partial` (a plain integer; reset it
@@ -34,22 +42,57 @@ _KV_DTYPES = (torch.float32, torch.bfloat16)
 LAUNCHES = 0
 
 
+def _declare(lib):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fn = lib.fa_partial_launch
+    fn.argtypes = ([vp] * 10            # q k v q_pos k_pos mask slot acc m l
+                   + [i32] * 6          # B T G H S D
+                   + [i64] * 14         # strides
+                   + [ctypes.c_float]   # scale
+                   + [i32] * 4          # causal window q_bf16 kv_bf16
+                   + [vp])              # stream
+    fn.restype = ctypes.c_int
+
+
+#: the kernel's source and built library (`csrc/flash_attention.cu`)
+LIBRARY = KernelLibrary(
+    "flash_attention",
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    headers=[CSRC / "attention_partial.cuh"], declare=_declare)
+
+
 # =====================================================================
 # plain version
 # =====================================================================
 
 def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
-                         window=0, mask=None, slot_idx=None, block=1024):
+                         window=0, mask=None, slot_idx=None, block=None):
     """Plain PyTorch partials, same arguments and results as
     `attend_partial`: the reference's `attend_partial` (a scan over KV
-    blocks of `block` keys) written out with einsum."""
+    blocks) written out with einsum.
+
+    `block` is the number of keys per tile (None: one tile of all S
+    keys). The last tile is padded with empty keys to the full width, so
+    every tile has the same shape and a tile that no row can see is an
+    exact no-op (p = 0, correction exp(0) = 1): two key layouts that hold
+    the same keys in the same columns, such as a slot pool and a page
+    pool's gathered view of another length, give bitwise equal partials
+    for every row."""
     if slot_idx is not None:
         k, v, k_pos = k[slot_idx], v[slot_idx], k_pos[slot_idx]
     B, T, Hkv, G, Dk = q.shape
     S = k.shape[1]
     Dv = v.shape[-1]
     qf = q.float()
-    block = max(1, min(block, S))
+    block = max(1, S if block is None else block)
+    pad = -S % block
+    if pad:
+        k = torch.cat([k, k.new_zeros((B, pad) + k.shape[2:])], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad) + v.shape[2:])], dim=1)
+        k_pos = torch.cat([k_pos, k_pos.new_full((B, pad), -1)], dim=1)
+        if mask is not None:
+            mask = torch.cat([mask, mask.new_zeros((B, T, pad))], dim=2)
+        S += pad
     m = torch.full((B, T, Hkv, G), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, T, Hkv, G), dtype=torch.float32, device=q.device)
@@ -92,8 +135,6 @@ def _check(cond, msg):
 
 def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
             slot_idx):
-    from repro_torch.kernels.flash_attention import build
-
     B, T, Hkv, G, Dk = q.shape
     P, S = k.shape[0], k.shape[1]
     Dv = v.shape[-1]
@@ -132,7 +173,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     if B * T * G == 0:
         return m.fill_(NEG_INF), l.zero_(), acc.zero_()
 
-    fn = build.load().fa_partial_launch
+    fn = LIBRARY.load().fa_partial_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
@@ -156,7 +197,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
 
 
 def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
-                   mask=None, slot_idx=None, block=1024):
+                   mask=None, slot_idx=None, block=None):
     """Online-softmax partials (m, l, acc); see the module docstring.
 
     CUDA tensors launch the Hopper kernel (or raise on what it does not

@@ -1,0 +1,82 @@
+// Attention partials over a paged KV pool, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `paged_flash_decode` of the JAX package
+// (src/repro/kernels/decode_attention/kernel.py, body
+// `_make_paged_kernel`): flash attention over a physical page pool
+// k/v (P, ps, Hkv, D) with positions page_pos (P, ps) (-1 = empty), where
+// request b reads its logical pages through its row of the (B, n_view)
+// int32 block table. The Pallas kernel walks the table as a
+// scalar-prefetch grid axis and serves one decode token (G query rows);
+// this kernel serves that decode form and the multi-row causal form
+// (R = T * G rows, one position per token) that verification's cache
+// pass, commit and prefill make on the pool, so no pool read goes through
+// a gathered copy. Unmapped view entries point at the NULL page, whose
+// positions stay -1: its tiles are skipped, an exact no-op.
+//
+// What bounds it on the H100: as the resident kernel, the K/V bytes of
+// the pages a request holds, read once per 16 query rows, over the
+// 3.35 TB/s of HBM (decode and verification), and the f32 FMA rate only
+// for 512-row prefill chunks.
+//
+// What the design does about it: the block table is read inside the
+// kernel, one entry per key of the current 32-key tile, and K/V rows are
+// loaded from their physical page in place, so HBM carries only the
+// pages held (the reference's XLA path gathers the view into a resident
+// copy first, which reads and writes every byte once more). The kernel
+// body is `../../csrc/attention_partial.cuh`, shared with the resident
+// kernel: the logical keys are walked page by page in order, in the same
+// 32-key tiles with the same tile skipping, so the partials are bit for
+// bit those of `flash_attention.cu` on the gathered view. Element
+// offsets are computed in int64.
+//
+// The C entry point launches on the caller's stream, allocates nothing
+// and returns cudaGetLastError().
+
+#include "../../csrc/attention_partial.cuh"
+
+extern "C" int paged_partial_launch(
+    const void* q, const void* k, const void* v, const void* q_pos,
+    const void* page_pos, const void* block_table, void* acc, void* m,
+    void* l, int B, int T, int G, int H, int n_view, int page_size, int D,
+    int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
+    int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
+    int64_t pos_sp, int64_t qpos_sb, int64_t bt_sb, float scale, int window,
+    int q_bf16, int kv_bf16, void* stream) {
+  attn_partial::Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.q_pos = static_cast<const int32_t*>(q_pos);
+  p.k_pos = static_cast<const int32_t*>(page_pos);
+  p.mask = nullptr;
+  p.slot_idx = nullptr;
+  p.block_table = static_cast<const int32_t*>(block_table);
+  p.acc = static_cast<float*>(acc);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.T = T;
+  p.G = G;
+  p.H = H;
+  p.S = n_view * page_size;
+  p.page_size = page_size;
+  p.q_sb = q_sb;
+  p.q_st = q_st;
+  p.q_sh = q_sh;
+  p.q_sg = q_sg;
+  p.k_sp = k_sp;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sp = v_sp;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.kpos_sp = pos_sp;
+  p.qpos_sb = qpos_sb;
+  p.mask_sb = 0;
+  p.mask_st = 0;
+  p.bt_sb = bt_sb;
+  p.scale = scale;
+  p.causal = 1;
+  p.window = window;
+  return attn_partial::dispatch<true>(p, B, D, q_bf16, kv_bf16,
+                                      static_cast<cudaStream_t>(stream));
+}

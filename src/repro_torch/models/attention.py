@@ -1,9 +1,10 @@
-"""GQA attention over slot caches (port of `repro.models.attention`,
-GQA path only).
+"""GQA attention over slot caches and page pools (port of
+`repro.models.attention`, GQA path only).
 
-Every attention of the forward pass goes through
-`kernels.flash_attention.ops.attend_partial`: on CUDA tensors it runs the
-hand-written Hopper kernel, on CPU tensors its plain PyTorch version.
+Reads of a resident cache go through
+`kernels.flash_attention.ops.attend_partial`, reads of a page pool through
+`kernels.paged_attention.ops.paged_attend_partial`: on CUDA tensors the
+hand-written Hopper kernels, on CPU tensors their plain PyTorch versions.
 
 KV caches are dicts of tensors:
   {"k": (B, C, Hkv, Dk), "v": (B, C, Hkv, Dv), "slot_pos": (B, C) int32}
@@ -11,14 +12,22 @@ KV caches are dicts of tensors:
 masking is always against `slot_pos`, so ring caches (sliding window)
 stay correct as long as C >= window + the largest written segment.
 
-Unlike the reference, whose arrays are immutable, the port writes new
-KV rows IN PLACE: into the resident slot pool through `slot_idx`, or into
-a plain batch cache (drafting snapshots and single-request caches are
-owned by their caller and never reused after a step). Reads of the pool
-go through `slot_idx` inside the kernel, without a gathered copy.
+Paged pools have the same leaves with a page axis:
+  {"k": (P, ps, Hkv, Dk), "v": (P, ps, Hkv, Dv), "slot_pos": (P, ps)}
+A request owns an ordered list of pages; a `page_view` (B, n_view) int32
+block table names them, logical column c of request b being row c % ps
+of page page_view[b, c // ps]. Unmapped view entries point at a NULL
+page whose slot_pos stays -1.
 
-MLA, cross-attention, int8 KV caches and paged pools are not ported yet
-and raise `NotImplementedError` naming their ROADMAP item.
+Unlike the reference, whose arrays are immutable, the port writes new
+KV rows IN PLACE: into the resident slot pool through `slot_idx`, into a
+page pool through the block table, or into a plain batch cache (drafting
+snapshots and single-request caches are owned by their caller and never
+reused after a step). Reads of a pool go through `slot_idx` or the block
+table inside the kernel, without a gathered copy.
+
+MLA, cross-attention and int8 KV caches are not ported yet and raise
+`NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,13 +35,13 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm_headwise
 from repro_torch.models.quantize import qdot
 
 NEG_INF = -1e30
 RING_MARGIN = 128  # extra ring slots beyond the window (max verify segment)
 
-PAGED_ROADMAP = "the paged KV pool is not ported yet (ROADMAP queue 1 item 9)"
 INT8_KV_ROADMAP = ("kv_dtype='int8' caches are not ported yet "
                    "(ROADMAP queue 1 item 11)")
 MLA_ROADMAP = "MLA attention is not ported yet (ROADMAP queue 1 item 11)"
@@ -45,12 +54,13 @@ CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
 # =====================================================================
 
 def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
-                   extra_mask=None, block=1024, slot_idx=None):
+                   extra_mask=None, block=None, slot_idx=None):
     """Online-softmax partials (m, l, acc) — the kernel's wrapper.
 
     q: (B, T, Hkv, G, Dk); k: (P, S, Hkv, Dk); v: (P, S, Hkv, Dv);
     q_pos: (B, T); k_pos: (P, S) (-1 empty); extra_mask: (B, T, S) bool;
-    slot_idx: (B,) rows of a pool (P > B) read in place, or None (P = B).
+    slot_idx: (B,) rows of a pool (P > B) read in place, or None (P = B);
+    block: the plain version's key tile (None: one tile).
     Returns (B,T,Hkv,G), (B,T,Hkv,G), (B,T,Hkv,G,Dv), all f32."""
     return fa.attend_partial(q, k, v, q_pos, k_pos, scale=scale,
                              causal=causal, window=window, mask=extra_mask,
@@ -63,22 +73,26 @@ def finalize_partial(partial, out_dtype):
 
 
 def blocked_attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
-                      extra_mask=None, block=1024, segment=None,
-                      slot_idx=None):
-    """History partial over (k, v) — read through `slot_idx` when given —
-    merged with an optional `segment` = (k_seg, v_seg, pos_seg, mask_seg)
-    of freshly drafted tokens (tree verification), then normalised."""
-    partial = attend_partial(q, k, v, q_pos, k_pos, scale=scale,
-                             causal=causal, window=window,
-                             extra_mask=extra_mask, block=block,
-                             slot_idx=slot_idx)
-    if segment is not None:
-        k_s, v_s, pos_s, mask_s = segment
-        p2 = attend_partial(q, k_s, v_s, q_pos, pos_s, scale=scale,
-                            causal=causal, window=window, extra_mask=mask_s,
-                            block=max(k_s.shape[1], 1))
-        partial = fa.merge_two(partial, p2)
-    return finalize_partial(partial, q.dtype)
+                      extra_mask=None, block=None):
+    """Self-contained attention of q over (k, v) (P = B), normalised."""
+    return finalize_partial(
+        attend_partial(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
+                       window=window, extra_mask=extra_mask, block=block),
+        q.dtype)
+
+
+def cache_partial(q, cache, q_pos, *, scale, window=0, block=None,
+                  slot_idx=None, page_view=None):
+    """Causal partials of q over a cache, read in place: a page pool
+    through `page_view` by the paged kernel, else a resident cache
+    (through `slot_idx` when given) by the flash-attention kernel."""
+    if page_view is not None:
+        return pa.paged_attend_partial(
+            q, cache["k"], cache["v"], q_pos, cache["slot_pos"], page_view,
+            scale=scale, window=window, block=block)
+    return attend_partial(q, cache["k"], cache["v"], q_pos,
+                          cache["slot_pos"], scale=scale, causal=True,
+                          window=window, block=block, slot_idx=slot_idx)
 
 
 # =====================================================================
@@ -118,10 +132,21 @@ def kv_rows(cache, k_new, v_new, positions):
             "v": v_new.to(cache["v"].dtype)}
 
 
-def set_rows(cache, rows, positions, slot_idx=None):
+def set_rows(cache, rows, positions, slot_idx=None, page_view=None):
     """Write `kv_rows` in place at column = position % capacity of cache
-    row slot_idx[b] (or b). Duplicate rows (scratch-slot padding) resolve
-    arbitrarily; no request reads them."""
+    row slot_idx[b] (or b). On a page pool (`page_view`) the capacity is
+    n_view * ps and column c lands on row c % ps of physical page
+    page_view[b, c // ps]; the caller maps every page a write touches
+    first (padded batch rows map to the scratch page). Duplicate rows
+    (scratch padding) resolve arbitrarily; no request reads them."""
+    if page_view is not None:
+        ps = cache["slot_pos"].shape[1]
+        col = (positions % (page_view.shape[1] * ps)).long()   # (B, T)
+        phys = page_view.long().gather(1, col // ps) * ps + col % ps
+        for key, val in rows.items():
+            t = cache[key]
+            t.view((-1,) + tuple(t.shape[2:]))[phys] = val
+        return cache
     C = cache["slot_pos"].shape[1]
     col = (positions % C).long()                             # (B, T)
     if slot_idx is None:
@@ -134,10 +159,12 @@ def set_rows(cache, rows, positions, slot_idx=None):
 
 
 def take_rows(cache, slot_idx, page_view=None):
-    """Gathered copy of the active rows of a resident cache (the attention
-    path itself reads in place through `slot_idx`)."""
+    """Gathered copy of the active rows of a resident cache, or of the
+    view's pages of a page pool as a (B, n_view * ps, ...) resident-layout
+    cache. Speculative snapshots use it; the attention path itself reads
+    pools in place."""
     if page_view is not None:
-        raise NotImplementedError(PAGED_ROADMAP)
+        return {k: pa.gather_view(v, page_view) for k, v in cache.items()}
     if slot_idx is None:
         return cache
     idx = slot_idx.long()
@@ -152,39 +179,40 @@ def _attend_cached(qg, k_new, v_new, cache, positions, *, scale, window,
     Plain decode/extend (write, no seg_mask): the new rows are written in
     place, then the queries attend over the written cache. No-commit
     scoring or tree masks: the queries attend over the cache as it was
-    (fully causal) merged with the fresh segment under its mask; a write
+    (fully causal) merged with the fresh segment under its mask (read by
+    the flash-attention kernel: its keys are not in the cache); a write
     asked for alongside a seg_mask lands after that read.
 
     token_mask: (B, T) bool — suffix shape-padding rows (False) are
     written with slot_pos = -1 at their real columns: invisible to every
     read and overwritten by the next real tokens there.
+    page_view: (B, n_view) int32 — `cache` is a page pool, read and
+    written through this block table.
     Returns (out, cache | None)."""
-    if page_view is not None:
-        raise NotImplementedError(PAGED_ROADMAP)
     B, T = positions.shape
     k_pos = (positions if token_mask is None
              else torch.where(token_mask, positions,
                               torch.full_like(positions, -1)))
+    kw = dict(scale=scale, window=window, block=block, slot_idx=slot_idx,
+              page_view=page_view)
     if write and seg_mask is None:
         set_rows(cache, kv_rows(cache, k_new, v_new, k_pos), positions,
-                 slot_idx)
-        out = blocked_attention(
-            qg, cache["k"], cache["v"], positions, cache["slot_pos"],
-            scale=scale, causal=True, window=window, block=block,
-            slot_idx=slot_idx)
+                 slot_idx, page_view)
+        out = finalize_partial(cache_partial(qg, cache, positions, **kw),
+                               qg.dtype)
         return out, cache
     mask_s = seg_mask
     if mask_s is None:
         mask_s = torch.tril(torch.ones((T, T), dtype=torch.bool,
                                        device=positions.device)
                             ).expand(B, T, T)
-    out = blocked_attention(
-        qg, cache["k"], cache["v"], positions, cache["slot_pos"],
-        scale=scale, causal=True, window=window, block=block,
-        segment=(k_new, v_new, k_pos, mask_s), slot_idx=slot_idx)
+    history = cache_partial(qg, cache, positions, **kw)
+    fresh = attend_partial(qg, k_new, v_new, positions, k_pos, scale=scale,
+                           causal=True, window=window, extra_mask=mask_s)
+    out = finalize_partial(fa.merge_two(history, fresh), qg.dtype)
     if write:
         set_rows(cache, kv_rows(cache, k_new, v_new, k_pos), positions,
-                 slot_idx)
+                 slot_idx, page_view)
         return out, cache
     return out, None
 
@@ -235,7 +263,7 @@ def _project_qkv(p, cfg: ModelConfig, x, positions, rope: bool):
 
 
 def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
-                  seg_mask=None, window=0, block=1024, slot_idx=None,
+                  seg_mask=None, window=0, block=None, slot_idx=None,
                   write=True, token_mask=None, page_view=None):
     """Self-attention for any mode.
 
@@ -246,6 +274,12 @@ def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
     slot_idx: (B,) — cache is a resident slot pool; row b of x lives in
               pool row slot_idx[b]; reads and writes go there in place.
     write=False -> no-commit scoring (returns None for the cache).
+    page_view: (B, n_view) — cache is a page pool read and written
+              through this block table (slot_idx still names the rows'
+              slots, whose lengths live in the model's cache).
+    block: the plain version's key tile on the CPU (cache reads default
+           to the kernel's tile, so a slot pool and a page pool holding
+           the same keys give bitwise equal results).
     Returns (out, cache | None)."""
     if cfg.attention == "mla":
         raise NotImplementedError(MLA_ROADMAP)
@@ -255,8 +289,8 @@ def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
     scale = hd ** -0.5
     q, k, v = _project_qkv(p, cfg, x, positions, rope=True)
     qg = q.reshape(B, T, hkv, g, hd)
-    if cache is not None and cfg.decode_block:
-        block = cfg.decode_block
+    if cache is not None:
+        block = block or cfg.decode_block or fa.KEY_TILE
 
     if cache is None:
         out = blocked_attention(qg, k, v, positions, positions, scale=scale,

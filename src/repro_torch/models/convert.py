@@ -5,7 +5,11 @@ along a leading `reps` axis (its `lax.scan` layout):
   {"embed", "stages": [tuple(sublayer dict with leading reps)],
    "final_norm", "head"?}
 `params_from_numpy` splits that axis into one dict per layer, in layer
-order, and moves every leaf to a tensor on `device`. The leaves must
+order, and moves every leaf to a tensor on `device`. Quantized leaves
+(``{"w8": int8, "scale": f32}`` of `repro.models.quantize`, the `reps`
+axis on both) come across as the same dicts of tensors, so quantizing in
+JAX and converting gives the bits of converting and quantizing with
+`models.quantize.quantize_params`. The leaves must
 already be numpy arrays (convert with `np.asarray` on the JAX side), so
 this module needs neither JAX nor the reference package.
 """
@@ -45,10 +49,11 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.n_layers}")
-    out = {"embed": _to_tensor(tree["embed"], dev), "layers": layers,
-           "final_norm": _tree(tree["final_norm"],
-                               lambda a: _to_tensor(a, dev))}
-    for key in ("head", "pos"):
+    def conv(a):
+        return _to_tensor(a, dev)
+
+    out = {"embed": _tree(tree["embed"], conv), "layers": layers}
+    for key in ("final_norm", "head", "pos"):
         if key in tree:
-            out[key] = _to_tensor(tree[key], dev)
+            out[key] = _tree(tree[key], conv)
     return out

@@ -14,6 +14,10 @@ returns new arrays): the slot steps write only the new tokens' rows of
 the active slots of the resident pool, which is what the reference's
 `_scatter_stage_delta` does after its scan.
 
+The slot steps also run on a paged cache (`init_paged_cache`): the
+attention KV of every layer lives in a pool of pages, read and written
+through a `page_view` block table, while `lengths` stays slot-indexed.
+
 Only dense attention families are ported; SSM/hybrid mixers, MoE FFNs,
 MLA and cross-attention raise `NotImplementedError` naming their ROADMAP
 item.
@@ -262,16 +266,101 @@ def slot_verify_chunk(params, cfg: ModelConfig, tokens, cache, slot_idx,
     return logits
 
 
+# ====================================================== paged caches
+#
+# Paged slot caches: the same structure as the slotted cache, except that
+# each layer's attention "self" cache is a page pool with leading
+# (n_pages, page_size) instead of per-slot reserved rows. A request owns
+# an ordered list of physical pages (its block table, kept on the host by
+# the runner's manager); the slot steps read and write through a
+# (B, n_view) `page_view` built from the block tables. `lengths` stays
+# slot-indexed. The helpers take `cfg` as the reference's do.
+
+def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
+                     page_size: int = 64, n_pages: int = 16, device=None):
+    """Paged decode cache: attention KV in page pools, `lengths` for
+    `batch` slots. There is no per-slot max_len: the capacity of a
+    request is whatever its block table maps."""
+    dev = resolve_device(device)
+    specs = layer_specs(cfg)
+    hd = cfg.resolved_head_dim
+    dt = torch_dtype(dtype)
+    # a pool is a slot cache of n_pages "slots" of page_size rows each
+    layers = [{"self": attn.make_kv_cache(
+        n_pages, page_size, cfg.n_kv_heads, hd, hd, dt, device=dev)}
+        for _ in specs]
+    return {"layers": layers,
+            "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
+def paged_pool_shape(cfg: ModelConfig, cache):
+    """(n_pages, page_size) of the page pools, or None without attention."""
+    for layer in cache["layers"]:
+        return tuple(layer["self"]["slot_pos"].shape)
+    return None
+
+
+def gather_paged_slots(cfg: ModelConfig, cache, slot_idx, page_view):
+    """A plain batch cache copied from a paged pool (speculative
+    snapshots): each layer's view pages gathered into (B, n_view * ps,
+    ...), the layout of `gather_slots` with capacity n_view * ps, so
+    drafting, rollback and `extend` run on it unchanged. Unmapped view
+    entries are NULL pages (slot_pos -1, masked)."""
+    return {"layers": [{key: attn.take_rows(sub, None, page_view)
+                        for key, sub in layer.items()}
+                       for layer in cache["layers"]],
+            "lengths": cache["lengths"].index_select(0, slot_idx.long())}
+
+
+def reset_pages(cfg: ModelConfig, cache, page_ids):
+    """Mark physical pages empty (slot_pos = -1) in every pool, in place.
+    K/V payloads stay as they are: masking is always against slot_pos."""
+    idx = page_ids.long()
+    for layer in cache["layers"]:
+        layer["self"]["slot_pos"][idx] = -1
+    return cache
+
+
+def reset_slot_state(cfg: ModelConfig, cache, slot_idx):
+    """Reset the slot-indexed leaves of a paged cache on (re-)admission:
+    `lengths` (the pools are recycled by `reset_pages`)."""
+    cache["lengths"][slot_idx.long()] = 0
+    return cache
+
+
+def concat_slots_paged(cfg: ModelConfig, cache, extra):
+    """Slot-capacity growth: `extra`'s slot-indexed leaves are appended;
+    the shared page pools stay (their growth is `grow_pages`)."""
+    return {"layers": cache["layers"],
+            "lengths": torch.cat([cache["lengths"], extra["lengths"]])}
+
+
+def grow_pages(cfg: ModelConfig, cache, extra_pages: int):
+    """Append `extra_pages` empty pages to every pool. The pools are new
+    tensors, put into the same layer dicts, so no holder of the cache
+    keeps a reference to the old ones."""
+    for layer in cache["layers"]:
+        pool = layer["self"]
+        for f, t in pool.items():
+            pad = torch.full((extra_pages,) + tuple(t.shape[1:]),
+                             -1 if f == "slot_pos" else 0, dtype=t.dtype,
+                             device=t.device)
+            pool[f] = torch.cat([t, pad], dim=0)
+    return cache
+
+
 # ====================================================== apply
 
 def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
-                 *, seg_mask, write, slot_idx=None, token_mask=None):
+                 *, seg_mask, write, slot_idx=None, token_mask=None,
+                 page_view=None):
     window = effective_window(cfg)
     h = apply_norm(p["ln1"], x, cfg)
     self_cache = cache["self"] if cache is not None else None
     out, _ = attn.gqa_attention(
         p["mixer"], cfg, h, positions, cache=self_cache, seg_mask=seg_mask,
-        window=window, slot_idx=slot_idx, write=write, token_mask=token_mask)
+        window=window, slot_idx=slot_idx, write=write, token_mask=token_mask,
+        page_view=page_view)
     # the reference rounds the residual stream to cfg.dtype after a block
     x = (x + out).to(x.dtype)
     if spec.ffn != "none":
@@ -304,14 +393,16 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
                lives in pool slot slot_idx[b]
     token_mask: (B, T) bool — real tokens True, suffix padding False
                (slot path only)
+    page_view: (B, n_view) int32 — the cache's attention KV is paged
+               (`init_paged_cache`): entry [b, i] is the physical page of
+               request b's logical page i (NULL for unmapped entries).
+               Requires slot_idx.
     Returns (logits (B,T,Vp) f32, cache, aux_loss); the returned cache
     is the argument, updated in place."""
     if frontend is not None:
         raise NotImplementedError(attn.CROSS_ROADMAP)
-    if page_view is not None:
-        raise NotImplementedError(attn.PAGED_ROADMAP)
-    if token_mask is not None and slot_idx is None:
-        raise ValueError("token_mask requires the slot path")
+    if (token_mask is not None or page_view is not None) and slot_idx is None:
+        raise ValueError("token_mask and page_view require the slot path")
     specs = layer_specs(cfg)
     B, T = tokens.shape
     dev = tokens.device
@@ -327,7 +418,7 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
     for spec, lp, lc in zip(specs, params["layers"], layer_caches):
         x = _apply_layer(spec, lp, lc, x, positions, cfg, seg_mask=seg_mask,
                          write=write, slot_idx=slot_idx,
-                         token_mask=token_mask)
+                         token_mask=token_mask, page_view=page_view)
 
     x = apply_norm(params["final_norm"], x, cfg)
     logits = _logits(params, cfg, x)

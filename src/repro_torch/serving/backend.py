@@ -51,9 +51,11 @@ class ExecutionBackend(ABC):
     is_wallclock = False
 
     def __init__(self, target, drafter_specs, max_len: int,
-                 paged: bool = False, device=None):
+                 paged: bool = False, page_size: int = 64,
+                 pool_pages: int = 0, device=None):
         tcfg, tparams = target
-        kw = dict(paged=paged, device=device)
+        kw = dict(paged=paged, page_size=page_size, pool_pages=pool_pages,
+                  device=device)
         self.target = ModelRunner(tcfg, tparams, max_len, **kw)
         self.drafters = [ModelRunner(c, p, max_len, **kw)
                          for c, p, _ in drafter_specs]
@@ -193,14 +195,17 @@ class SimulatedBackend(ExecutionBackend):
 
 
 def make_backend(spec, target, drafter_specs, max_len: int,
-                 paged: bool = False, device=None) -> ExecutionBackend:
+                 paged: bool = False, page_size: int = 64,
+                 pool_pages: int = 0, device=None) -> ExecutionBackend:
     """Resolve a backend spec: None/"sim" -> SimulatedBackend, or a ready
-    ExecutionBackend instance. "async" is not ported yet and raises;
-    `paged` (CoSineConfig.paged_pool) makes the runners raise."""
+    ExecutionBackend instance. "async" is not ported yet and raises.
+    `paged` (CoSineConfig.paged_pool), `page_size` and `pool_pages` select
+    the paged KV pool in every runner."""
     if isinstance(spec, ExecutionBackend):
         return spec
     if spec in (None, "sim"):
         return SimulatedBackend(target, drafter_specs, max_len, paged=paged,
+                                page_size=page_size, pool_pages=pool_pages,
                                 device=device)
     if spec == "async":
         raise NotImplementedError(ASYNC_ROADMAP)

@@ -307,8 +307,7 @@ class SpeculativeEngine:
         # weight-only drafter quantization (DESIGN.md §2.9): resolve each
         # node's mode (ModelConfig.quant overrides the pool-wide
         # cosine.drafter_quant default) and calibrate-and-swap int8
-        # params BEFORE the backend builds its runners (the port refuses
-        # int8 drafters until that path is ported).
+        # params BEFORE the backend builds its runners.
         drafters = resolve_drafter_quant(list(drafters),
                                          cosine.drafter_quant)
         # engine/backend split (DESIGN.md §2.7): the backend owns the
@@ -320,7 +319,8 @@ class SpeculativeEngine:
         # `self.backend` only.
         self.backend: ExecutionBackend = make_backend(
             backend, target, drafters, max_len,
-            paged=cosine.paged_pool, device=device)
+            paged=cosine.paged_pool, page_size=cosine.page_size,
+            pool_pages=cosine.pool_pages, device=device)
         self.backend.bind(self)
         self.target = self.backend.target
         self.drafters = self.backend.drafters

@@ -15,7 +15,11 @@ Speculative rollback is snapshot-based: drafting gathers a compact copy
 of the slots (`speculative_caches`) and decodes on it; discarding the
 snapshot IS the rollback.
 
-The paged pool (`paged=True`) is not ported yet and raises.
+Paged mode (`ModelRunner(..., paged=True)`): the attention KV lives in a
+pool of pages instead of reserved per-slot rows. `PagedSlotCacheManager`
+keeps a host-side block table per request and hands every step a
+`page_view`; admission, eviction and rollback become block-table
+operations, and memory scales with the tokens held.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import model as M
 from repro_torch.models import quantize
-from repro_torch.models.attention import PAGED_ROADMAP, RING_MARGIN
+from repro_torch.models.attention import RING_MARGIN, cache_capacity
 
 # Shape-bucket constants, as in the reference: an arbitrary-length prompt
 # streams through `slot_extend` as full PREFILL_CHUNK-sized writes plus
@@ -37,6 +41,11 @@ from repro_torch.models.attention import PAGED_ROADMAP, RING_MARGIN
 PREFILL_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 PREFILL_CHUNK = 512
 SLOT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+# Speculative snapshots gathered from a paged pool reserve this much
+# column slack past each request's length so draft-ahead writes never
+# wrap a full-attention snapshot (the largest segment one step writes).
+SNAP_SLACK = 128
 
 
 def prefill_bucket(n: int) -> int:
@@ -132,31 +141,258 @@ class SlotCacheManager:
         """Committed tokens in `rid`'s slot (device-authoritative)."""
         return int(self.cache["lengths"][self.slot_of[rid]])
 
+    # ------------------------------------------------------------ paged hooks
+    # The resident pool reserves full capacity per slot, so the paged
+    # protocol is a no-op here; ModelRunner calls these unconditionally
+    # and passes the returned page_view (None) through to the steps.
+    def prepare(self, rids: Sequence[int],
+                write: int) -> Optional[torch.Tensor]:
+        """Map pages for the next `write` columns of each rid and return
+        the batch page_view (None on the resident pool)."""
+        return None
+
+    def advance(self, rid: int, n: int):
+        """Record `n` committed tokens (paged bookkeeping; no-op here)."""
+
+    def snapshot_view(self, rids: Sequence[int]) -> Optional[torch.Tensor]:
+        """page_view for a speculative snapshot (None on the resident
+        pool)."""
+        return None
+
+
+class PagedSlotCacheManager(SlotCacheManager):
+    """Slot manager over a paged KV pool.
+
+    The attention KV of every layer lives in one pool of `page_size`-token
+    pages; each request owns an ordered host-side block table mapping its
+    logical pages to physical ones. `lengths` stays slot-indexed.
+
+    Protocol: every write site calls `prepare(rids, write=W)` first — it
+    maps any page the next W columns touch and returns the bucketed
+    (rows, n_view) page_view — and `advance(rid, n_real)` after the write
+    commits. Eviction (`release`) wipes the pages' slot_pos in one batched
+    reset and returns them to the free list, so recycled pages are
+    invisible until rewritten. Rollback needs nothing: speculative
+    snapshots are gathered copies (`gather_paged_slots`).
+
+    Physical pages 0 and 1 are reserved: 0 is SCRATCH (write target of
+    padded batch rows, never read by a request) and 1 is NULL (read
+    filler for unmapped view entries, never written, slot_pos -1).
+
+    Windowed layers keep their ring: the block table is a fixed ring of
+    C / page_size entries (C = window + RING_MARGIN, page_size halved
+    until it divides C) mapped on first touch, and the view is always the
+    whole ring, so write columns pos % C land as on the resident ring.
+    """
+
+    SCRATCH_PAGE = 0
+    NULL_PAGE = 1
+    _RESERVED = 2
+    VIEW_CACHE_MAX = 512
+
+    def __init__(self, cfg: ModelConfig, max_len: int, n_slots: int = 8,
+                 dtype=torch.float32, device=None, page_size: int = 64,
+                 pool_pages: int = 0):
+        self.cfg = cfg
+        self.max_len = max_len
+        self.dtype = dtype
+        self.n_slots = n_slots
+        self.device = resolve_device(device)
+        win = M.effective_window(cfg)
+        ps = max(1, page_size)
+        if win:
+            cap = cache_capacity(cfg, max_len, win)
+            while cap % ps:        # ring capacity must be whole pages
+                ps //= 2
+            self.ring_pages = cap // ps
+        else:
+            self.ring_pages = 0
+        self.page_size = ps
+        n_pages = pool_pages or (self._RESERVED + 4 * n_slots)
+        self.n_pages = max(n_pages, self._RESERVED + 1)
+        self.cache = M.init_paged_cache(cfg, n_slots + 1, dtype=dtype,
+                                        page_size=ps, n_pages=self.n_pages,
+                                        device=self.device)
+        self._free = list(range(n_slots, 0, -1))      # pop() -> slot 1 first
+        self._free_pages = list(range(self.n_pages - 1,
+                                      self._RESERVED - 1, -1))
+        self.slot_of: Dict[int, int] = {}
+        self._idx_cache: Dict[tuple, torch.Tensor] = {}
+        self._view_cache: Dict[bytes, torch.Tensor] = {}
+        self.tables: Dict[int, List[int]] = {}
+        self.host_len: Dict[int, int] = {}
+        #: pool doublings so far
+        self.n_page_growths = 0
+
+    # -------------------------------------------------------------- admission
+    def admit(self, rid: int) -> int:
+        """Assign a slot and an empty block table; resets only the
+        slot-indexed leaves (pages are mapped lazily by `prepare`)."""
+        if rid in self.slot_of:
+            return self.slot_of[rid]
+        if not self._free:
+            self._grow()
+        slot = self._free.pop()
+        self.slot_of[rid] = slot
+        self.tables[rid] = [-1] * self.ring_pages if self.ring_pages else []
+        self.host_len[rid] = 0
+        M.reset_slot_state(self.cfg, self.cache,
+                           torch.tensor([slot], device=self.device))
+        return slot
+
+    def release(self, rid: int):
+        """Free the slot, wipe the mapped pages' slot_pos in one batched
+        reset, and return them to the free list."""
+        pids = [p for p in self.tables.pop(rid, []) if p >= 0]
+        self.host_len.pop(rid, None)
+        super().release(rid)
+        if pids:
+            M.reset_pages(self.cfg, self.cache,
+                          torch.tensor(pids, device=self.device))
+            self._free_pages.extend(reversed(pids))
+
+    def _grow(self):
+        extra = {"lengths": torch.zeros(self.n_slots, dtype=torch.int32,
+                                        device=self.device)}
+        self.cache = M.concat_slots_paged(self.cfg, self.cache, extra)
+        self._free.extend(range(2 * self.n_slots, self.n_slots, -1))
+        self.n_slots *= 2
+
+    def _grow_pages(self):
+        extra = self.n_pages                      # double the pool
+        M.grow_pages(self.cfg, self.cache, extra)
+        self._free_pages = (list(range(self.n_pages + extra - 1,
+                                       self.n_pages - 1, -1))
+                            + self._free_pages)
+        self.n_pages += extra
+        self.n_page_growths += 1
+
+    def _alloc_page(self) -> int:
+        if not self._free_pages:
+            self._grow_pages()
+        return self._free_pages.pop()
+
+    # -------------------------------------------------------------- paging
+    def ensure(self, rid: int, upto: int):
+        """Map every page that columns [host_len, upto) touch: full
+        attention grows the table, windowed layers map ring entries on
+        first touch."""
+        tbl = self.tables[rid]
+        hl = self.host_len[rid]
+        ps = self.page_size
+        if upto <= hl:
+            return
+        if self.ring_pages:
+            for lp in range(hl // ps, (upto - 1) // ps + 1):
+                r = lp % self.ring_pages
+                if tbl[r] < 0:
+                    tbl[r] = self._alloc_page()
+        else:
+            need = (upto + ps - 1) // ps
+            while len(tbl) < need:
+                tbl.append(self._alloc_page())
+
+    def view(self, rids: Sequence[int], extra: int = 0) -> torch.Tensor:
+        """Bucketed (rows, n_view) int32 block-table view of a batch, on
+        the device: n_view covers each rid's held tokens plus `extra`
+        columns, snapped to a power of two (windowed: always the whole
+        ring). Unmapped entries -> NULL page; padded batch rows ->
+        SCRATCH. Built on the host and memoized per distinct content
+        (bounded FIFO), so a step costs at most one copy."""
+        rows = slot_bucket(max(len(rids), 1))
+        ps = self.page_size
+        if self.ring_pages:
+            nv = self.ring_pages
+        else:
+            need = 1
+            for r in rids:
+                need = max(need, -(-(self.host_len[r] + extra) // ps))
+            nv = 1 << (need - 1).bit_length()
+        out = np.full((rows, nv), self.NULL_PAGE, np.int32)
+        for j, r in enumerate(rids):
+            for i, p in enumerate(self.tables[r][:nv]):
+                if p >= 0:
+                    out[j, i] = p
+        out[len(rids):, :] = self.SCRATCH_PAGE
+        key = nv.to_bytes(4, "little") + out.tobytes()
+        t = self._view_cache.get(key)
+        if t is None:
+            while len(self._view_cache) >= self.VIEW_CACHE_MAX:
+                self._view_cache.pop(next(iter(self._view_cache)))
+            t = self._view_cache[key] = torch.from_numpy(out).to(self.device)
+        return t
+
+    def prepare(self, rids: Sequence[int], write: int) -> torch.Tensor:
+        """Map pages for the next `write` columns of each rid and return
+        the page_view covering held + write columns."""
+        if write:
+            for r in rids:
+                self.ensure(r, self.host_len[r] + write)
+        return self.view(rids, extra=write)
+
+    def advance(self, rid: int, n: int):
+        """Record `n` committed tokens (host paging mirror)."""
+        self.host_len[rid] += n
+
+    def snapshot_view(self, rids: Sequence[int]) -> torch.Tensor:
+        """View for a snapshot gather with SNAP_SLACK columns of slack so
+        draft-ahead writes on the (copied) snapshot never wrap."""
+        return self.view(rids, extra=SNAP_SLACK)
+
+    # -------------------------------------------------------------- accounting
+    def pages_held(self) -> int:
+        """Physical pages currently mapped by live requests."""
+        return sum(sum(1 for p in t if p >= 0) for t in self.tables.values())
+
+    def fragmentation(self) -> float:
+        """Fraction of held page capacity that is not live tokens: the
+        internal fragmentation of the tail pages (0.0 = perfectly full)."""
+        held = self.pages_held() * self.page_size
+        if not held:
+            return 0.0
+        live = sum(min(self.host_len[r], self.ring_pages * self.page_size
+                       if self.ring_pages else self.host_len[r])
+                   for r in self.tables)
+        return 1.0 - live / held
+
 
 class ModelRunner:
     """Executes one model over its slot cache with bucketed steps.
+
+    paged=True swaps the reserved-capacity `SlotCacheManager` for the
+    `PagedSlotCacheManager` (page-pool KV, block tables); every step then
+    threads the manager's `page_view` into the model's reads and writes.
+    The two modes commit identical tokens.
 
     Runs on CUDA unless `device="cpu"`; `params` must already live on
     that device (see `models.model.init_params`, `models.convert`)."""
 
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  cache_dtype=torch.float32, n_slots: int = 8,
-                 paged: bool = False, device=None):
-        if paged:
-            raise NotImplementedError(PAGED_ROADMAP)
+                 paged: bool = False, page_size: int = 64,
+                 pool_pages: int = 0, device=None):
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed'].device}, the "
-                             f"runner on {self.device}")
+        emb = params["embed"]
+        emb_dev = (emb["w8"] if quantize.is_quantized(emb) else emb).device
+        if emb_dev.type != self.device.type:
+            raise ValueError(f"params live on {emb_dev}, the runner on "
+                             f"{self.device}")
         self.cache_dtype = torch_dtype(cache_dtype)
-        self.slots = SlotCacheManager(cfg, max_len, n_slots,
-                                      self.cache_dtype, self.device)
-        # routing prior embeddings (host f32 copy of the real vocab rows)
-        self.embed_np = quantize.dequantize_weight(
-            params["embed"][: cfg.vocab]).cpu().numpy()
+        self.paged = paged
+        if paged:
+            self.slots: SlotCacheManager = PagedSlotCacheManager(
+                cfg, max_len, n_slots, self.cache_dtype, self.device,
+                page_size=page_size, pool_pages=pool_pages)
+        else:
+            self.slots = SlotCacheManager(cfg, max_len, n_slots,
+                                          self.cache_dtype, self.device)
+        # routing prior embeddings: a host f32 copy of the real vocab rows,
+        # dequantized for int8 tables
+        self.embed_np = quantize.dequantize_weight(emb)[: cfg.vocab
+                                                        ].cpu().numpy()
         # masked slot_extend writes issued by the prefill paths
         self.n_prefill_writes = 0
 
@@ -194,10 +430,12 @@ class ModelRunner:
             seg[0, :n_real] = toks[i: i + n_real]
             mask = np.zeros((rows, width), bool)
             mask[0, :n_real] = True            # batch-pad rows stay masked
+            pv = self.slots.prepare([rid], write=width)
             logits, _, _ = M.slot_extend(
                 self.params, self.cfg, self._t(seg), self.slots.cache, sidx,
-                token_mask=self._t(mask, torch.bool))
+                token_mask=self._t(mask, torch.bool), page_view=pv)
             self.n_prefill_writes += 1
+            self.slots.advance(rid, n_real)
             nxt = toks[i + 1: i + n_real]
             if len(nxt):
                 lp = torch.log_softmax(
@@ -242,10 +480,13 @@ class ModelRunner:
             t = batch[rid]
             seg[j, : len(t)] = t
             mask[j, : len(t)] = True
+        pv = self.slots.prepare(rids, write=width)
         logits, _, _ = M.slot_extend(
             self.params, self.cfg, self._t(seg), self.slots.cache, sidx,
-            token_mask=self._t(mask, torch.bool))
+            token_mask=self._t(mask, torch.bool), page_view=pv)
         self.n_prefill_writes += 1
+        for rid in rids:
+            self.slots.advance(rid, len(batch[rid]))
         lp = self._host(torch.log_softmax(
             logits[:, :, : self.cfg.vocab].float(), -1))
         lg = self._host(logits[:, :, : self.cfg.vocab])
@@ -260,15 +501,22 @@ class ModelRunner:
         return out
 
     def drop(self, rid: int):
-        """Evict `rid`: its slot returns to the pool."""
+        """Evict `rid`: its slot (and pages, when paged) return to the
+        pool."""
         self.slots.release(rid)
 
     # ----------------------------------------------------------- batched ops
     def speculative_caches(self, rids: Sequence[int]):
         """Compact device-side copy of the requests' slots (bucketed
         batch). Decoding on it never touches the slotted cache —
-        discarding it is the speculative rollback."""
-        return M.gather_slots(self.slots.cache, self.slots.padded_idx(rids))
+        discarding it is the speculative rollback. On a paged pool it
+        copies only the mapped pages (plus SNAP_SLACK columns of write
+        headroom) into a plain batch cache."""
+        idx = self.slots.padded_idx(rids)
+        pv = self.slots.snapshot_view(rids)
+        if pv is None:
+            return M.gather_slots(self.slots.cache, idx)
+        return M.gather_paged_slots(self.cfg, self.slots.cache, idx, pv)
 
     def extend_snapshot(self, caches: dict, tokens: np.ndarray):
         """Teacher-force `tokens` (B, T) into a speculative snapshot;
@@ -303,10 +551,13 @@ class ModelRunner:
                 self._t(self._pad_rows(toks, rows))[:, None], caches)
         else:
             sidx = self.slots.padded_idx(rids)
+            pv = self.slots.prepare(rids, write=1)
             lg, _, _ = M.slot_decode_step(
                 self.params, self.cfg,
                 self._t(self._pad_rows(toks, int(sidx.shape[0])))[:, None],
-                self.slots.cache, sidx)
+                self.slots.cache, sidx, page_view=pv)
+            for r in rids:
+                self.slots.advance(r, 1)
             new_cache = None
         return self._host(lg[:B, 0, : self.cfg.vocab]), new_cache
 
@@ -325,12 +576,13 @@ class ModelRunner:
             mask = np.concatenate(
                 [mask, np.broadcast_to(np.tril(np.ones((G, G), bool)),
                                        (rows - B, G, G))], axis=0)
+        pv = self.slots.prepare(rids, write=0)
         lg = M.slot_verify_chunk(
             self.params, self.cfg,
             self._t(self._pad_rows(np.asarray(tokens, np.int32), rows)),
             self.slots.cache, sidx,
             self._t(self._pad_rows(np.asarray(rel_pos, np.int32), rows)),
-            self._t(mask, torch.bool))
+            self._t(mask, torch.bool), page_view=pv)
         return self._host(lg[:B, :, : self.cfg.vocab])
 
     def extend_committed(self, rid_tokens: Dict[int, List[int]]
@@ -347,13 +599,15 @@ class ModelRunner:
                 continue
             sidx = self.slots.padded_idx(rids)
             toks = np.asarray([rid_tokens[r] for r in rids], np.int32)
+            pv = self.slots.prepare(rids, write=n)
             lg, _, _ = M.slot_extend(
                 self.params, self.cfg,
                 self._t(self._pad_rows(toks, int(sidx.shape[0]))),
-                self.slots.cache, sidx)
+                self.slots.cache, sidx, page_view=pv)
             tails = self._host(lg[: len(rids), -1, : self.cfg.vocab])
             for i, r in enumerate(rids):
                 out[r] = tails[i]
+                self.slots.advance(r, n)
         return out
 
     def length(self, rid: int) -> int:

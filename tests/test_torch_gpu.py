@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA GPU (marked `gpu`).
 
-The CUDA kernel has no CPU mode, so these skip on a host without a card.
+The CUDA kernels have no CPU mode, so these skip on a host without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there, run it without the repository's
 conftest (which imports the JAX package):
@@ -12,8 +12,12 @@ import pytest
 import torch
 
 from repro_torch.config import CoSineConfig, ModelConfig
+from repro_torch.configs.drafters import int8_variant
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.int8_gemv import ops as ig
+from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models import model as M
+from repro_torch.models import quantize
 from repro_torch.serving.engine import SpeculativeEngine
 
 
@@ -56,31 +60,129 @@ def test_cuda_kernel_matches_plain(cuda, D, G, T, dtype):
 
 
 @pytest.mark.gpu
-def test_cuda_engine_is_greedy_exact(cuda):
-    """The cosine engine on the card (random drafter + perfect drafter,
-    float32 tiny models) commits the target's greedy stream, and every
-    attention of the run launched the kernel."""
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M_", [1, 4, 8, 64])
+@pytest.mark.parametrize("K,N", [(896, 128), (100, 4864), (37, 13)])
+def test_int8_gemv_matches_plain(cuda, M_, K, N, xdtype):
+    """The int8 GEMV kernel against its plain version, for the dense
+    (K, N) layout and the transposed (N, K) table, aligned and not. The
+    same f32 products summed in another order: rtol = atol = 1e-4 on
+    outputs of O(1)."""
+    gen = torch.Generator(device=cuda).manual_seed(M_ * K)
+    w = torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5
+    q = quantize.quantize_weight(w)
+    x = torch.randn((M_, K), generator=gen, device=cuda).to(xdtype)
+    want = ig.int8_gemv_plain(x, q["w8"], q["scale"])
+    got = ig._launch(x, q["w8"], q["scale"])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    table = q["w8"].t().contiguous()               # (N, K), as (V, D)
+    got_t = ig._launch(x, table.t(), q["scale"].reshape(N, 1))
+    torch.testing.assert_close(got_t, want, rtol=1e-4, atol=1e-4)
+    # the public wrapper the model calls: the kernel's f32 output cast
+    # once to x's dtype, bit for bit, for both layouts
+    for w8, sc, y32 in ((q["w8"], q["scale"], got),
+                        (table.t(), q["scale"].reshape(N, 1), got_t)):
+        out = ig.int8_gemv(x, w8, sc)
+        assert out.dtype == xdtype
+        assert torch.equal(out, y32.to(xdtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 64, 128])
+@pytest.mark.parametrize("T,G,D", [(1, 7, 64), (10, 1, 128), (40, 2, 32)])
+def test_paged_kernel_matches_plain_and_kernel1(cuda, ps, T, G, D):
+    """The paged kernel against its plain version (rtol = atol = 1e-4),
+    and bit for bit against the flash-attention kernel on the gathered
+    view; pages in scrambled order, NULL filler entries, a window."""
+    gen = torch.Generator(device=cuda).manual_seed(ps + T)
+    B, H, nv = 3, 2, 16
+    lens = [5 * ps + 3, ps, 7]
+    P = 2 + sum(-(-n // ps) for n in lens) + 3
+    k = torch.randn((P, ps, H, D), generator=gen, device=cuda)
+    v = torch.randn((P, ps, H, D), generator=gen, device=cuda)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    tbl = torch.ones((B, nv), dtype=torch.int32, device=cuda)
+    free = (torch.randperm(P - 2, generator=torch.Generator().manual_seed(0))
+            + 2).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            page = free.pop()
+            cnt = min(ps, n - j * ps)
+            pos[page, :cnt] = j * ps + torch.arange(cnt, dtype=torch.int32,
+                                                    device=cuda)
+            tbl[b, j] = page
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qp = torch.tensor([[max(n - T + t, 0) for t in range(T)] for n in lens],
+                      dtype=torch.int32, device=cuda)
+    for window in (0, 50):
+        got = pa.paged_attend_partial(q, k, v, qp, pos, tbl, scale=D ** -0.5,
+                                      window=window)
+        want = pa.paged_attend_partial_plain(q, k, v, qp, pos, tbl,
+                                             scale=D ** -0.5, window=window)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        k1 = fa.attend_partial(q, pa.gather_view(k, tbl),
+                               pa.gather_view(v, tbl), qp,
+                               pa.gather_view(pos, tbl), scale=D ** -0.5,
+                               window=window)
+        for a, b in zip(got, k1):
+            assert torch.equal(a, b)
+
+
+def _tiny_models(cuda):
     tcfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=128,
                        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
                        vocab=300, tie_embeddings=True, dtype="float32")
     dcfg = tcfg.with_overrides(name="d", n_layers=1, n_heads=2, head_dim=64)
-    tp = M.init_params(tcfg, 0)
+    return tcfg, dcfg, M.init_params(tcfg, 0)
+
+
+def _greedy(tcfg, tp, prompt, n, cuda):
+    cache = M.init_cache(tcfg, 1, 128, dtype=torch.float32)
+    lg, cache, _ = M.prefill(tp, tcfg, torch.tensor([prompt], device=cuda),
+                             cache)
+    ref = []
+    for _ in range(n):
+        ref.append(int(torch.argmax(lg[0, -1, : tcfg.vocab])))
+        lg, cache, _ = M.decode_step(
+            tp, tcfg, torch.tensor([[ref[-1]]], device=cuda), cache)
+    return ref
+
+
+def _engine_is_greedy_exact(cuda, pool):
+    tcfg, dcfg, tp = _tiny_models(cuda)
+    perfect = (int8_variant(tcfg) if pool == "mixed int8" else tcfg)
+    cos = CoSineConfig(n_drafters=2, paged_pool=pool == "paged",
+                       page_size=16, pool_pages=4)
     eng = SpeculativeEngine((tcfg, tp), [(dcfg, M.init_params(dcfg, 1), "a"),
-                                         (tcfg, tp, "b")],
-                            CoSineConfig(n_drafters=2), max_len=128, seed=0)
+                                         (perfect, tp, "b")],
+                            cos, max_len=128, seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
     reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = pa.LAUNCHES = ig.LAUNCHES = 0
     stats = eng.run()
     assert fa.LAUNCHES > 0 and stats.mean_acceptance > 1.0
+    if pool == "paged":
+        assert pa.LAUNCHES > 0 and eng.target.slots.n_page_growths > 0
+    if pool == "mixed int8":
+        assert ig.LAUNCHES > 0
     for r, p in zip(reqs, prompts):
-        cache = M.init_cache(tcfg, 1, 128, dtype=torch.float32)
-        lg, cache, _ = M.prefill(tp, tcfg, torch.tensor([p], device=cuda),
-                                 cache)
-        ref = []
-        for _ in range(16):
-            ref.append(int(torch.argmax(lg[0, -1, : tcfg.vocab])))
-            lg, cache, _ = M.decode_step(
-                tp, tcfg, torch.tensor([[ref[-1]]], device=cuda), cache)
-        assert list(map(int, r.generated)) == ref
+        assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_is_greedy_exact(cuda):
+    """The cosine engine on the card (random drafter + perfect drafter,
+    float32 tiny models) commits the target's greedy stream, and every
+    attention of the run launched the kernel."""
+    _engine_is_greedy_exact(cuda, "resident")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["paged", "mixed int8"])
+def test_cuda_engine_paged_and_int8_are_greedy_exact(cuda, pool):
+    """The same on a paged pool that must grow (every pool read on the
+    paged kernel) and with an int8 copy of the target as one drafter
+    (every quantized product on the int8 kernel)."""
+    _engine_is_greedy_exact(cuda, pool)

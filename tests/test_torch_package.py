@@ -116,7 +116,6 @@ def _refusals():
     from repro_torch.config import CoSineConfig, MLAConfig, MoEConfig, SSMConfig
     from repro_torch.models import model as M
     from repro_torch.serving.engine import SpeculativeEngine
-    from repro_torch.serving.runner import ModelRunner
 
     cfg = _tiny()
     p = M.init_params(cfg, 0, device="cpu")
@@ -127,12 +126,6 @@ def _refusals():
                           device="cpu", **kw)
 
     return {
-        "int8 drafters": (lambda: engine({"drafter_quant": "int8"}),
-                          "queue 1 item 8"),
-        "paged pool": (lambda: engine({"paged_pool": True}),
-                       "queue 1 item 9"),
-        "paged runner": (lambda: ModelRunner(cfg, p, 16, paged=True,
-                                             device="cpu"), "queue 1 item 9"),
         "async backend": (lambda: engine({}, backend="async"),
                           "queue 1 item 12"),
         "ssm": (lambda: M.init_params(cfg.with_overrides(
@@ -156,8 +149,7 @@ def _refusals():
     }
 
 
-BRANCHES = ["int8 drafters", "paged pool", "paged runner", "async backend",
-            "ssm", "hybrid", "mla", "moe", "cross-attention", "int8 kv"]
+BRANCHES = ["async backend", "ssm", "hybrid", "mla", "moe", "cross-attention", "int8 kv"]
 
 
 @pytest.mark.parametrize("branch", BRANCHES)
