@@ -5,11 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's three hand-written Hopper kernels from the sources
+It builds the port's four hand-written Hopper kernels from the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
-the work's lower bound and one library call as a yardstick), then serves
-the CoSine path end to end through `SpeculativeEngine.submit/run`:
+the work's lower bound and, where one PyTorch call computes the same
+function, that call as a yardstick), then serves the CoSine path end to
+end through `SpeculativeEngine.submit/run`:
 
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
@@ -22,7 +23,17 @@ the CoSine path end to end through `SpeculativeEngine.submit/run`:
            phase A's;
   phase D  phase A with drafter 0 as int8 weights beside a
            full-precision drafter 1: every quantized product goes
-           through the int8 GEMV kernel.
+           through the int8 GEMV kernel;
+  phase E  a mamba2-130m target (24 SSD layers, full width, random f32
+           weights, bf16 activations) with two mamba2-130m drafters, one
+           sharing its weights, on the resident pool; chain-only
+           verification; every SSM layer of every forward goes through
+           the SSD scan kernel and no attention kernel launches;
+  phase F  a hybrid target at jamba-v0.1-52b's widths, cut to 8 layers
+           (one 1:7 period, attention at layer 4) with the dense FFN in
+           place of the MoE, with two drafters sharing its weights, on
+           the resident pool;
+  phase G  phase F on the paged pool: its streams equal phase F's.
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
@@ -55,6 +66,12 @@ KERNEL_TOL = 1e-4
 # f32 conversions and f32 products, summed in another order over K <=
 # 4864 terms: relative ~1e-6 on outputs of O(1)
 INT8_TOL = 1e-4
+# SSD scan kernel vs its plain version on the same inputs: both in f32,
+# the kernel in chunks of <= 64 tokens and the plain version in chunks of
+# 128, so the sums (and the decays, exp of cumulative sums) are taken in
+# another order: the reference's own test tolerance, on y and states of
+# O(1)
+SSD_TOL = 2e-4
 MAX_LEN = 1024
 NEW_TOKENS = 32
 PROMPT_LENS = (64, 200, 350, 600)
@@ -70,6 +87,9 @@ KERNEL_SOURCES = {
     "int8_gemv_call": (
         "src/repro_torch/kernels/int8_gemv/csrc/int8_gemv.cu",
         "src/repro/kernels/int8_gemv/kernel.py:51"),
+    "ssd_scan_pallas": (
+        "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/kernel.py:74"),
 }
 
 
@@ -463,6 +483,90 @@ def int8_kernel_phase(torch, ig, quantize):
     return rows
 
 
+def ssd_work(sd, b, L, H, P, G, N, x_bytes):
+    """Bytes the scan must move (x, dt, B and C per group, A, the initial
+    state in, y and the final state out) and the f32 operations of the
+    kernel's chunked dual form: per chunk of n tokens of one head, the
+    causal half of the scores (n(n+1)/2 dots of N) and of their product
+    with x (of P), the inter-chunk term and the state update (n P N
+    each), multiply and add counted as two."""
+    Q = sd.kernel_chunk(P, N, L)
+    flops = 0
+    for t0 in range(0, L, Q):
+        n = min(Q, L - t0)
+        tri = n * (n + 1) // 2
+        flops += 2 * (tri * N + tri * P + 2 * n * P * N) + P * N
+    flops *= b * H
+    nbytes = (b * L * H * P * x_bytes * 2          # x in, y out
+              + b * L * H * 4 + H * 4              # dt, A
+              + 2 * b * L * G * N * x_bytes        # B, C
+              + 2 * b * H * P * N * 4)             # state in and out
+    return nbytes, flops
+
+
+def ssd_kernel_phase(torch, sd):
+    """The SSD scan kernel at the serving shapes of phases E and F (and a
+    case with G > 1), each with an initial state as the mixer always
+    passes one: against its plain version (chunk 128); returns rows."""
+    import math
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    dt_bias = math.log(math.expm1(0.01))
+    # (name, b, L, H, P, G, N, real tokens): mamba2-130m and jamba widths
+    cases = [
+        ("mamba2_prefill_b1_L512_H24_P64_N128", 1, 512, 24, 64, 1, 128, 512),
+        ("mamba2_final_chunk_b1_L128_88real", 1, 128, 24, 64, 1, 128, 88),
+        ("mamba2_verify_b4_L6", 4, 6, 24, 64, 1, 128, 6),
+        ("mamba2_decode_b4_L1", 4, 1, 24, 64, 1, 128, 1),
+        ("jamba_prefill_b1_L512_H128_P64_N16", 1, 512, 128, 64, 1, 16, 512),
+        ("jamba_verify_b4_L6_H128", 4, 6, 128, 64, 1, 16, 6),
+        ("jamba_decode_b4_L1_H128", 4, 1, 128, 64, 1, 16, 1),
+        ("groups4_b2_L77_H24_P64_N128", 2, 77, 24, 64, 4, 128, 77),
+    ]
+    rows = []
+    for name, b, L, H, P, G, N, real in cases:
+        # distributed as the mixer makes them (its activations are f32:
+        # the f32 in_proj product promotes bf16 inputs)
+        x = torch.nn.functional.silu(torch.randn((b, L, H, P), generator=gen,
+                                                 device="cuda"))
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, L, H), generator=gen, device="cuda") + dt_bias)
+        dt[:, real:] = 0.0                 # a masked suffix of the chunk
+        A = -torch.linspace(1.0, 16.0, H, device="cuda")
+        Bm = torch.nn.functional.silu(torch.randn(
+            (b, L, G, N), generator=gen, device="cuda"))
+        Cm = torch.nn.functional.silu(torch.randn(
+            (b, L, G, N), generator=gen, device="cuda"))
+        s0 = 0.1 * torch.randn((b, H, P, N), generator=gen, device="cuda")
+        args = (x, dt, A, Bm, Cm, 128, s0)
+        y, st = sd.ssd(*args)
+        yp, sp = sd.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        for part, got, want in (("y", y, yp), ("state", st, sp)):
+            if not torch.isfinite(got).all():
+                fail(f"ssd {name}: kernel {part} not finite")
+            if not torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL):
+                fail(f"ssd {name}: kernel {part} vs plain max |err| "
+                     f"{float((got - want).abs().max()):.3e} outside "
+                     f"rtol=atol={SSD_TOL}")
+        err_y = float((y - yp).abs().max())
+        err_s = float((st - sp).abs().max())
+        ms = _graph_ms(torch, lambda: sd.ssd(*args))
+        plain_ms = _graph_ms(torch, lambda: sd.ssd_chunked(*args), reps=3)
+        nbytes, flops = ssd_work(sd, b, L, H, P, G, N, 4)
+        bound, by = _bound(nbytes, flops, "float32")
+        rows.append(dict(name=name, max_abs_err=max(err_y, err_s),
+                         max_abs_err_y=err_y, max_abs_err_state=err_s,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=None, bytes=nbytes,
+                         flops=flops, dtype="float32",
+                         kernel_chunk=sd.kernel_chunk(P, N, L)))
+        print(f"kernel ssd {name}: max|err| y {err_y:.2e} state "
+              f"{err_s:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"bound {bound:.4f} ms ({by})  library: none", flush=True)
+    return rows
+
+
 # =====================================================================
 # serving phases
 # =====================================================================
@@ -470,8 +574,9 @@ def int8_kernel_phase(torch, ig, quantize):
 class PathCounters:
     """Counts, during one serving run, the model's calls of each kernel —
     resident attention reads by form, page-pool reads by form, int8
-    products (from the quantized leaves of each forward's params) — and
-    the snapshot gathers with their `take_rows` copies, to hold every
+    products (from the quantized leaves of each forward's params), SSM
+    and attention layers of each forward — and the snapshot gathers of
+    attention layers with their `take_rows` copies, to hold every
     kernel's launch counter against them; also counts any call of a
     plain version (there must be none)."""
 
@@ -479,14 +584,19 @@ class PathCounters:
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.int8_gemv import ops as ig
         from repro_torch.kernels.paged_attention import ops as pa
+        from repro_torch.kernels.ssd_scan import ops as sd
         from repro_torch.models import attention as attn
         from repro_torch.models import model as M
         from repro_torch.models import quantize
         self.fa, self.pa, self.ig, self.attn, self.M = fa, pa, ig, attn, M
+        self.sd = sd
         self.quantize = quantize
         self.resident, self.paged = {}, {}
         self.int8_products = 0
         self.int8_per_forward = {}
+        self.forwards = 0
+        self.ssm_layer_calls = 0
+        self.attn_layer_calls = 0
         self.snapshots_layers = 0
         self.take_rows_calls = 0
         self.plain_calls = 0
@@ -501,7 +611,8 @@ class PathCounters:
         if key not in self.int8_per_forward:
             q = self.quantize.is_quantized
             n = sum(q(w) for layer in params["layers"]
-                    for sub in ("mixer", "ffn") for w in layer[sub].values())
+                    for sub in ("mixer", "ffn")
+                    for w in layer.get(sub, {}).values())
             n += q(params.get("head")) + q(params["embed"])
             self.int8_per_forward[key] = n
         return self.int8_per_forward[key]
@@ -531,10 +642,15 @@ class PathCounters:
 
         def apply(params, *a, **kw):
             self.int8_products += self._n_int8(params)
+            n_ssm = sum("A_log" in layer["mixer"] for layer in params["layers"])
+            self.forwards += 1
+            self.ssm_layer_calls += n_ssm
+            self.attn_layer_calls += len(params["layers"]) - n_ssm
             return orig_apply(params, *a, **kw)
 
         def gather(cfg, cache, *a, **kw):
-            self.snapshots_layers += len(cache["layers"])
+            self.snapshots_layers += sum("slot_pos" in layer["self"]
+                                         for layer in cache["layers"])
             return orig_gather(cfg, cache, *a, **kw)
 
         def take(*a, **kw):
@@ -554,31 +670,47 @@ class PathCounters:
         self._patch(self.attn, "take_rows", take)
         for mod, name in ((self.fa, "attend_partial_plain"),
                           (self.pa, "paged_attend_partial_plain"),
-                          (self.ig, "int8_gemv_plain")):
+                          (self.ig, "int8_gemv_plain"),
+                          (self.sd, "ssd_chunked")):
             self._patch(mod, name, plain(getattr(mod, name)))
         self.fa.LAUNCHES = self.pa.LAUNCHES = self.ig.LAUNCHES = 0
+        self.sd.LAUNCHES = 0
         return self
 
     def __exit__(self, *exc):
         self.launches = dict(flash_attention_partial=self.fa.LAUNCHES,
                              paged_flash_decode=self.pa.LAUNCHES,
-                             int8_gemv_call=self.ig.LAUNCHES)
+                             int8_gemv_call=self.ig.LAUNCHES,
+                             ssd_scan_pallas=self.sd.LAUNCHES)
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
 
-    def check(self, label, paged_path: bool, int8_path: bool):
+    def check(self, label, paged_path: bool, int8_path: bool,
+              attention: bool = True, ssm: bool = False):
         """Launch counters against the model's calls; each kernel of the
-        phase's path launched at least once, the others never."""
+        phase's path launched at least once, the others never. Every
+        forward reads each attention layer's cache once (the resident or
+        the paged kernel); verification adds a segment pass."""
         res, pag = sum(self.resident.values()), sum(self.paged.values())
         L = self.launches
         if self.plain_calls:
             fail(f"{label}: {self.plain_calls} plain-version calls")
-        if L["flash_attention_partial"] != res or res == 0:
+        if L["flash_attention_partial"] != res or (res > 0) != attention:
             fail(f"{label}: {L['flash_attention_partial']} flash-attention "
                  f"launches for {res} resident attention calls")
         if L["paged_flash_decode"] != pag or (pag > 0) != paged_path:
             fail(f"{label}: {L['paged_flash_decode']} paged launches for "
                  f"{pag} pool reads")
+        cache_reads = res - self.resident.get("segment", 0) + pag
+        if cache_reads != self.attn_layer_calls:
+            fail(f"{label}: {cache_reads} attention cache reads for "
+                 f"{self.attn_layer_calls} attention layers of "
+                 f"{self.forwards} forwards")
+        if L["ssd_scan_pallas"] != self.ssm_layer_calls \
+                or (self.ssm_layer_calls > 0) != ssm:
+            fail(f"{label}: {L['ssd_scan_pallas']} SSD scan launches for "
+                 f"{self.ssm_layer_calls} SSM layers of {self.forwards} "
+                 "forwards")
         if paged_path and set(self.resident) - {"segment", "snapshot"}:
             fail(f"{label}: resident reads {self.resident} on the paged "
                  "path (only segment passes and snapshots may use kernel 1)")
@@ -658,7 +790,8 @@ def target_references(torch, M, cfg, params, prompts):
 
 
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
-                paged=False, int8=False, observe=None):
+                paged=False, int8=False, observe=None, attention=True,
+                ssm=False):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel)."""
     from repro_torch.config import CoSineConfig
@@ -682,7 +815,7 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    calls.check(label, paged, int8)
+    calls.check(label, paged, int8, attention=attention, ssm=ssm)
     if stats.total_committed != len(prompts) * NEW_TOKENS:
         fail(f"{label}: committed {stats.total_committed} tokens, expected "
              f"{len(prompts) * NEW_TOKENS}")
@@ -740,6 +873,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         sim_ms=stats.sim_ms, sim_throughput_tps=stats.throughput_tps,
         kernel_launches=calls.launches, resident_attention_calls=calls.resident,
         pool_reads=calls.paged, int8_products=calls.int8_products,
+        forwards=calls.forwards, ssm_layer_calls=calls.ssm_layer_calls,
+        attention_layer_calls=calls.attn_layer_calls,
         int8_products_per_forward=sorted(set(
             calls.int8_per_forward.values())),
         snapshot_layer_gathers=calls.snapshots_layers,
@@ -752,21 +887,23 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
           f"tokens/s (the engine's latency model, not a measurement); "
           f"mean acceptance {stats.mean_acceptance:.3f}; launches "
           f"{calls.launches} = resident attention calls {calls.resident}, "
-          f"pool reads {calls.paged}, int8 products {calls.int8_products}",
+          f"pool reads {calls.paged}, int8 products {calls.int8_products}, "
+          f"SSM layers {calls.ssm_layer_calls} of {calls.forwards} forwards",
           flush=True)
     eng.backend.shutdown()
     return summary, streams, calls.launches
 
 
-def observe_pools(eng):
-    """Phase C: peak pages held by each model's pool, and pages held and
-    fragmentation when the first request completes (all four live)."""
+def observe_pools(eng, label="phase C"):
+    """Phases C and G: peak pages held by each model's pool, and pages
+    held and fragmentation when the first request completes (all four
+    live)."""
     from repro_torch.serving.runner import PagedSlotCacheManager
     names = ["target"] + [f"drafter {i}" for i in range(len(eng.drafters))]
     mgrs = [r.slots for r in [eng.target] + list(eng.drafters)]
     for m in mgrs:
         if not isinstance(m, PagedSlotCacheManager):
-            fail("phase C: the runners did not get a paged pool")
+            fail(f"{label}: the runners did not get a paged pool")
     seen = {id(m): dict(peak=0, at_first_release=None) for m in mgrs}
     for m in mgrs:
         alloc, release = m._alloc_page, m.release
@@ -796,13 +933,13 @@ def observe_pools(eng):
                              pages_held_at_first_completion=held,
                              fragmentation_at_first_completion=frag,
                              pages_held_at_end=m.pages_held())
-            print(f"phase C {name} pool: page size {m.page_size}, "
+            print(f"{label} {name} pool: page size {m.page_size}, "
                   f"{POOL_PAGES} -> {m.n_pages} pages ({m.n_page_growths} "
                   f"growths), peak {s['peak']} pages held; at the first "
                   f"completion {held} pages held, fragmentation "
                   f"{frag:.3f}; at the end {m.pages_held()}", flush=True)
             if m.n_page_growths < 1:
-                fail(f"phase C: the {name} pool never grew")
+                fail(f"{label}: the {name} pool never grew")
         return dict(pools=out)
 
     return report
@@ -846,12 +983,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from repro_torch.configs import QWEN1_5_4B, QWEN2_0_5B
+        from repro_torch.configs import (JAMBA_V0_1_52B, MAMBA2_130M,
+                                         QWEN1_5_4B, QWEN2_0_5B)
         from repro_torch.configs.drafters import int8_variant
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.int8_gemv import ops as ig
         from repro_torch.kernels.paged_attention import ops as pa
+        from repro_torch.kernels.ssd_scan import ops as sd
         from repro_torch.models import model as M
         from repro_torch.models import quantize
     except ImportError as e:
@@ -867,10 +1006,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
+    t_start = time.perf_counter()
     t0 = time.perf_counter()
-    libraries = [fa.LIBRARY, pa.LIBRARY, ig.LIBRARY]
+    libraries = [fa.LIBRARY, pa.LIBRARY, ig.LIBRARY, sd.LIBRARY]
     build.build_all(libraries)
-    print(f"kernel build+load (3 nvcc in parallel) "
+    print(f"kernel build+load ({len(libraries)} nvcc in parallel) "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for lib in libraries:
         # ptxas report per instantiation: registers, shared memory, spills
@@ -881,31 +1021,23 @@ def main() -> int:
     fa_rows = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
     ig_rows = int8_kernel_phase(torch, ig, quantize)
+    sd_rows = ssd_kernel_phase(torch, sd)
     kernel_err = max(r["max_abs_err"] for r in fa_rows + pa_rows)
+    ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
     paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
     gc.collect()
     torch.cuda.empty_cache()
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, QWEN1_5_4B.vocab, n).tolist()
-               for n in PROMPT_LENS]
+    def make_prompts(cfg):
+        rng = np.random.default_rng(0)
+        return [rng.integers(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
 
-    t0 = time.perf_counter()
-    tparams = M.init_params(QWEN1_5_4B, seed=0, device="cuda")
-    dparams = [M.init_params(QWEN2_0_5B, seed=1 + i, device="cuda")
-               for i in range(2)]
-    torch.cuda.synchronize()
-    print(f"weights {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    refs = target_references(torch, M, QWEN1_5_4B, tparams, prompts)
-    print(f"greedy references {time.perf_counter() - t0:.1f} s", flush=True)
-    target = (QWEN1_5_4B, tparams)
     launches = {name: 0 for name in KERNEL_SOURCES}
     summaries = []
 
-    def run(label, drafters, **kw):
+    def run(label, target, drafters, prompts, refs, err, **kw):
         summary, streams, counts = serve_phase(
-            torch, label, target, drafters, prompts, kernel_err, refs, **kw)
+            torch, label, target, drafters, prompts, err, refs, **kw)
         for name, n in counts.items():
             launches[name] += n
         summaries.append(summary)
@@ -913,16 +1045,36 @@ def main() -> int:
         torch.cuda.empty_cache()
         return summary, streams
 
+    def references(cfg, params, prompts):
+        t0 = time.perf_counter()
+        refs = target_references(torch, M, cfg, params, prompts)
+        print(f"{cfg.name}: greedy references {time.perf_counter() - t0:.1f}"
+              " s", flush=True)
+        return refs
+
+    # ---- phases A-D: qwen1.5-4b target, qwen2-0.5b drafters
+    prompts = make_prompts(QWEN1_5_4B)
+    t0 = time.perf_counter()
+    tparams = M.init_params(QWEN1_5_4B, seed=0, device="cuda")
+    dparams = [M.init_params(QWEN2_0_5B, seed=1 + i, device="cuda")
+               for i in range(2)]
+    torch.cuda.synchronize()
+    print(f"weights {time.perf_counter() - t0:.1f} s", flush=True)
+    refs = references(QWEN1_5_4B, tparams, prompts)
+    target = (QWEN1_5_4B, tparams)
+    dense = dict(target=target, prompts=prompts, refs=refs, err=kernel_err)
+
     # phase A: qwen1.5-4b target + two qwen2-0.5b drafters
     full = [(QWEN2_0_5B, dparams[i], f"d{i}") for i in range(2)]
-    _, streams_a = run("phase A", full)
+    _, streams_a = run("phase A", drafters=full, **dense)
     # phase B: perfect drafters sharing the target's weights
-    sum_b, _ = run("phase B", [(QWEN1_5_4B, tparams, f"p{i}")
-                               for i in range(2)])
+    sum_b, _ = run("phase B", drafters=[(QWEN1_5_4B, tparams, f"p{i}")
+                                        for i in range(2)], **dense)
     if not sum_b["mean_acceptance"] > 1.0:
         fail(f"phase B mean acceptance {sum_b['mean_acceptance']:.3f} <= 1")
     # phase C: phase A on the paged KV pool
-    _, streams_c = run("phase C", full, paged=True, observe=observe_pools)
+    _, streams_c = run("phase C", drafters=full, paged=True,
+                       observe=observe_pools, **dense)
     same = sum(a == c for a, c in zip(streams_a, streams_c))
     print(f"phase C: {same}/{len(prompts)} committed streams equal phase "
           f"A's token for token (paged kernel bitwise equal to kernel 1 "
@@ -933,13 +1085,69 @@ def main() -> int:
     # phase D: drafter 0 with int8 weights beside a full-precision drafter 1
     mixed = [(int8_variant(QWEN2_0_5B), dparams[0], "d0"),
              (QWEN2_0_5B, dparams[1], "d1")]
-    sum_d, _ = run("phase D", mixed, int8=True,
-                   observe=observe_drafter_steps)
+    sum_d, _ = run("phase D", drafters=mixed, int8=True,
+                   observe=observe_drafter_steps, **dense)
     per_fwd = sum_d["int8_products_per_forward"]
     if per_fwd != [0, QWEN2_0_5B.n_layers * 7 + 1]:
         fail(f"phase D: quantized products per forward {per_fwd}, expected "
              f"0 and {QWEN2_0_5B.n_layers * 7 + 1}")
-    del tparams, dparams, full, mixed, target
+    del tparams, dparams, full, mixed, target, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase E: mamba2-130m target and drafters (SSD layers only)
+    mcfg = MAMBA2_130M
+    mprompts = make_prompts(mcfg)
+    mparams = M.init_params(mcfg, seed=10, device="cuda")
+    mdraft = M.init_params(mcfg, seed=11, device="cuda")
+    mrefs = references(mcfg, mparams, mprompts)
+    sum_e, _ = run("phase E", target=(mcfg, mparams),
+                   drafters=[(mcfg, mparams, "m0"), (mcfg, mdraft, "m1")],
+                   prompts=mprompts, refs=mrefs, err=ssm_kernel_err,
+                   attention=False, ssm=True)
+    if not sum_e["mean_acceptance"] > 1.0:
+        fail(f"phase E mean acceptance {sum_e['mean_acceptance']:.3f} <= 1")
+    if sum_e["ssm_layer_calls"] != mcfg.n_layers * sum_e["forwards"]:
+        fail(f"phase E: {sum_e['ssm_layer_calls']} SSM layer calls for "
+             f"{sum_e['forwards']} forwards of {mcfg.n_layers} layers")
+    del mparams, mdraft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phases F and G: jamba widths, 8 layers (attention at layer 4),
+    # the dense FFN in place of the MoE (not ported)
+    hcfg = JAMBA_V0_1_52B.with_overrides(n_layers=8, moe=None)
+    n_ssm = sum(hcfg.layer_kind(i) == "ssm" for i in range(hcfg.n_layers))
+    if (n_ssm, hcfg.layer_kind(4)) != (7, "attn"):
+        fail(f"phase F: the cut plan has {n_ssm} SSM layers")
+    hprompts = make_prompts(hcfg)
+    t0 = time.perf_counter()
+    hparams = M.init_params(hcfg, seed=20, device="cuda")
+    torch.cuda.synchronize()
+    print(f"jamba-width weights {time.perf_counter() - t0:.1f} s", flush=True)
+    hrefs = references(hcfg, hparams, hprompts)
+    hybrid = dict(target=(hcfg, hparams),
+                  drafters=[(hcfg, hparams, f"h{i}") for i in range(2)],
+                  prompts=hprompts, refs=hrefs, err=ssm_kernel_err, ssm=True)
+    sum_f, streams_f = run("phase F", **hybrid)
+    sum_g, streams_g = run("phase G", paged=True,
+                           observe=lambda e: observe_pools(e, "phase G"),
+                           **hybrid)
+    for label, sm in (("phase F", sum_f), ("phase G", sum_g)):
+        if not sm["mean_acceptance"] > 1.0:
+            fail(f"{label} mean acceptance {sm['mean_acceptance']:.3f} <= 1")
+        if sm["ssm_layer_calls"] != n_ssm * sm["forwards"] or \
+                sm["attention_layer_calls"] != sm["forwards"]:
+            fail(f"{label}: {sm['ssm_layer_calls']} SSM and "
+                 f"{sm['attention_layer_calls']} attention layer calls for "
+                 f"{sm['forwards']} forwards")
+    same = sum(f == g for f, g in zip(streams_f, streams_g))
+    print(f"phase G: {same}/{len(hprompts)} committed streams equal phase "
+          "F's token for token", flush=True)
+    if same != len(hprompts):
+        fail("phase G: the paged pool committed other tokens than the "
+             "resident pool")
+    del hparams, hybrid
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -947,10 +1155,11 @@ def main() -> int:
     kernels = []
     for name, rows in (("flash_attention_partial", fa_rows),
                        ("paged_flash_decode", pa_rows),
-                       ("int8_gemv_call", ig_rows)):
+                       ("int8_gemv_call", ig_rows),
+                       ("ssd_scan_pallas", sd_rows)):
         source, replaces = KERNEL_SOURCES[name]
-        tot = {k: sum(r[k] for r in rows)
-               for k in ("ms", "plain_ms", "library_ms")}
+        tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
+        lib = [r["library_ms"] for r in rows]
         t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
         t_ops = sum(r["flops"] / PEAK_FLOPS[r["dtype"]] for r in rows) * 1e3
         kernels.append(dict(
@@ -960,10 +1169,14 @@ def main() -> int:
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=tot["library_ms"],
-            note="times are sums over one call of each shape below",
+            library_ms=None if None in lib else sum(lib),
+            note="times are sums over one call of each shape below"
+                 + ("; no PyTorch call computes the scan" if None in lib
+                    else ""),
             shapes=rows))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

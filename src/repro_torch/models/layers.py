@@ -11,10 +11,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models.quantize import qdot
 
 
-def dense_init(gen: torch.Generator, shape, device):
-    """Normal(0, 1/sqrt(fan_in)) f32 weight, drawn from `gen`."""
+def dense_init(gen: torch.Generator, shape, device, scale=None):
+    """Normal(0, scale) f32 weight, drawn from `gen`; scale defaults to
+    1/sqrt(fan_in)."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return w * (1.0 / math.sqrt(shape[0]))
+    return w * (1.0 / math.sqrt(shape[0]) if scale is None else scale)
 
 
 def embed_init(gen: torch.Generator, shape, device):

@@ -1,11 +1,17 @@
-"""Dense transformer assembly (port of `repro.models.model`, dense path).
+"""Model assembly (port of `repro.models.model`): dense attention, SSM
+and hybrid (SSM + attention) layer plans.
 
 Parameters and caches are plain dicts of tensors, one entry per layer
 (the reference's `lax.scan` over stacked stages is a Python loop here):
 
   params = {"embed": (Vp, d), "layers": [{"ln1", "mixer", "ln2", "ffn"}],
             "final_norm": {...}, "head": (d, Vp) unless tied}
-  cache  = {"layers": [{"self": kv cache}], "lengths": (B,) int32}
+  cache  = {"layers": [{"self": kv cache | ssm state}],
+            "lengths": (B,) int32}
+
+An attention layer's "self" cache is a KV cache ({"k", "v", "slot_pos"});
+an SSM layer's is its recurrent state ({"ssm", "conv", "pos"}, float32
+whatever the cache dtype, see `models/ssm.py`).
 
 One `apply()` serves scoring, prefill, decode and speculative
 verification (chain or tree), as in the reference; the mode follows from
@@ -15,12 +21,12 @@ the active slots of the resident pool, which is what the reference's
 `_scatter_stage_delta` does after its scan.
 
 The slot steps also run on a paged cache (`init_paged_cache`): the
-attention KV of every layer lives in a pool of pages, read and written
-through a `page_view` block table, while `lengths` stays slot-indexed.
+attention KV of every attention layer lives in a pool of pages, read and
+written through a `page_view` block table, while SSM state and `lengths`
+stay slot-indexed.
 
-Only dense attention families are ported; SSM/hybrid mixers, MoE FFNs,
-MLA and cross-attention raise `NotImplementedError` naming their ROADMAP
-item.
+MoE FFNs, MLA, cross-attention and int8 KV caches are not ported yet and
+raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,10 +38,10 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import quantize
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        mlp_params, norm_params)
 
-SSM_ROADMAP = "SSM and hybrid mixers are not ported yet (ROADMAP queue 1 item 10)"
 MOE_ROADMAP = "MoE layers are not ported yet (ROADMAP queue 1 item 11)"
 
 
@@ -101,8 +107,6 @@ def layer_specs(cfg: ModelConfig) -> list:
     """Per-layer specs; raises on the layer kinds not ported yet."""
     specs = [_spec_for(cfg, i) for i in range(cfg.n_layers)]
     for s in specs:
-        if s.mixer == "ssm":
-            raise NotImplementedError(SSM_ROADMAP)
         if s.mixer == "mla":
             raise NotImplementedError(attn.MLA_ROADMAP)
         if s.cross:
@@ -141,8 +145,9 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
     params = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dev)}
     layers = []
     for spec in specs:
-        p = {"ln1": norm_params(cfg, cfg.d_model, dev),
-             "mixer": attn.gqa_params(gen, cfg, dev)}
+        mixer = (ssm_mod.ssm_params(gen, cfg, dev) if spec.mixer == "ssm"
+                 else attn.gqa_params(gen, cfg, dev))
+        p = {"ln1": norm_params(cfg, cfg.d_model, dev), "mixer": mixer}
         if spec.ffn != "none":
             p["ln2"] = norm_params(cfg, cfg.d_model, dev)
             p["ffn"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev)
@@ -160,16 +165,19 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Decode/prefill cache: one KV cache per layer plus `lengths`."""
+    """Decode/prefill cache: a KV cache per attention layer, an SSM state
+    (float32) per SSM layer, plus `lengths`."""
     dev = resolve_device(device)
     specs = layer_specs(cfg)
     window = effective_window(cfg)
     cap = attn.cache_capacity(cfg, max_len, window)
     hd = cfg.resolved_head_dim
     dt = torch_dtype(dtype)
-    layers = [{"self": attn.make_kv_cache(batch, cap, cfg.n_kv_heads, hd, hd,
-                                          dt, device=dev)}
-              for _ in specs]
+    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
+               if spec.mixer == "ssm" else
+               attn.make_kv_cache(batch, cap, cfg.n_kv_heads, hd, hd, dt,
+                                  device=dev)}
+              for spec in specs]
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
@@ -209,8 +217,9 @@ def scatter_slots(cache, sub, slot_idx):
 
 
 def reset_slots(cache, slot_idx):
-    """Empty the slots `slot_idx` in place (zero K/V, slot_pos -1,
-    length 0): what scattering a pristine cache into them does."""
+    """Empty the slots `slot_idx` in place (zero K/V and SSM state,
+    slot_pos -1, length 0): what scattering a pristine cache into them
+    does."""
     idx = slot_idx.long()
     for layer in cache["layers"]:
         for c in layer.values():
@@ -269,68 +278,102 @@ def slot_verify_chunk(params, cfg: ModelConfig, tokens, cache, slot_idx,
 # ====================================================== paged caches
 #
 # Paged slot caches: the same structure as the slotted cache, except that
-# each layer's attention "self" cache is a page pool with leading
+# each attention layer's "self" cache is a page pool with leading
 # (n_pages, page_size) instead of per-slot reserved rows. A request owns
 # an ordered list of physical pages (its block table, kept on the host by
 # the runner's manager); the slot steps read and write through a
-# (B, n_view) `page_view` built from the block tables. `lengths` stays
-# slot-indexed. The helpers take `cfg` as the reference's do.
+# (B, n_view) `page_view` built from the block tables. SSM state and
+# `lengths` stay slot-indexed: they are O(1) per request already. The
+# helpers take `cfg`, as the reference's do, because only the layer plan
+# says which "self" caches are pools.
+
+def _pooled(cfg: ModelConfig, cache):
+    """(is-a-page-pool, layer cache) for every layer."""
+    return [(spec.mixer != "ssm", layer)
+            for spec, layer in zip(layer_specs(cfg), cache["layers"])]
+
 
 def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
                      page_size: int = 64, n_pages: int = 16, device=None):
-    """Paged decode cache: attention KV in page pools, `lengths` for
-    `batch` slots. There is no per-slot max_len: the capacity of a
-    request is whatever its block table maps."""
+    """Paged decode cache: attention KV in page pools, SSM state and
+    `lengths` for `batch` slots. There is no per-slot max_len: the
+    attention capacity of a request is whatever its block table maps."""
     dev = resolve_device(device)
     specs = layer_specs(cfg)
     hd = cfg.resolved_head_dim
     dt = torch_dtype(dtype)
     # a pool is a slot cache of n_pages "slots" of page_size rows each
-    layers = [{"self": attn.make_kv_cache(
-        n_pages, page_size, cfg.n_kv_heads, hd, hd, dt, device=dev)}
-        for _ in specs]
+    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
+               if spec.mixer == "ssm" else
+               attn.make_kv_cache(n_pages, page_size, cfg.n_kv_heads, hd, hd,
+                                  dt, device=dev)}
+              for spec in specs]
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
 
 def paged_pool_shape(cfg: ModelConfig, cache):
     """(n_pages, page_size) of the page pools, or None without attention."""
-    for layer in cache["layers"]:
-        return tuple(layer["self"]["slot_pos"].shape)
+    for pooled, layer in _pooled(cfg, cache):
+        if pooled:
+            return tuple(layer["self"]["slot_pos"].shape)
     return None
 
 
 def gather_paged_slots(cfg: ModelConfig, cache, slot_idx, page_view):
     """A plain batch cache copied from a paged pool (speculative
-    snapshots): each layer's view pages gathered into (B, n_view * ps,
-    ...), the layout of `gather_slots` with capacity n_view * ps, so
-    drafting, rollback and `extend` run on it unchanged. Unmapped view
-    entries are NULL pages (slot_pos -1, masked)."""
-    return {"layers": [{key: attn.take_rows(sub, None, page_view)
-                        for key, sub in layer.items()}
-                       for layer in cache["layers"]],
-            "lengths": cache["lengths"].index_select(0, slot_idx.long())}
+    snapshots): each attention layer's view pages gathered into
+    (B, n_view * ps, ...), the layout of `gather_slots` with capacity
+    n_view * ps, and each SSM layer's rows `slot_idx`, so drafting,
+    rollback and `extend` run on it unchanged. Unmapped view entries are
+    NULL pages (slot_pos -1, masked)."""
+    idx = slot_idx.long()
+    layers = []
+    for pooled, layer in _pooled(cfg, cache):
+        if pooled:
+            layers.append({key: attn.take_rows(sub, None, page_view)
+                           for key, sub in layer.items()})
+        else:
+            layers.append({key: {f: t.index_select(0, idx)
+                                 for f, t in sub.items()}
+                           for key, sub in layer.items()})
+    return {"layers": layers,
+            "lengths": cache["lengths"].index_select(0, idx)}
 
 
 def reset_pages(cfg: ModelConfig, cache, page_ids):
     """Mark physical pages empty (slot_pos = -1) in every pool, in place.
     K/V payloads stay as they are: masking is always against slot_pos."""
     idx = page_ids.long()
-    for layer in cache["layers"]:
-        layer["self"]["slot_pos"][idx] = -1
+    for pooled, layer in _pooled(cfg, cache):
+        if pooled:
+            layer["self"]["slot_pos"][idx] = -1
     return cache
 
 
 def reset_slot_state(cfg: ModelConfig, cache, slot_idx):
-    """Reset the slot-indexed leaves of a paged cache on (re-)admission:
-    `lengths` (the pools are recycled by `reset_pages`)."""
-    cache["lengths"][slot_idx.long()] = 0
+    """Reset the slot-indexed leaves of a paged cache on (re-)admission,
+    in place: SSM state, conv and pos zeroed, `lengths` zeroed (the pools
+    are recycled by `reset_pages`)."""
+    idx = slot_idx.long()
+    for pooled, layer in _pooled(cfg, cache):
+        if not pooled:
+            for t in layer["self"].values():
+                t[idx] = 0
+    cache["lengths"][idx] = 0
     return cache
 
 
 def concat_slots_paged(cfg: ModelConfig, cache, extra):
-    """Slot-capacity growth: `extra`'s slot-indexed leaves are appended;
-    the shared page pools stay (their growth is `grow_pages`)."""
+    """Slot-capacity growth: `extra`'s slot-indexed leaves (SSM state,
+    `lengths`) are appended; the shared page pools stay (their growth is
+    `grow_pages`). The layer list and dicts are the argument's, updated,
+    as `grow_pages` keeps them."""
+    for (pooled, layer), e in zip(_pooled(cfg, cache), extra["layers"]):
+        if not pooled:
+            for key, sub in layer.items():
+                layer[key] = {f: torch.cat([t, e[key][f]], dim=0)
+                              for f, t in sub.items()}
     return {"layers": cache["layers"],
             "lengths": torch.cat([cache["lengths"], extra["lengths"]])}
 
@@ -339,7 +382,9 @@ def grow_pages(cfg: ModelConfig, cache, extra_pages: int):
     """Append `extra_pages` empty pages to every pool. The pools are new
     tensors, put into the same layer dicts, so no holder of the cache
     keeps a reference to the old ones."""
-    for layer in cache["layers"]:
+    for pooled, layer in _pooled(cfg, cache):
+        if not pooled:
+            continue
         pool = layer["self"]
         for f, t in pool.items():
             pad = torch.full((extra_pages,) + tuple(t.shape[1:]),
@@ -354,13 +399,20 @@ def grow_pages(cfg: ModelConfig, cache, extra_pages: int):
 def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
                  *, seg_mask, write, slot_idx=None, token_mask=None,
                  page_view=None):
-    window = effective_window(cfg)
     h = apply_norm(p["ln1"], x, cfg)
     self_cache = cache["self"] if cache is not None else None
-    out, _ = attn.gqa_attention(
-        p["mixer"], cfg, h, positions, cache=self_cache, seg_mask=seg_mask,
-        window=window, slot_idx=slot_idx, write=write, token_mask=token_mask,
-        page_view=page_view)
+    if spec.mixer == "ssm":
+        # a recurrence sees no seg_mask (chain-only verification) and
+        # keeps its state slot-indexed on a paged cache too
+        out, _ = ssm_mod.ssm_mixer(p["mixer"], cfg, h, state=self_cache,
+                                   slot_idx=slot_idx, write=write,
+                                   token_mask=token_mask)
+    else:
+        out, _ = attn.gqa_attention(
+            p["mixer"], cfg, h, positions, cache=self_cache,
+            seg_mask=seg_mask, window=effective_window(cfg),
+            slot_idx=slot_idx, write=write, token_mask=token_mask,
+            page_view=page_view)
     # the reference rounds the residual stream to cfg.dtype after a block
     x = (x + out).to(x.dtype)
     if spec.ffn != "none":
@@ -388,7 +440,7 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
     positions: (B, T) absolute positions (default arange)
     cache:     None (self-contained) or a dict from init_cache
     seg_mask:  (B, T, T) intra-segment mask (tree verification)
-    write:     commit new KV into the cache (in place)
+    write:     commit new KV and SSM state into the cache (in place)
     slot_idx:  (B,) — `cache` is a resident slot pool; row b of tokens
                lives in pool slot slot_idx[b]
     token_mask: (B, T) bool — real tokens True, suffix padding False

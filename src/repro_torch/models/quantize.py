@@ -26,8 +26,7 @@ import torch
 
 from repro_torch.kernels.int8_gemv import ops as int8_ops
 
-# dense 2-D kernels eligible for weight-only int8 (the reference's set;
-# the SSM in/out projections are not ported yet)
+# dense 2-D kernels eligible for weight-only int8 (the reference's set)
 _DENSE_KEYS = frozenset({
     "wq", "wk", "wv", "wo", "wi", "wg", "wu", "wd", "in_proj", "out_proj",
 })

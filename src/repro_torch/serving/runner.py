@@ -163,9 +163,11 @@ class SlotCacheManager:
 class PagedSlotCacheManager(SlotCacheManager):
     """Slot manager over a paged KV pool.
 
-    The attention KV of every layer lives in one pool of `page_size`-token
-    pages; each request owns an ordered host-side block table mapping its
-    logical pages to physical ones. `lengths` stays slot-indexed.
+    The attention KV of every attention layer lives in one pool of
+    `page_size`-token pages; each request owns an ordered host-side block
+    table mapping its logical pages to physical ones. SSM state and
+    `lengths` stay slot-indexed (a model without attention has no pools;
+    its block tables are kept all the same, as the reference keeps them).
 
     Protocol: every write site calls `prepare(rids, write=W)` first — it
     maps any page the next W columns touch and returns the bucketed
@@ -252,8 +254,10 @@ class PagedSlotCacheManager(SlotCacheManager):
             self._free_pages.extend(reversed(pids))
 
     def _grow(self):
-        extra = {"lengths": torch.zeros(self.n_slots, dtype=torch.int32,
-                                        device=self.device)}
+        # fresh slot-indexed leaves (SSM state, lengths) and empty pools
+        extra = M.init_paged_cache(self.cfg, self.n_slots, dtype=self.dtype,
+                                   page_size=self.page_size, n_pages=0,
+                                   device=self.device)
         self.cache = M.concat_slots_paged(self.cfg, self.cache, extra)
         self._free.extend(range(2 * self.n_slots, self.n_slots, -1))
         self.n_slots *= 2

@@ -11,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import CoSineConfig, ModelConfig
+from repro_torch.config import CoSineConfig, ModelConfig, SSMConfig
 from repro_torch.configs.drafters import int8_variant
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.int8_gemv import ops as ig
 from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.ssd_scan import ops as ssd
 from repro_torch.models import model as M
 from repro_torch.models import quantize
 from repro_torch.serving.engine import SpeculativeEngine
@@ -186,3 +187,129 @@ def test_cuda_engine_paged_and_int8_are_greedy_exact(cuda, pool):
     paged kernel) and with an int8 copy of the target as one drafter
     (every quantized product on the int8 kernel)."""
     _engine_is_greedy_exact(cuda, pool)
+
+
+# (b, L, H, P, G, N): mamba2-130m prefill chunk, decode at the slot
+# bucket, a verification chain and a ragged final prefill chunk; jamba's
+# widths at prefill and decode; a case with G > 1
+SSD_SHAPES = [(1, 512, 24, 64, 1, 128), (4, 1, 24, 64, 1, 128),
+              (4, 5, 24, 64, 1, 128), (1, 88, 24, 64, 1, 128),
+              (1, 512, 128, 64, 1, 16), (4, 1, 128, 64, 1, 16),
+              (2, 77, 8, 32, 4, 16)]
+
+
+def _ssd_inputs(gen, b, L, H, P, G, N, dtype, cuda):
+    """Inputs distributed as the mixer makes them: dt = softplus(z + the
+    mixer's dt_bias), A = -(1..16), an initial state."""
+    x = torch.randn((b, L, H, P), generator=gen, device=cuda).to(dtype)
+    z = torch.randn((b, L, H), generator=gen, device=cuda)
+    dt = torch.nn.functional.softplus(z + float(np.log(np.expm1(0.01))))
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    B = torch.randn((b, L, G, N), generator=gen, device=cuda).to(dtype)
+    C = torch.randn((b, L, G, N), generator=gen, device=cuda).to(dtype)
+    s0 = 0.1 * torch.randn((b, H, P, N), generator=gen, device=cuda)
+    return x, dt, A, B, C, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, shape, init, dtype):
+    """The SSD kernel against its plain version (chunk 128) on the same
+    inputs: y and the final state. Both sum in f32 in other orders and
+    chunkings: rtol = atol = 2e-4, the reference's own tolerance. A bf16
+    y is that f32 value rounded once, and two f32 values 1e-6 apart can
+    round one bf16 step apart: rtol = atol = 2^-7 there."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, dt, A, B, C, s0 = _ssd_inputs(gen, *shape, dtype, cuda)
+    s0 = s0 if init else None
+    y, s = ssd.ssd(x, dt, A, B, C, 128, s0)
+    yp, sp = ssd.ssd_chunked(x, dt, A, B, C, 128, s0)
+    assert y.dtype == x.dtype and s.dtype == torch.float32
+    tol = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, sp, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_masked_tail_and_strided_views(cuda):
+    """dt = 0 tokens leave the state unchanged; x, B and C given as views
+    of one wider tensor (the mixer's layout) need no copy and give the
+    contiguous result."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, L, H, P, G, N, n = 2, 40, 4, 16, 2, 8, 23
+    x, dt, A, B, C, s0 = _ssd_inputs(gen, b, L, H, P, G, N, torch.float32,
+                                     cuda)
+    dt[:, n:] = 0.0
+    y, s = ssd.ssd(x, dt, A, B, C, 16, s0)
+    yp, sp = ssd.ssd(x[:, :n].contiguous(), dt[:, :n].contiguous(), A,
+                     B[:, :n].contiguous(), C[:, :n].contiguous(), 16, s0)
+    torch.testing.assert_close(s, sp, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(y[:, :n], yp, rtol=2e-4, atol=2e-4)
+    wide = torch.cat([x.reshape(b, L, H * P), B.reshape(b, L, G * N),
+                      C.reshape(b, L, G * N)], dim=-1)
+    xv = wide[..., : H * P].reshape(b, L, H, P)
+    Bv = wide[..., H * P: H * P + G * N].reshape(b, L, G, N)
+    Cv = wide[..., H * P + G * N:].reshape(b, L, G, N)
+    assert not xv.is_contiguous()
+    yv, sv = ssd.ssd(xv, dt, A, Bv, Cv, 16, s0)
+    assert torch.equal(yv, y) and torch.equal(sv, s)
+
+
+@pytest.mark.gpu
+def test_ssd_wrapper_raises_instead_of_falling_back(cuda):
+    """A CUDA tensor the kernel does not take raises; the plain version
+    is never run in its place."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, B, C, s0 = _ssd_inputs(gen, 1, 8, 2, 16, 1, 8, torch.float32,
+                                     cuda)
+    before = ssd.LAUNCHES
+    with pytest.raises(ValueError, match="x dtype"):
+        ssd.ssd(x.half(), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="dt is on cpu"):
+        ssd.ssd(x, dt.cpu(), A, B, C, 16)
+    with pytest.raises(ValueError, match="groups"):
+        three = torch.zeros((1, 8, 3, 8), device=cuda)
+        ssd.ssd(x, dt, A, three, three, 16)
+    big = torch.zeros((1, 4, 1, 256), device=cuda)
+    wide = torch.zeros((1, 4, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        ssd.ssd(big, dt[:, :4, :1].contiguous(), A[:1].contiguous(), wide,
+                wide, 16)
+    assert ssd.LAUNCHES == before
+    ssd.ssd(x, dt, A, B, C, 16)
+    assert ssd.LAUNCHES == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_engine_ssm_and_hybrid_are_greedy_exact(cuda, family, paged):
+    """Tiny float32 SSM and hybrid targets served by the cosine engine
+    (chain-only) on the card: every SSM layer of every forward launches
+    the SSD kernel, and the committed streams are the greedy ones."""
+    kw = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+              d_ff=256, vocab=300, tie_embeddings=True, dtype="float32",
+              ssm=SSMConfig(d_state=32, head_dim=32, chunk_size=32))
+    if family == "ssm":
+        tcfg = ModelConfig(name="s", family="ssm", **kw)
+    else:
+        tcfg = ModelConfig(name="h", family="hybrid", hybrid_attn_period=2,
+                           hybrid_attn_offset=1, **kw)
+    dcfg = tcfg.with_overrides(name="d", n_layers=1)
+    tp = M.init_params(tcfg, 0)
+    cos = CoSineConfig(n_drafters=2, paged_pool=paged, page_size=16,
+                       pool_pages=4)
+    eng = SpeculativeEngine((tcfg, tp), [(dcfg, M.init_params(dcfg, 1), "a"),
+                                         (tcfg, tp, "b")],
+                            cos, max_len=128, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    ssd.LAUNCHES = fa.LAUNCHES = pa.LAUNCHES = 0
+    stats = eng.run()
+    assert ssd.LAUNCHES > 0 and stats.mean_acceptance > 1.0
+    assert (fa.LAUNCHES + pa.LAUNCHES > 0) == (family == "hybrid")
+    for r, p in zip(reqs, prompts):
+        assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)

@@ -26,7 +26,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 COPIED = ["config", "configs.drafters", "configs.qwen1_5_4b",
-          "configs.qwen2_0_5b", "core.tree", "core.request_pool",
+          "configs.qwen2_0_5b", "configs.mamba2_130m",
+          "configs.jamba_v0_1_52b", "core.tree", "core.request_pool",
           "core.latency_model", "core.routing", "core.scheduler",
           "core.admission", "obs.metrics", "obs.trace", "serving.events",
           "serving.cluster", "serving.pipeline"]
@@ -45,6 +46,10 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 25
+    scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"models/ssm.py", "kernels/ssd_scan/ops.py",
+            "kernels/ssd_scan/__init__.py", "configs/mamba2_130m.py",
+            "configs/jamba_v0_1_52b.py"} <= scanned
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "repro", "flax")}
@@ -74,6 +79,18 @@ def test_copied_module_equals_original(name):
         if isinstance(o, type) and dataclasses.is_dataclass(o):
             assert [(f.name, str(f.type)) for f in dataclasses.fields(p)] \
                 == [(f.name, str(f.type)) for f in dataclasses.fields(o)]
+
+
+@pytest.mark.parametrize("name", ["mamba2_130m", "jamba_v0_1_52b"])
+def test_copied_config_fields_equal_original(name):
+    """The SSM and hybrid configs the port serves hold the reference's
+    values, field by field (nested SSM and MoE configs included)."""
+    port = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    orig = importlib.import_module(f"repro.configs.{name}").CONFIG
+    assert dataclasses.asdict(port) == dataclasses.asdict(orig)
+    assert type(port.ssm).__name__ == type(orig.ssm).__name__ == "SSMConfig"
+    from repro_torch.configs import ARCHS
+    assert ARCHS[orig.name] is port
 
 
 def _tiny():
@@ -128,12 +145,17 @@ def _refusals():
     return {
         "async backend": (lambda: engine({}, backend="async"),
                           "queue 1 item 12"),
+        # SSM and hybrid plans are served; what they may still carry that
+        # is not ported is refused: cross-attention blocks on SSM layers,
+        # and jamba's MoE FFNs
         "ssm": (lambda: M.init_params(cfg.with_overrides(
-            family="ssm", ssm=SSMConfig()), 0, device="cpu"),
-            "queue 1 item 10"),
+            family="ssm", ssm=SSMConfig(), cross_attn_period=1,
+            n_frontend_tokens=4), 0, device="cpu"), "queue 1 item 11"),
         "hybrid": (lambda: M.init_cache(cfg.with_overrides(
             family="hybrid", hybrid_attn_period=2, n_layers=2,
-            ssm=SSMConfig()), 1, 8, device="cpu"), "queue 1 item 10"),
+            ssm=SSMConfig(), moe=MoEConfig(n_routed=2, top_k=1, d_ff=8,
+                                           layer_offset=1)), 1, 8,
+            device="cpu"), "queue 1 item 11"),
         "mla": (lambda: M.init_params(cfg.with_overrides(
             attention="mla", mla=MLAConfig()), 0, device="cpu"),
             "queue 1 item 11"),
