@@ -222,6 +222,8 @@ def kernel_phase(torch, fa):
             q_pos=torch.arange(P, dtype=torch.int32, device="cuda")[None],
             k_pos=kpp, slot_idx=slot_idx[:1].clone(), mask=None,
             causal=True))
+        cases += _hybrid_attention_cases(torch, rnd, pool_pos, lens,
+                                         slot_idx, cur, dn, dtype)
 
     rows = []
     for c in cases:
@@ -249,6 +251,61 @@ def kernel_phase(torch, fa):
               f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
               f"sdpa {lib_ms:.4f} ms", flush=True)
     return rows
+
+
+# phases F and G's attention layer (jamba widths: Hkv 8, G 4, D 128) and
+# its chain verification: the last committed token and draft_len = 5
+# drafts, T = 6 rows
+HYB_H, HYB_G, HYB_D, CHAIN_T = 8, 4, 128, 6
+
+
+def _hybrid_attention_cases(torch, rnd, pool_pos, lens, slot_idx, cur, dn,
+                            dtype):
+    """Kernel 1's forms at phases F and G's attention shapes: decode in
+    the slot pool and on a drafter's snapshot (no slot_idx), the chain's
+    cache pass and segment pass, a commit of T = 6 rows and a 512-row
+    prefill chunk."""
+    H, G, D, T = HYB_H, HYB_G, HYB_D, CHAIN_T
+    tag = f"B4_H{H}_G{G}_D{D}_{dn}"
+    ar = torch.arange(T, dtype=torch.int32, device="cuda")
+    qpos = (cur[:, None] + ar[None]).to(torch.int32)
+    kp = pool_pos(9, MAX_LEN, lens)
+    k, v = rnd((9, MAX_LEN, H, D), dtype), rnd((9, MAX_LEN, H, D), dtype)
+    snap = slot_idx.long()
+    kp_commit = pool_pos(9, MAX_LEN, [n + T if n else 0 for n in lens])
+    P = 512
+    kpp = pool_pos(9, MAX_LEN, [0, P, 0, 0, 0, 0, 0, 0, 0])
+    return [
+        dict(name=f"hybrid_decode_T1_{tag}",
+             q=rnd((4, 1, H, G, D), torch.float32), k=k, v=v,
+             q_pos=(cur - 1)[:, None].to(torch.int32), k_pos=kp,
+             slot_idx=slot_idx, mask=None, causal=True),
+        dict(name=f"hybrid_snapshot_decode_T1_{tag}",
+             q=rnd((4, 1, H, G, D), torch.float32),
+             k=k[snap].contiguous(), v=v[snap].contiguous(),
+             q_pos=(cur - 1)[:, None].to(torch.int32),
+             k_pos=kp[snap].contiguous(), slot_idx=None, mask=None,
+             causal=True),
+        dict(name=f"hybrid_verify_cache_T{T}_{tag}",
+             q=rnd((4, T, H, G, D), torch.float32), k=k, v=v, q_pos=qpos,
+             k_pos=kp, slot_idx=slot_idx, mask=None, causal=True),
+        dict(name=f"hybrid_verify_segment_T{T}_{tag}",
+             q=rnd((4, T, H, G, D), torch.float32),
+             k=rnd((4, T, H, D), dtype), v=rnd((4, T, H, D), dtype),
+             q_pos=qpos, k_pos=qpos.clone(), slot_idx=None,
+             mask=torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                        device="cuda")).expand(
+                                            4, T, T).contiguous(),
+             causal=True),
+        dict(name=f"hybrid_commit_T{T}_{tag}",
+             q=rnd((4, T, H, G, D), torch.float32), k=k, v=v, q_pos=qpos,
+             k_pos=kp_commit, slot_idx=slot_idx, mask=None, causal=True),
+        dict(name=f"hybrid_prefill_B1_T512_H{H}_G{G}_D{D}_{dn}",
+             q=rnd((1, P, H, G, D), torch.float32), k=k, v=v,
+             q_pos=torch.arange(P, dtype=torch.int32, device="cuda")[None],
+             k_pos=kpp, slot_idx=slot_idx[:1].clone(), mask=None,
+             causal=True),
+    ]
 
 
 # a 10-node tree as phase A verifies: a fused chain of 5 + side branches
@@ -380,6 +437,20 @@ def paged_kernel_phase(torch, fa, pa):
         name="drafter_commit_B4_T5_H2_G7_D64_f32",
         q=torch.randn((4, 5, 2, 7, 64), generator=gen, device="cuda"),
         k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 5)))
+    # phase G's attention layer (jamba widths): decode, the chain's cache
+    # pass (the pool as it was), a commit of T = 6 rows, a prefill chunk
+    H, G, D, T = HYB_H, HYB_G, HYB_D, CHAIN_T
+    tag = f"H{H}_G{G}_D{D}_f32"
+    for name, held, start, rows in (
+            (f"hybrid_decode_B4_T1_{tag}", [n + 1 for n in lens], lens, 1),
+            (f"hybrid_verify_cache_B4_T{T}_{tag}", lens, lens, T),
+            (f"hybrid_commit_B4_T{T}_{tag}", [n + T for n in lens], lens, T),
+            (f"hybrid_prefill_B1_T512_{tag}", [512], [0], 512)):
+        k, v, pos, tbl = pool(H, D, held, held)
+        cases.append(dict(
+            name=name, q=torch.randn((len(held), rows, H, G, D),
+                                     generator=gen, device="cuda"),
+            k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(start, rows)))
 
     rows = []
     for c in cases:
@@ -483,20 +554,35 @@ def int8_kernel_phase(torch, ig, quantize):
     return rows
 
 
-def ssd_work(sd, b, L, H, P, G, N, x_bytes):
+def _dual_ops(r, n, P, N):
+    """Operations of the SSD dual form over r tokens in chunks of n: per
+    chunk of c tokens the causal half of the scores C_i . B_j (c(c+1)/2
+    dots of N) and of their product with dt x (of P), dt x itself (c P),
+    the inter-chunk term C_i state (2 c P N), and the state's decay and
+    update (P N + 2 c P N)."""
+    def chunk(c):
+        return c * (c + 1) * (N + P) + 4 * c * P * N + P * N + c * P
+    k, rem = divmod(r, n)
+    return k * chunk(n) + (chunk(rem) if rem else 0)
+
+
+def ssd_work(dt, H, P, G, N, x_bytes):
     """Bytes the scan must move (x, dt, B and C per group, A, the initial
-    state in, y and the final state out) and the f32 operations of the
-    kernel's chunked dual form: per chunk of n tokens of one head, the
-    causal half of the scores (n(n+1)/2 dots of N) and of their product
-    with x (of P), the inter-chunk term and the state update (n P N
-    each), multiply and add counted as two."""
-    Q = sd.kernel_chunk(P, N, L)
+    state in, y and the final state out) and the fewest f32 operations
+    the scan needs on this run's data, whatever a kernel's chunking. For
+    the r tokens of a (request, head) with dt != 0, the cheaper of the
+    recurrence (per token y_t = state_t C_t, 2 P N; the decay and update
+    state exp(dt A) + (dt x) Bᵀ, 3 P N; dt x, P) and the chunked dual
+    form at its best chunk length (`_dual_ops`); each dt = 0 token leaves
+    the state as it is and needs only its y (2 P N). Multiply and add
+    count as two; the exps are not counted."""
+    b, L = dt.shape[:2]
+    real = (dt != 0).sum(dim=1).flatten().tolist()          # r per (b, h)
     flops = 0
-    for t0 in range(0, L, Q):
-        n = min(Q, L - t0)
-        tri = n * (n + 1) // 2
-        flops += 2 * (tri * N + tri * P + 2 * n * P * N) + P * N
-    flops *= b * H
+    for r in set(real):
+        best = min([r * (5 * P * N + P)]
+                   + [_dual_ops(r, n, P, N) for n in range(2, r + 1)])
+        flops += real.count(r) * (best + (L - r) * 2 * P * N)
     nbytes = (b * L * H * P * x_bytes * 2          # x in, y out
               + b * L * H * 4 + H * 4              # dt, A
               + 2 * b * L * G * N * x_bytes        # B, C
@@ -553,7 +639,7 @@ def ssd_kernel_phase(torch, sd):
         err_s = float((st - sp).abs().max())
         ms = _graph_ms(torch, lambda: sd.ssd(*args))
         plain_ms = _graph_ms(torch, lambda: sd.ssd_chunked(*args), reps=3)
-        nbytes, flops = ssd_work(sd, b, L, H, P, G, N, 4)
+        nbytes, flops = ssd_work(dt, H, P, G, N, 4)
         bound, by = _bound(nbytes, flops, "float32")
         rows.append(dict(name=name, max_abs_err=max(err_y, err_s),
                          max_abs_err_y=err_y, max_abs_err_state=err_s,

@@ -15,7 +15,7 @@
 //   state = exp(cum_{Q-1}) state_in
 //           + sum_j exp(cum_{Q-1} - cum_j) dt_j x_j B_jᵀ
 //
-// x (b, L, H, P) f32 or bf16 and B, C (b, L, G, N) f32 or bf16 are read
+// x (b, L, H, P) and B, C (b, L, G, N), all f32 or all bf16, are read
 // through element strides (unit stride along P and N), so the mixer's
 // views of its conv output need no copy, and B, C are read per group in
 // place (no head broadcast). dt (b, L, H) and A (H,) are f32; the
@@ -84,7 +84,7 @@ struct Args {
   int64_t scb, scl, scg;   // C strides
 };
 
-template <typename XT, typename BT>
+template <typename XT>
 __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(Args a) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
@@ -104,8 +104,8 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(Args a) {
   const int g = h / (a.H / a.G);
   const float Ah = a.A[h];
   const XT* x = static_cast<const XT*>(a.x) + bi * a.sxb + h * a.sxh;
-  const BT* Bp = static_cast<const BT*>(a.B) + bi * a.sbb + g * a.sbg;
-  const BT* Cp = static_cast<const BT*>(a.C) + bi * a.scb + g * a.scg;
+  const XT* Bp = static_cast<const XT*>(a.B) + bi * a.sbb + g * a.sbg;
+  const XT* Cp = static_cast<const XT*>(a.C) + bi * a.scb + g * a.scg;
   const float* dtp = a.dt + bi * a.sdb + h * a.sdh;
   XT* y = static_cast<XT*>(a.y) + (static_cast<int64_t>(bi) * a.L * a.H + h) * P;
   const int64_t sy = static_cast<int64_t>(a.H) * P;
@@ -183,9 +183,9 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(Args a) {
   }
 }
 
-template <typename XT, typename BT>
+template <typename XT>
 int launch(const Args& a, int smem, cudaStream_t stream) {
-  auto kernel = ssd_scan_kernel<XT, BT>;
+  auto kernel = ssd_scan_kernel<XT>;
   static int smem_set = 48 * 1024;   // the default limit without opt-in
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -208,7 +208,7 @@ extern "C" int ssd_scan_launch(
     int64_t sdb, int64_t sdl, int64_t sdh,
     int64_t sbb, int64_t sbl, int64_t sbg,
     int64_t scb, int64_t scl, int64_t scg,
-    int x_bf16, int bc_bf16, int smem_bytes, void* stream) {
+    int bf16, int smem_bytes, void* stream) {
   Args a;
   a.x = x;
   a.dt = static_cast<const float*>(dt);
@@ -224,10 +224,6 @@ extern "C" int ssd_scan_launch(
   a.sbb = sbb; a.sbl = sbl; a.sbg = sbg;
   a.scb = scb; a.scl = scl; a.scg = scg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    return bc_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(a, smem_bytes, s)
-                   : launch<__nv_bfloat16, float>(a, smem_bytes, s);
-  }
-  return bc_bf16 ? launch<float, __nv_bfloat16>(a, smem_bytes, s)
-                 : launch<float, float>(a, smem_bytes, s);
+  return bf16 ? launch<__nv_bfloat16>(a, smem_bytes, s)
+              : launch<float>(a, smem_bytes, s);
 }

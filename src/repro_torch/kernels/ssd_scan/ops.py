@@ -5,7 +5,7 @@ version and the launch counter.
 package's `repro/kernels/ssd_scan/ops.py::ssd`:
 
   x   (b, L, H, P) f32 or bf16     dt (b, L, H) f32 (0 = masked token)
-  A   (H,) f32 (negative)          B, C (b, L, G, N) f32 or bf16, H % G == 0
+  A   (H,) f32 (negative)          B, C (b, L, G, N) in x's dtype, H % G == 0
   initial_state (b, H, P, N) f32 or None (zeros)
   -> y (b, L, H, P) in x's dtype, final_state (b, H, P, N) f32
 
@@ -47,7 +47,7 @@ def _declare(lib):
     fn.argtypes = ([vp] * 8             # x dt A B C init y final
                    + [i32] * 7          # b L H P G N Q
                    + [i64] * 12         # x, dt, B, C strides (b, l, h|g)
-                   + [i32] * 3          # x_bf16 bc_bf16 smem_bytes
+                   + [i32] * 2          # bf16 smem_bytes
                    + [vp])              # stream
     fn.restype = ctypes.c_int
 
@@ -164,9 +164,9 @@ def _launch(x, dt, A, B, C, initial_state):
     _check(L > 0 and b > 0, "empty batch or sequence")
     _check(x.dtype in _X_DTYPES, f"x dtype {x.dtype}; supported float32 "
            "and bfloat16")
-    _check(B.dtype in _X_DTYPES and C.dtype == B.dtype,
-           f"B/C dtypes {B.dtype}, {C.dtype}; supported float32 or "
-           "bfloat16, both the same")
+    _check(B.dtype == x.dtype and C.dtype == x.dtype,
+           f"B/C dtypes {B.dtype}, {C.dtype}; x, B and C must share a "
+           "dtype")
     _check(dt.dtype == torch.float32 and A.dtype == torch.float32,
            "dt and A must be float32")
     if initial_state is not None:
@@ -196,8 +196,7 @@ def _launch(x, dt, A, B, C, initial_state):
             b, L, H, P, G, N, Q,
             *x.stride()[:3], *dt.stride()[:3], *B.stride()[:3],
             *C.stride()[:3],
-            int(x.dtype == torch.bfloat16), int(B.dtype == torch.bfloat16),
-            smem, stream)
+            int(x.dtype == torch.bfloat16), smem, stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error {rc}")
     global LAUNCHES

@@ -293,23 +293,33 @@ def _pooled(cfg: ModelConfig, cache):
             for spec, layer in zip(layer_specs(cfg), cache["layers"])]
 
 
+def init_slot_leaves(cfg: ModelConfig, batch: int, device=None):
+    """The slot-indexed leaves of a paged cache for `batch` fresh slots:
+    an SSM state per SSM layer (an empty dict in each pool's place) and
+    `lengths`. What `concat_slots_paged` appends on slot growth."""
+    dev = resolve_device(device)
+    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)}
+              if spec.mixer == "ssm" else {} for spec in layer_specs(cfg)]
+    return {"layers": layers,
+            "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
                      page_size: int = 64, n_pages: int = 16, device=None):
     """Paged decode cache: attention KV in page pools, SSM state and
     `lengths` for `batch` slots. There is no per-slot max_len: the
     attention capacity of a request is whatever its block table maps."""
     dev = resolve_device(device)
-    specs = layer_specs(cfg)
     hd = cfg.resolved_head_dim
     dt = torch_dtype(dtype)
+    cache = init_slot_leaves(cfg, batch, device=dev)
     # a pool is a slot cache of n_pages "slots" of page_size rows each
-    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
-               if spec.mixer == "ssm" else
-               attn.make_kv_cache(n_pages, page_size, cfg.n_kv_heads, hd, hd,
-                                  dt, device=dev)}
-              for spec in specs]
-    return {"layers": layers,
-            "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    cache["layers"] = [
+        layer or {"self": attn.make_kv_cache(n_pages, page_size,
+                                             cfg.n_kv_heads, hd, hd, dt,
+                                             device=dev)}
+        for layer in cache["layers"]]
+    return cache
 
 
 def paged_pool_shape(cfg: ModelConfig, cache):
@@ -366,9 +376,9 @@ def reset_slot_state(cfg: ModelConfig, cache, slot_idx):
 
 def concat_slots_paged(cfg: ModelConfig, cache, extra):
     """Slot-capacity growth: `extra`'s slot-indexed leaves (SSM state,
-    `lengths`) are appended; the shared page pools stay (their growth is
-    `grow_pages`). The layer list and dicts are the argument's, updated,
-    as `grow_pages` keeps them."""
+    `lengths`; `init_slot_leaves` or a paged cache) are appended; the
+    shared page pools stay (their growth is `grow_pages`). The layer list
+    and dicts are the argument's, updated, as `grow_pages` keeps them."""
     for (pooled, layer), e in zip(_pooled(cfg, cache), extra["layers"]):
         if not pooled:
             for key, sub in layer.items():

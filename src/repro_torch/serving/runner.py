@@ -254,10 +254,7 @@ class PagedSlotCacheManager(SlotCacheManager):
             self._free_pages.extend(reversed(pids))
 
     def _grow(self):
-        # fresh slot-indexed leaves (SSM state, lengths) and empty pools
-        extra = M.init_paged_cache(self.cfg, self.n_slots, dtype=self.dtype,
-                                   page_size=self.page_size, n_pages=0,
-                                   device=self.device)
+        extra = M.init_slot_leaves(self.cfg, self.n_slots, device=self.device)
         self.cache = M.concat_slots_paged(self.cfg, self.cache, extra)
         self._free.extend(range(2 * self.n_slots, self.n_slots, -1))
         self.n_slots *= 2

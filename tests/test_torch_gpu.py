@@ -32,7 +32,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,G,T", [(64, 7, 1), (128, 1, 10), (32, 2, 40),
-                                   (16, 4, 3)])
+                                   (16, 4, 3), (128, 4, 6)])
 def test_cuda_kernel_matches_plain(cuda, D, G, T, dtype):
     """The Hopper kernel against its plain version: a slot pool read in
     place (with a repeated scratch row), plain causal, a mask, a window
@@ -90,7 +90,8 @@ def test_int8_gemv_matches_plain(cuda, M_, K, N, xdtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("ps", [16, 64, 128])
-@pytest.mark.parametrize("T,G,D", [(1, 7, 64), (10, 1, 128), (40, 2, 32)])
+@pytest.mark.parametrize("T,G,D", [(1, 7, 64), (10, 1, 128), (40, 2, 32),
+                                   (6, 4, 128)])
 def test_paged_kernel_matches_plain_and_kernel1(cuda, ps, T, G, D):
     """The paged kernel against its plain version (rtol = atol = 1e-4),
     and bit for bit against the flash-attention kernel on the gathered
@@ -219,16 +220,25 @@ def test_ssd_kernel_matches_plain(cuda, shape, init, dtype):
     """The SSD kernel against its plain version (chunk 128) on the same
     inputs: y and the final state. Both sum in f32 in other orders and
     chunkings: rtol = atol = 2e-4, the reference's own tolerance. A bf16
-    y is that f32 value rounded once, and two f32 values 1e-6 apart can
-    round one bf16 step apart: rtol = atol = 2^-7 there."""
+    y is the kernel's f32 value rounded once to bf16, so it is held
+    against the plain version's f32 y (on the same bf16 inputs) within
+    that tolerance plus one bf16 ulp of the f32 value."""
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     x, dt, A, B, C, s0 = _ssd_inputs(gen, *shape, dtype, cuda)
     s0 = s0 if init else None
     y, s = ssd.ssd(x, dt, A, B, C, 128, s0)
-    yp, sp = ssd.ssd_chunked(x, dt, A, B, C, 128, s0)
+    yp, sp = ssd.ssd_chunked(x.float(), dt, A, B.float(), C.float(), 128,
+                             s0)
     assert y.dtype == x.dtype and s.dtype == torch.float32
-    tol = 2e-4 if dtype == torch.float32 else 2.0 ** -7
-    torch.testing.assert_close(y.float(), yp.float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=2e-4, atol=2e-4)
+    else:
+        _, e = torch.frexp(yp)        # yp = m 2^e, 1/2 <= |m| < 1
+        ulp = torch.where(yp == 0, torch.zeros_like(yp),
+                          torch.ldexp(torch.ones_like(yp), e - 8))
+        err = (y.float() - yp).abs()
+        assert bool((err <= 2e-4 + 2e-4 * yp.abs() + ulp).all()), float(
+            (err - 2e-4 - 2e-4 * yp.abs() - ulp).max())
     torch.testing.assert_close(s, sp, rtol=2e-4, atol=2e-4)
 
 
@@ -267,6 +277,8 @@ def test_ssd_wrapper_raises_instead_of_falling_back(cuda):
     before = ssd.LAUNCHES
     with pytest.raises(ValueError, match="x dtype"):
         ssd.ssd(x.half(), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="share a dtype"):
+        ssd.ssd(x, dt, A, B.bfloat16(), C.bfloat16(), 16)
     with pytest.raises(ValueError, match="dt is on cpu"):
         ssd.ssd(x, dt.cpu(), A, B, C, 16)
     with pytest.raises(ValueError, match="groups"):

@@ -197,6 +197,37 @@ def test_paged_helpers_mirror_reference(models):
     assert int(tc["lengths"].shape[0]) == 5
 
 
+def test_slot_leaves_grow_slots_as_a_paged_cache_does(models):
+    """init_slot_leaves holds a paged cache's slot-indexed leaves and no
+    pool; concat_slots_paged appends them exactly as it appends a whole
+    paged cache's."""
+    cfg, tcfg, tree, tp = models
+    leaves = TM.init_slot_leaves(tcfg, 2, device="cpu")
+    _, full = _paged_pair(cfg, tcfg, batch=2, n_pages=2)
+    for spec, a, b in zip(TM.layer_specs(tcfg), leaves["layers"],
+                          full["layers"]):
+        if spec.mixer != "ssm":
+            assert a == {}
+            continue
+        assert a["self"].keys() == b["self"].keys()
+        for f, t in b["self"].items():
+            assert a["self"][f].dtype == t.dtype and torch.equal(
+                a["self"][f], t)
+    assert torch.equal(leaves["lengths"], full["lengths"])
+    grown = []
+    for extra in (leaves, full):
+        _, tc = _paged_pair(cfg, tcfg)
+        sidx = torch.tensor([1, 2])
+        TM.slot_extend(tp, tcfg, torch.tensor(_tokens(4, (2, 5), cfg.vocab)),
+                       tc, sidx, page_view=torch.tensor([[2, 3], [4, 5]]))
+        grown.append(TM.concat_slots_paged(tcfg, tc, extra))
+    a, b = grown
+    assert torch.equal(a["lengths"], b["lengths"])
+    for la, lb in zip(a["layers"], b["layers"]):
+        for f, t in lb["self"].items():
+            assert torch.equal(la["self"][f], t)
+
+
 # ------------------------------------------------------------- the runners
 
 def _runners(models, **paged_kw):
