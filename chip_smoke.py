@@ -9,8 +9,11 @@ It builds the port's four hand-written Hopper kernels from the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
-function, that call as a yardstick), then serves the CoSine path end to
-end through `SpeculativeEngine.submit/run`:
+function, that call as a yardstick; the int8 GEMV after phase D, at the
+row counts phase D gave it, with its split-K and wgmma paths side by side
+at 8-32 rows; the host cost of one call of the attention and int8
+wrappers), then serves the CoSine path end to end through
+`SpeculativeEngine.submit/run`:
 
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
@@ -23,7 +26,7 @@ end through `SpeculativeEngine.submit/run`:
            phase A's;
   phase D  phase A with drafter 0 as int8 weights beside a
            full-precision drafter 1: every quantized product goes
-           through the int8 GEMV kernel;
+           through the int8 GEMV kernel (launches printed by row count);
   phase E  a mamba2-130m target (24 SSD layers, full width, random f32
            weights, bf16 activations) with two mamba2-130m drafters, one
            sharing its weights, on the resident pool; chain-only
@@ -226,6 +229,7 @@ def kernel_phase(torch, fa):
                                          slot_idx, cur, dn, dtype)
 
     rows = []
+    host = None
     for c in cases:
         kw = dict(scale=c["q"].shape[-1] ** -0.5, causal=c["causal"],
                   window=0, mask=c["mask"], slot_idx=c["slot_idx"])
@@ -247,10 +251,23 @@ def kernel_phase(torch, fa):
                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                          library_ms=lib_ms, bytes=nbytes, flops=flops,
                          dtype=kv_type))
-        print(f"kernel {c['name']}: max|err| {err:.2e}  kernel {ms:.4f} ms  "
+        print(f"kernel {c['name']}: splits {fa.plan_splits(*_bhrs(c))}  "
+              f"max|err| {err:.2e}  kernel {ms:.4f} ms  "
               f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
               f"sdpa {lib_ms:.4f} ms", flush=True)
-    return rows
+        if host is None:      # the first case: drafter decode, f32 K/V
+            host = dict(shape=c["name"], attend_partial_us=_host_us(
+                torch, lambda: fa.attend_partial(*args, **kw)))
+            print(f"host cost per call ({c['name']}): attend_partial "
+                  f"{host['attend_partial_us']:.1f} us (enqueue only)",
+                  flush=True)
+    return rows, host
+
+
+def _bhrs(c):
+    """(B, Hkv, R, S) of a kernel-1 case, as `plan_splits` takes them."""
+    B, T, H, G, _ = c["q"].shape
+    return B, H, T * G, c["k"].shape[1]
 
 
 # phases F and G's attention layer (jamba widths: Hkv 8, G 4, D 128) and
@@ -481,7 +498,10 @@ def paged_kernel_phase(torch, fa, pa):
                          plain_ms=plain_ms, kernel1_gathered_ms=k1_ms,
                          bound_ms=bound, bound_by=by, library_ms=lib_ms,
                          bytes=nbytes, flops=flops, dtype="float32"))
-        print(f"kernel paged {c['name']}: max|err| {err:.2e}  |paged - "
+        B_, T_, H_, G_, _ = c["q"].shape
+        print(f"kernel paged {c['name']}: splits "
+              f"{fa.plan_splits(B_, H_, T_ * G_, kv.shape[1])}  "
+              f"max|err| {err:.2e}  |paged - "
               f"kernel 1 on the gathered view| {vs_k1:.3g}  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  kernel 1 gathered "
               f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
@@ -489,69 +509,136 @@ def paged_kernel_phase(torch, fa, pa):
     return rows
 
 
-def int8_kernel_phase(torch, ig, quantize):
-    """The int8 GEMV at qwen2-0.5b's quantized products (4 bf16 rows of
-    drafter decode, the tied-logits head through the transposed table,
-    and one 512-row prefill product) against its plain version, and the
+def _host_us(torch, fn, n: int = 200) -> float:
+    """Host cost of one call: `n` calls enqueued back to back, timed on the
+    host clock with the synchronize outside the timer (the device may
+    still be running them), in microseconds."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+# int8 launches of phase D by rows: decode (<= 8 rows: the split-K and
+# rows kernels), extend / commit (9-63 rows) and prefill (>= 64 rows)
+def int8_row_class(m: int) -> str:
+    return "decode" if m <= 8 else "extend" if m < 64 else "prefill"
+
+
+def int8_kernel_phase(torch, ig, quantize, row_counts):
+    """The int8 GEMV at qwen2-0.5b's quantized products (wq/wo, wk/wv,
+    wg/wu, wd and the tied-logits head through the transposed table) at
+    the row counts phase D gives them (decode, its most frequent extend
+    count, a 512-row prefill chunk), against its plain version, and the
     model's wrapper `int8_gemv` against the kernel's f32 output cast to
-    bf16 (bit for bit); returns rows."""
+    bf16 (bit for bit); then the split-K and wgmma paths side by side at
+    8-32 rows, and the host cost of one quantized product against one
+    full-precision product. Returns (rows, crossover, host)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     V = 151936
-    cases = []
-    for M_, K, N, what in ((4, 896, 896, "wq/wo"), (4, 896, 128, "wk/wv"),
-                           (4, 896, 4864, "wg/wu"), (4, 4864, 896, "wd"),
-                           (512, 896, 4864, "wg/wu prefill")):
+    products = []
+    for K, N, what in ((896, 896, "wq/wo"), (896, 128, "wk/wv"),
+                       (896, 4864, "wg/wu"), (4864, 896, "wd")):
         w = torch.randn((K, N), generator=gen, device="cuda") / K ** 0.5
         q = quantize.quantize_weight(w)
-        cases.append(dict(name=f"{what}_M{M_}_K{K}_N{N}_bf16", M=M_, K=K,
-                          N=N, w8=q["w8"], scale=q["scale"],
-                          dense=quantize.dequantize_weight(q, torch.bfloat16)))
+        products.append(dict(what=what, K=K, N=N, w8=q["w8"],
+                             scale=q["scale"], w=w,
+                             dense=quantize.dequantize_weight(
+                                 q, torch.bfloat16)))
     emb = torch.randn((V, 896), generator=gen, device="cuda") * 0.02
     q = quantize.quantize_weight(emb, axis=-1)
-    cases.append(dict(name=f"tied_logits_M4_K896_N{V}_bf16", M=4, K=896,
-                      N=V, w8=q["w8"].t(), scale=q["scale"],
-                      dense=quantize.dequantize_weight(q, torch.bfloat16).t()))
-    del emb, w, q
+    products.append(dict(what="tied_logits", K=896, N=V, w8=q["w8"].t(),
+                         scale=q["scale"], w=None,
+                         dense=quantize.dequantize_weight(
+                             q, torch.bfloat16).t()))
+    del emb, q
 
     rows = []
-    for c in cases:
-        x = torch.randn((c["M"], c["K"]), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-        got = ig._launch(x, c["w8"], c["scale"])
-        want = ig.int8_gemv_plain(x, c["w8"], c["scale"])
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            fail(f"int8 {c['name']}: kernel output not finite")
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL):
-            fail(f"int8 {c['name']}: kernel vs plain max |err| {err:.3e} "
-                 f"outside rtol=atol={INT8_TOL}")
-        wrapped = ig.int8_gemv(x, c["w8"], c["scale"])
-        torch.cuda.synchronize()
-        if wrapped.dtype != x.dtype or not torch.equal(wrapped,
-                                                       got.to(x.dtype)):
-            fail(f"int8 {c['name']}: the wrapper int8_gemv differs from the "
-                 "kernel's output cast to bf16")
-        ms = _graph_ms(torch, lambda: ig._launch(x, c["w8"], c["scale"]))
-        plain_ms = _graph_ms(torch, lambda: ig.int8_gemv_plain(
-            x, c["w8"], c["scale"]), reps=3)
-        dense = c["dense"]
-        lib_ms = _graph_ms(torch, lambda: torch.matmul(x, dense))
-        M_, K, N = c["M"], c["K"], c["N"]
-        nbytes = K * N + 4 * N + x.numel() * 2 + 4 * M_ * N
-        bound, by = _bound(nbytes, 2 * M_ * K * N, "bfloat16")
-        rows.append(dict(name=c["name"], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                         library_ms=lib_ms, bytes=nbytes,
-                         flops=2 * M_ * K * N, dtype="bfloat16",
-                         layout="cols" if c["w8"].stride(1) == 1
-                         else "rows"))
-        print(f"kernel int8 {c['name']}: max|err| {err:.2e}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
-              f"({by})  bf16 matmul {lib_ms:.4f} ms", flush=True)
-        del c["dense"]
-    return rows
+    for c in products:
+        K, N = c["K"], c["N"]
+        for M_ in row_counts:
+            name = f"{c['what']}_M{M_}_K{K}_N{N}_bf16"
+            x = torch.randn((M_, K), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            got = ig._launch(x, c["w8"], c["scale"])
+            want = ig.int8_gemv_plain(x, c["w8"], c["scale"])
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail(f"int8 {name}: kernel output not finite")
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=INT8_TOL, atol=INT8_TOL):
+                fail(f"int8 {name}: kernel vs plain max |err| {err:.3e} "
+                     f"outside rtol=atol={INT8_TOL}")
+            wrapped = ig.int8_gemv(x, c["w8"], c["scale"])
+            torch.cuda.synchronize()
+            if wrapped.dtype != x.dtype or not torch.equal(
+                    wrapped, got.to(x.dtype)):
+                fail(f"int8 {name}: the wrapper int8_gemv differs from the "
+                     "kernel's output cast to bf16")
+            ms = _graph_ms(torch, lambda: ig._launch(x, c["w8"], c["scale"]))
+            plain_ms = _graph_ms(torch, lambda: ig.int8_gemv_plain(
+                x, c["w8"], c["scale"]), reps=3)
+            dense = c["dense"]
+            lib_ms = _graph_ms(torch, lambda: torch.matmul(x, dense))
+            nbytes = K * N + 4 * N + x.numel() * 2 + 4 * M_ * N
+            bound, by = _bound(nbytes, 2 * M_ * K * N, "bfloat16")
+            rows_layout = c["w8"].stride(1) != 1
+            plan = ig.plan(M_, K, N, rows_layout, True,
+                           torch.cuda.get_device_properties(
+                               0).multi_processor_count)
+            rows.append(dict(name=name, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                             library_ms=lib_ms, bytes=nbytes,
+                             flops=2 * M_ * K * N, dtype="bfloat16",
+                             layout="rows" if rows_layout else "cols",
+                             rows_class=int8_row_class(M_),
+                             path=plan._asdict()))
+            print(f"kernel int8 {name}: path {plan.path}  max|err| "
+                  f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {bound:.4f} ms ({by})  bf16 matmul {lib_ms:.4f} ms",
+                  flush=True)
+
+    # split-K (CUDA cores) against wgmma where they meet: TC_MIN_ROWS
+    crossover = []
+    for c in products[:3]:
+        for M_ in (8, 16, 24, 32):
+            x = torch.randn((M_, c["K"]), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            t = {}
+            for path in ("splitk", "tc"):
+                got = ig._launch(x, c["w8"], c["scale"], path=path)
+                want = ig.int8_gemv_plain(x, c["w8"], c["scale"])
+                if not torch.allclose(got, want, rtol=INT8_TOL,
+                                      atol=INT8_TOL):
+                    fail(f"int8 crossover {c['what']} M{M_} {path}: "
+                         "outside the tolerance")
+                t[path] = _graph_ms(torch, lambda: ig._launch(
+                    x, c["w8"], c["scale"], path=path))
+            crossover.append(dict(what=c["what"], M=M_, K=c["K"], N=c["N"],
+                                  splitk_ms=t["splitk"], tc_ms=t["tc"]))
+            print(f"int8 crossover {c['what']} M{M_}: split-K "
+                  f"{t['splitk']:.4f} ms  wgmma {t['tc']:.4f} ms", flush=True)
+
+    # host cost of one product as the model calls it (quantize.qdot): the
+    # int8 drafter's against the full-precision drafter's f32 weight
+    c = products[0]
+    x = torch.randn((row_counts[0], c["K"]), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    qw = {"w8": c["w8"], "scale": c["scale"]}
+    host = dict(int8_qdot_us=_host_us(torch, lambda: quantize.qdot(x, qw)),
+                f32_qdot_us=_host_us(torch, lambda: quantize.qdot(x, c["w"])),
+                shape=f"{c['what']} M{row_counts[0]}")
+    print(f"host cost per call ({host['shape']}): int8 qdot "
+          f"{host['int8_qdot_us']:.1f} us, f32 qdot {host['f32_qdot_us']:.1f}"
+          " us (enqueue only; device time in the rows above)", flush=True)
+    del products
+    return rows, crossover, host
 
 
 def _dual_ops(r, n, P, N):
@@ -679,6 +766,7 @@ class PathCounters:
         self.quantize = quantize
         self.resident, self.paged = {}, {}
         self.int8_products = 0
+        self.int8_rows = {}
         self.int8_per_forward = {}
         self.forwards = 0
         self.ssm_layer_calls = 0
@@ -709,6 +797,7 @@ class PathCounters:
         orig_apply = self.M.apply
         orig_gather = self.M.gather_paged_slots
         orig_take = self.attn.take_rows
+        orig_int8 = self.ig.int8_gemv
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
@@ -743,6 +832,11 @@ class PathCounters:
             self.take_rows_calls += 1
             return orig_take(*a, **kw)
 
+        def int8(x, *a, **kw):
+            m = x.numel() // x.shape[-1]
+            self.int8_rows[m] = self.int8_rows.get(m, 0) + 1
+            return orig_int8(x, *a, **kw)
+
         def plain(orig):
             def call(*a, **kw):
                 self.plain_calls += 1
@@ -754,6 +848,7 @@ class PathCounters:
         self._patch(self.M, "apply", apply)
         self._patch(self.M, "gather_paged_slots", gather)
         self._patch(self.attn, "take_rows", take)
+        self._patch(self.ig, "int8_gemv", int8)
         for mod, name in ((self.fa, "attend_partial_plain"),
                           (self.pa, "paged_attend_partial_plain"),
                           (self.ig, "int8_gemv_plain"),
@@ -959,6 +1054,7 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         sim_ms=stats.sim_ms, sim_throughput_tps=stats.throughput_tps,
         kernel_launches=calls.launches, resident_attention_calls=calls.resident,
         pool_reads=calls.paged, int8_products=calls.int8_products,
+        int8_calls_by_rows=dict(sorted(calls.int8_rows.items())),
         forwards=calls.forwards, ssm_layer_calls=calls.ssm_layer_calls,
         attention_layer_calls=calls.attn_layer_calls,
         int8_products_per_forward=sorted(set(
@@ -1104,9 +1200,8 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"{lib.name}: {line.strip()}", flush=True)
 
-    fa_rows = kernel_phase(torch, fa)
+    fa_rows, fa_host = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
-    ig_rows = int8_kernel_phase(torch, ig, quantize)
     sd_rows = ssd_kernel_phase(torch, sd)
     kernel_err = max(r["max_abs_err"] for r in fa_rows + pa_rows)
     ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
@@ -1177,7 +1272,24 @@ def main() -> int:
     if per_fwd != [0, QWEN2_0_5B.n_layers * 7 + 1]:
         fail(f"phase D: quantized products per forward {per_fwd}, expected "
              f"0 and {QWEN2_0_5B.n_layers * 7 + 1}")
+    by_rows = sum_d["int8_calls_by_rows"]
+    int8_launch_classes = {k: 0 for k in ("decode", "extend", "prefill")}
+    for m, n in by_rows.items():
+        int8_launch_classes[int8_row_class(m)] += n
+    print(f"phase D int8 launches by rows {by_rows}: {int8_launch_classes}",
+          flush=True)
     del tparams, dparams, full, mixed, target, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the int8 kernel at the row counts phase D gave it: its most frequent
+    # decode and extend counts, and a full prefill chunk
+    def most_frequent(lo, hi, default):
+        seen = [(n, m) for m, n in by_rows.items() if lo <= m <= hi]
+        return max(seen)[1] if seen else default
+    int8_rows = (most_frequent(1, 8, 4), most_frequent(9, 63, 24), 512)
+    ig_rows, crossover, ig_host = int8_kernel_phase(torch, ig, quantize,
+                                                    int8_rows)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1239,6 +1351,9 @@ def main() -> int:
 
     print(json.dumps({"serving": summaries}), flush=True)
     kernels = []
+    extra = {"flash_attention_partial": dict(host=fa_host),
+             "int8_gemv_call": dict(host=ig_host, crossover=crossover,
+                                    launches_by_rows=int8_launch_classes)}
     for name, rows in (("flash_attention_partial", fa_rows),
                        ("paged_flash_decode", pa_rows),
                        ("int8_gemv_call", ig_rows),
@@ -1256,6 +1371,7 @@ def main() -> int:
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None if None in lib else sum(lib),
+            **extra.get(name, {}),
             note="times are sums over one call of each shape below"
                  + ("; no PyTorch call computes the scan" if None in lib
                     else ""),

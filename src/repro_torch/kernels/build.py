@@ -10,7 +10,7 @@ concurrent first uses cannot load a half-written file.
 
 `build_all` starts one `nvcc` per kernel at once and waits for all of
 them, so a process that needs every kernel pays for the slowest build,
-not for their sum.
+not for their sum. `cuda_stream` is the wrappers' launch stream.
 """
 from __future__ import annotations
 
@@ -39,6 +39,22 @@ def _nvcc() -> str:
         raise RuntimeError("nvcc not found: the port's kernels are built "
                            "from source with the CUDA toolkit")
     return found
+
+
+_raw_stream = None
+
+
+def cuda_stream(dev) -> int:
+    """The current CUDA stream of `dev` as an int, for a launch: the raw
+    lookup where this PyTorch build has it (no Stream object per call)."""
+    global _raw_stream
+    import torch
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", False)
+    if _raw_stream:
+        return _raw_stream(dev.index if dev.index is not None
+                           else torch.cuda.current_device())
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 class KernelLibrary:

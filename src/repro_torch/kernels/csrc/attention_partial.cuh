@@ -12,38 +12,77 @@
 // window) and by an optional bool mask; a masked key scores NEG_INF =
 // -1e30 and contributes p = 0, so a fully masked row leaves l = 0.
 //
-// One thread block owns (request, KV head, tile of 16 query rows) and
-// walks the request's logical keys in tiles of 32 staged in shared memory
-// as f32 (K/V are read in their stored dtype, f32 or bf16); every K/V
-// byte is read once per 16 query rows, and all GQA rows of a head share
-// the tile. The running max, sum and the f32 accumulator stay in
-// registers across the key loop. A key tile whose positions no query row
-// of the block can see (empty slots, unmapped or NULL pages, keys above
-// the causal diagonal or out of the window) is skipped after reading
-// only its 32 positions: that is bit-exact (every p = 0 and the
-// correction is exp(0) = 1).
+// What bounds it on the H100: at decode, verification's cache pass and
+// commit (a handful of query rows per KV head) it reads each K/V byte of
+// the keys a request holds once for a few rows: bound by those bytes over
+// 3.35 TB/s, a few microseconds, so latency decides — how many blocks
+// share the keys and how many round trips to HBM each block waits for.
+// Only the 512-row prefill has enough rows per key to approach the f32
+// FMA rate.
+//
+// What the design does about it:
+//   * Split-K (flash-decoding). A cluster of `n_split` blocks owns
+//     (request, KV head, tile of 16 query rows). The LOGICAL keys are cut
+//     into spans of `span_tiles` whole 32-key tiles and block `i` walks
+//     spans i, i + n_split, ... in order: one contiguous range whenever S
+//     fits n_split spans, as at the serving shapes. The wrapper
+//     (`ops.py::plan_splits`) fixes the span from the grid alone (B, Hkv,
+//     rows) and n_split from S and the span, never from the live lengths,
+//     so no host sync. Each block's partial (m, l, acc) goes to shared
+//     memory and the cluster merges the n_split partials in fixed rank
+//     order through distributed shared memory (`map_shared_rank` after
+//     `cluster.sync()`) with the arithmetic of `merge_partials`; each
+//     rank merges and writes its share of the rows. A block with no live
+//     key contributes (NEG_INF, 0, 0), which the merge passes through
+//     exactly (x * exp(0) + 0), so two pools of other capacities (a
+//     resident slot pool, a page pool's view) that hold the same keys
+//     give the same bits. n_split <= 16 (16 is above the portable
+//     cluster size of 8).
+//   * Pipelined tiles. K/V tiles are staged in their stored dtype (f32 or
+//     bf16) with 16-byte `cp.async` copies into a double buffer, so the
+//     copy of tile t + 1 overlaps the arithmetic of tile t; values become
+//     f32 where they are used. A tile's key positions (and, paged, its
+//     rows' page offsets) are read two tiles ahead (the block-table entry
+//     three ahead), so each tile's copy is issued before the previous
+//     tile is computed. A tile whose positions no query row of the block
+//     can see (empty slots, unmapped or NULL pages, keys above the causal
+//     diagonal or out of the window) is not copied at all
+//     (`__syncthreads_or`): a request reads only the K/V it holds, and
+//     skipping is bit-exact (every p = 0, the correction exp(0) = 1).
+//   * f32 on CUDA cores. 8 threads share a query row; each keeps its strip
+//     of D/8 of q in registers and scores all 32 keys of a tile over that
+//     strip (one shared-memory read per FMA, broadcast to the warp's 4
+//     rows), then a fixed butterfly over the 8 lanes hands each lane the
+//     full dot products of 4 keys. Strips are interleaved in 16-byte
+//     chunks (lane + 8 c), so a row's reads cover contiguous bytes.
 //
 // Key addressing is the one difference between the two instantiations:
 // logical key s of request b lives in pool row (page, row) =
 //   resident: (slot_idx[b] or b, s)
 //   paged:    (block_table[b, s / page_size], s % page_size)
-// and the tile loop is otherwise the same code, so a page pool read
-// through its block table gives bit for bit the partials of the resident
-// kernel over the gathered view (the same tiles in the same order).
+// and the tile loop, the split and the merge are otherwise the same code,
+// so a page pool read through its block table gives bit for bit the
+// partials of the resident kernel over the gathered view (the same tiles,
+// split the same way, in the same order).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace attn_partial {
 
+namespace cg = cooperative_groups;
+
 constexpr int ROWS = 16;            // query rows per block
-constexpr int KT = 32;              // keys per shared-memory tile
+constexpr int KT = 32;              // keys per tile
 constexpr int TPR = 8;              // threads per query row
 constexpr int THREADS = ROWS * TPR; // 128
-constexpr int KPT = KT / TPR;       // keys scored per thread per tile
+constexpr int KPT = KT / TPR;       // keys per thread after the butterfly
+constexpr int MAX_SPLIT = 16;
+constexpr int META = 3;             // tiles of key metadata in flight
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -60,6 +99,8 @@ struct Params {
   float* l;
   int T, G, H, S;              // S = logical keys per request
   int page_size;               // paged: keys per page
+  int n_split;                 // blocks per (b, h, row tile): a cluster
+  int span_tiles;              // 32-key tiles per span of the key split
   // element strides
   int64_t q_sb, q_st, q_sh, q_sg;
   int64_t k_sp, k_ss, k_sh;    // pool row (slot or page), key, head
@@ -77,24 +118,78 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// CV consecutive values of a shared-memory row as f32 (CV * sizeof(T)
+// <= 16 bytes, aligned)
+template <int CV>
+__device__ __forceinline__ void lds(const float* p, float (&o)[CV]) {
+  if constexpr (CV == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+  } else if constexpr (CV == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    o[0] = t.x; o[1] = t.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < CV; ++e) o[e] = p[e];
+  }
+}
+template <int CV>
+__device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[CV]) {
+  static_assert(CV % 2 == 0, "bf16 chunks hold pairs");
+  uint32_t u[CV / 2];
+  if constexpr (CV == 8) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    u[0] = t.x; u[1] = t.y; u[2] = t.z; u[3] = t.w;
+  } else if constexpr (CV == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    u[0] = t.x; u[1] = t.y;
+  } else {
+    u[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < CV / 2; ++i) {
+    o[2 * i] = __uint_as_float(u[i] << 16);
+    o[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+// One key's metadata, read by thread `j` (< KT) of the block: position and
+// pool-row offsets of K and V (element offsets from the head's base).
+struct KeyMeta {
+  int32_t pos;
+  int64_t koff, voff;
+};
+
 template <int D, typename QT, typename KVT, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 partial_kernel(const Params p) {
-  constexpr int DPT = D / TPR;  // accumulator columns per thread
-  // +1 pads break the bank conflicts of the row-strided dot products
-  __shared__ float q_s[ROWS][D + 1];
-  __shared__ float k_s[KT][D + 1];
-  __shared__ float v_s[KT][D];
-  __shared__ float p_s[ROWS][KT + 1];
-  __shared__ int32_t kpos_s[KT];
-  __shared__ int64_t koff_s[PAGED ? KT : 1];   // paged: key rows' offsets
-  __shared__ int64_t voff_s[PAGED ? KT : 1];
-  __shared__ int32_t qpos_s[ROWS];
+  constexpr int DPT = D / TPR;                       // values per thread
+  constexpr int CV = (DPT * int(sizeof(KVT)) > 16) ? 16 / int(sizeof(KVT))
+                                                   : DPT;  // per chunk
+  constexpr int NCH = DPT / CV;                      // chunks per thread
+  constexpr int TILE = KT * D;                       // elements per tile
+  constexpr int CPK = D * int(sizeof(KVT)) / 16;     // 16 B copies per key
+
+  extern __shared__ __align__(16) uint8_t kv_smem[];
+  KVT* kv_s = reinterpret_cast<KVT*>(kv_smem);       // [2][K, V][KT][D]
+  __shared__ int32_t kpos_s[META][KT];
+  __shared__ int64_t koff_s[PAGED ? META : 1][KT];
+  __shared__ int64_t voff_s[PAGED ? META : 1][KT];
+  __shared__ __align__(16) float p_s[ROWS][KT];
+  __shared__ float mrg_m[ROWS], mrg_l[ROWS];
 
   const int R = p.T * p.G;
-  const int b = blockIdx.z;
+  const int rank = blockIdx.x % p.n_split;
+  const int r0 = (blockIdx.x / p.n_split) * ROWS;
   const int h = blockIdx.y;
-  const int r0 = blockIdx.x * ROWS;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int row = tid / TPR;
   const int lane = tid % TPR;
@@ -103,178 +198,388 @@ partial_kernel(const Params p) {
   const int t = row_ok ? r / p.G : 0;
   const int slot = PAGED ? 0 : (p.slot_idx ? p.slot_idx[b] : b);
   const int32_t* btab = PAGED ? p.block_table + b * p.bt_sb : nullptr;
-  // resident: the request's pool row; paged: offsets come per key
   const int32_t* kp = p.k_pos + (PAGED ? 0 : slot * p.kpos_sp);
+  const KVT* kb = static_cast<const KVT*>(p.k) + h * p.k_sh +
+                  (PAGED ? 0 : slot * p.k_sp);
+  const KVT* vb = static_cast<const KVT*>(p.v) + h * p.v_sh +
+                  (PAGED ? 0 : slot * p.v_sp);
 
-  // query tile -> shared memory as f32 (rows past R are zeros)
-  const QT* qb = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh;
-  for (int i = tid; i < ROWS * D; i += THREADS) {
-    const int rr = i / D, d = i % D, ri = r0 + rr;
-    float x = 0.f;
-    if (ri < R) {
-      x = to_f32(qb[(ri / p.G) * p.q_st + (ri % p.G) * p.q_sg + d]);
-    }
-    q_s[rr][d] = x;
+  // this block's tiles: spans rank, rank + n_split, ... of span_tiles
+  // tiles; only the last span of all may be short
+  const int n_tiles = (p.S + KT - 1) / KT;
+  const int span = p.span_tiles;
+  int nt = 0;
+  for (int j = rank; j * span < n_tiles; j += p.n_split)
+    nt += min(span, n_tiles - j * span);
+  auto tile_of = [&](int i) {
+    return (rank + p.n_split * (i / span)) * span + i % span;
+  };
+
+  // this thread's strip of q: chunk c covers d = (lane + TPR c) * CV + e
+  float qr[NCH][CV];
+  {
+    const QT* qrow = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh +
+                     (row_ok ? t * p.q_st + (r % p.G) * p.q_sg : 0);
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < CV; ++e)
+        qr[c][e] = row_ok ? to_f32(qrow[(lane + TPR * c) * CV + e]) : 0.f;
   }
   const int qpos = row_ok ? p.q_pos[b * p.qpos_sb + t] : 0;
-  if (lane == 0) qpos_s[row] = qpos;
   const uint8_t* mrow =
       (p.mask != nullptr && row_ok) ? p.mask + b * p.mask_sb + t * p.mask_st
                                     : nullptr;
 
-  const KVT* kb = static_cast<const KVT*>(p.k) + h * p.k_sh +
-                 (PAGED ? 0 : slot * p.k_sp);
-  const KVT* vb = static_cast<const KVT*>(p.v) + h * p.v_sh +
-                 (PAGED ? 0 : slot * p.v_sp);
-
-  float acc[DPT];
+  // warp 0 tests tiles for live keys: the block's query-position range
+  int qmin = 2147483647, qmax = -2147483647 - 1;
+  if (tid < KT) {
+    if (tid < ROWS && r0 + tid < R) {
+      const int qp = p.q_pos[b * p.qpos_sb + (r0 + tid) / p.G];
+      qmin = qp;
+      qmax = qp;
+    }
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
+    for (int off = 16; off > 0; off >>= 1) {
+      qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+      qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+    }
+  }
+  auto live_key = [&](int32_t kpos) {
+    return kpos >= 0 && (!p.causal || kpos <= qmax) &&
+           (p.window <= 0 || qmin - kpos < p.window);
+  };
+
+  // key metadata of tile i of this split, for thread tid < KT. Paged:
+  // `page` is the tile's key's physical page, read one step earlier.
+  auto block_page = [&](int i) -> int32_t {
+    const int s = tile_of(i) * KT + tid;
+    return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
+  };
+  auto load_meta = [&](int i, int32_t page) -> KeyMeta {
+    KeyMeta km{-1, 0, 0};
+    const int s = tile_of(i) * KT + tid;
+    if (i < nt && s < p.S) {
+      if constexpr (PAGED) {
+        const int rw = s % p.page_size;
+        km.pos = kp[static_cast<int64_t>(page) * p.kpos_sp + rw];
+        km.koff = static_cast<int64_t>(page) * p.k_sp + rw * p.k_ss;
+        km.voff = static_cast<int64_t>(page) * p.v_sp + rw * p.v_ss;
+      } else {
+        km.pos = kp[s];
+      }
+    }
+    return km;
+  };
+  auto store_meta = [&](int i, const KeyMeta& km) {
+    kpos_s[i % META][tid] = km.pos;
+    if constexpr (PAGED) {
+      koff_s[i % META][tid] = km.koff;
+      voff_s[i % META][tid] = km.voff;
+    }
+  };
+  // issue the copies of tile i (its metadata is in slot i % META)
+  auto copy_tile = [&](int i) {
+    KVT* ks = kv_s + (i & 1) * 2 * TILE;
+    KVT* vs = ks + TILE;
+    const int s0 = tile_of(i) * KT;
+    for (int c = tid; c < KT * CPK; c += THREADS) {
+      const int j = c / CPK, part = c % CPK;
+      const int s = s0 + j;
+      const int e0 = part * (16 / int(sizeof(KVT)));
+      const bool in = s < p.S;
+      int64_t ko, vo;
+      if constexpr (PAGED) {
+        ko = koff_s[i % META][j];
+        vo = voff_s[i % META][j];
+      } else {
+        ko = static_cast<int64_t>(s) * p.k_ss;
+        vo = static_cast<int64_t>(s) * p.v_ss;
+      }
+      cp_async16(ks + j * D + e0, in ? kb + ko + e0 : kb, in ? 16 : 0);
+      cp_async16(vs + j * D + e0, in ? vb + vo + e0 : vb, in ? 16 : 0);
+    }
+  };
+
+  float acc[NCH][CV];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < CV; ++e) acc[c][e] = 0.f;
   float m_run = NEG_INF;
   float l_run = 0.f;
 
-  // the block's query-position range, to skip key tiles no row can see
-  __syncthreads();
-  int qmin = 2147483647, qmax = -2147483647 - 1;
-  for (int i = 0; i < ROWS && r0 + i < R; ++i) {
-    qmin = min(qmin, qpos_s[i]);
-    qmax = max(qmax, qpos_s[i]);
+  // prologue: metadata of tiles 0 and 1, the copy of tile 0
+  int32_t page_next = 0;   // paged: block-table entry of tile i + 2
+  int live0 = 0, live1 = 0;
+  if (tid < KT) {
+    int32_t pg0 = 0, pg1 = 0;
+    if constexpr (PAGED) {
+      pg0 = block_page(0);
+      pg1 = block_page(1);
+      page_next = block_page(2);
+    }
+    const KeyMeta a = load_meta(0, pg0), c1 = load_meta(1, pg1);
+    store_meta(0, a);
+    store_meta(1, c1);
+    live0 = 0 < nt && live_key(a.pos);
+    live1 = 1 < nt && live_key(c1.pos);
   }
+  int cur_live = __syncthreads_or(live0);
+  int next_live = __syncthreads_or(live1);
+  if (cur_live) copy_tile(0);
+  asm volatile("cp.async.commit_group;\n" ::);
 
-  for (int s0 = 0; s0 < p.S; s0 += KT) {
-    __syncthreads();  // the previous tile is consumed (and q_s is staged)
-    int live = 0;
+  for (int i = 0; i < nt; ++i) {
+    // the copy of tile i + 1 (its buffer was consumed at step i - 1)
+    if (next_live) copy_tile(i + 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    // metadata of tile i + 2 (and the page of tile i + 3) in flight
+    KeyMeta ahead{-1, 0, 0};
     if (tid < KT) {
-      const int s = s0 + tid;
-      int kpos = -1;
-      if (s < p.S) {
-        if constexpr (PAGED) {
-          const int64_t pg = btab[s / p.page_size];
-          const int rw = s % p.page_size;
-          kpos = kp[pg * p.kpos_sp + rw];
-          koff_s[tid] = pg * p.k_sp + rw * p.k_ss;
-          voff_s[tid] = pg * p.v_sp + rw * p.v_ss;
-        } else {
-          kpos = kp[s];
-        }
-      }
-      kpos_s[tid] = kpos;
-      live = kpos >= 0 && (!p.causal || kpos <= qmax) &&
-             (p.window <= 0 || qmin - kpos < p.window);
+      ahead = load_meta(i + 2, page_next);
+      if constexpr (PAGED) page_next = block_page(i + 3);
     }
-    // A tile where no row can see any key changes nothing (every p = 0 and
-    // the correction is exp(0) = 1), so it is skipped without reading K/V.
-    if (!__syncthreads_or(live)) continue;
-    for (int i = tid; i < KT * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      const int s = s0 + j;
-      if (s < p.S) {
-        if constexpr (PAGED) {
-          kx = to_f32(kb[koff_s[j] + d]);
-          vx = to_f32(vb[voff_s[j] + d]);
-        } else {
-          kx = to_f32(kb[s * p.k_ss + d]);
-          vx = to_f32(vb[s * p.v_ss + d]);
-        }
-      }
-      k_s[j][d] = kx;
-      v_s[j][d] = vx;
-    }
+    asm volatile("cp.async.wait_group 1;\n" ::);
     __syncthreads();
 
-    float sc[KPT];
-    bool ok[KPT];
-    float tmax = NEG_INF;
+    if (cur_live) {
+      const KVT* ks = kv_s + (i & 1) * 2 * TILE;
+      const KVT* vs = ks + TILE;
+      const int32_t* kpos_t = kpos_s[i % META];
+      const int s0 = tile_of(i) * KT;
+      // partial dots of all 32 keys over this thread's strip
+      float part[KT];
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int j = lane + TPR * i;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot += q_s[row][d] * k_s[j][d];
-      const int kpos = kpos_s[j];
-      bool valid = row_ok && kpos >= 0;
-      if (p.causal) valid = valid && kpos <= qpos;
-      if (p.window > 0) valid = valid && (qpos - kpos < p.window);
-      if (mrow != nullptr) valid = valid && mrow[s0 + j] != 0;
-      sc[i] = valid ? dot * p.scale : NEG_INF;
-      ok[i] = valid;
-      tmax = fmaxf(tmax, sc[i]);
-    }
-    // the TPR lanes of a row are adjacent lanes of one warp
+      for (int j = 0; j < KT; ++j) {
+        float dot = 0.f;
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-    const float m_new = fmaxf(m_run, tmax);
-    float psum = 0.f;
+        for (int c = 0; c < NCH; ++c) {
+          float kf[CV];
+          lds<CV>(ks + j * D + (lane + TPR * c) * CV, kf);
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const float pv = ok[i] ? expf(sc[i] - m_new) : 0.f;
-      p_s[row][lane + TPR * i] = pv;
-      psum += pv;
-    }
+          for (int e = 0; e < CV; ++e) dot += qr[c][e] * kf[e];
+        }
+        part[j] = dot;
+      }
+      // butterfly over the row's 8 lanes: lane keeps keys 4 * lane + i
 #pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, off);
-    const float corr = expf(m_run - m_new);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    __syncwarp();  // p_s of this row is written by lanes of this warp
+      for (int i2 = 0; i2 < 16; ++i2) {
+        const bool up = lane & 4;
+        const float send = up ? part[i2] : part[i2 + 16];
+        const float keep = up ? part[i2 + 16] : part[i2];
+        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < 8; ++i2) {
+        const bool up = lane & 2;
+        const float send = up ? part[i2] : part[i2 + 8];
+        const float keep = up ? part[i2 + 8] : part[i2];
+        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+#pragma unroll
+      for (int i2 = 0; i2 < 4; ++i2) {
+        const bool up = lane & 1;
+        const float send = up ? part[i2] : part[i2 + 4];
+        const float keep = up ? part[i2 + 4] : part[i2];
+        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+      }
+      float sc[KPT];
+      bool ok[KPT];
+      float tmax = NEG_INF;
+#pragma unroll
+      for (int i2 = 0; i2 < KPT; ++i2) {
+        const int j = KPT * lane + i2;
+        const int kpos = kpos_t[j];
+        bool valid = row_ok && kpos >= 0;
+        if (p.causal) valid = valid && kpos <= qpos;
+        if (p.window > 0) valid = valid && (qpos - kpos < p.window);
+        if (mrow != nullptr) valid = valid && s0 + j < p.S && mrow[s0 + j] != 0;
+        sc[i2] = valid ? part[i2] * p.scale : NEG_INF;
+        ok[i2] = valid;
+        tmax = fmaxf(tmax, sc[i2]);
+      }
+      // the TPR lanes of a row are adjacent lanes of one warp
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m_run, tmax);
+      float pv[KPT];
+      float psum = 0.f;
+#pragma unroll
+      for (int i2 = 0; i2 < KPT; ++i2) {
+        pv[i2] = ok[i2] ? expf(sc[i2] - m_new) : 0.f;
+        psum += pv[i2];
+      }
+      *reinterpret_cast<float4*>(&p_s[row][KPT * lane]) =
+          make_float4(pv[0], pv[1], pv[2], pv[3]);
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      const float corr = expf(m_run - m_new);
+      l_run = l_run * corr + psum;
+      m_run = m_new;
+      __syncwarp();  // p_s of this row is written by lanes of this warp
 
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) acc[i] *= corr;
-    for (int j = 0; j < KT; ++j) {
-      const float pj = p_s[row][j];
+      for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] += pj * v_s[j][lane + TPR * i];
+        for (int e = 0; e < CV; ++e) acc[c][e] *= corr;
+#pragma unroll 4
+      for (int j4 = 0; j4 < KT; j4 += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(&p_s[row][j4]);
+        const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int c = 0; c < NCH; ++c) {
+            float vf[CV];
+            lds<CV>(vs + (j4 + jj) * D + (lane + TPR * c) * CV, vf);
+#pragma unroll
+            for (int e = 0; e < CV; ++e) acc[c][e] += pj[jj] * vf[e];
+          }
+        }
+      }
     }
+
+    // metadata of tile i + 2 lands; every thread is done with buffer i & 1
+    int live2 = 0;
+    if (tid < KT) {
+      store_meta(i + 2, ahead);
+      live2 = i + 2 < nt && live_key(ahead.pos);
+    }
+    const int l2 = __syncthreads_or(live2);
+    cur_live = next_live;
+    next_live = l2;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  const int64_t o = row_ok
+      ? ((static_cast<int64_t>(b) * p.T + t) * p.H + h) * p.G + r % p.G
+      : 0;
+  if (p.n_split == 1) {
+    if (row_ok) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < CV; ++e)
+          p.acc[o * D + (lane + TPR * c) * CV + e] = acc[c][e];
+      if (lane == 0) {
+        p.m[o] = m_run;
+        p.l[o] = l_run;
+      }
+    }
+    return;
   }
 
-  if (row_ok) {
-    const int g = r % p.G;
-    const int64_t o = ((static_cast<int64_t>(b) * p.T + t) * p.H + h) * p.G + g;
+  // merge the cluster's n_split partials in rank order (merge_partials'
+  // arithmetic); the K/V buffer is free now and holds this block's acc
+  __syncthreads();
+  float* mrg_acc = reinterpret_cast<float*>(kv_smem);   // [ROWS][D]
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) p.acc[o * D + lane + TPR * i] = acc[i];
-    if (lane == 0) {
-      p.m[o] = m_run;
-      p.l[o] = l_run;
+  for (int c = 0; c < NCH; ++c)
+#pragma unroll
+    for (int e = 0; e < CV; ++e)
+      mrg_acc[row * D + (lane + TPR * c) * CV + e] = acc[c][e];
+  if (lane == 0) {
+    mrg_m[row] = m_run;
+    mrg_l[row] = l_run;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int e = rank * THREADS + tid; e < ROWS * D; e += p.n_split * THREADS) {
+    const int rr = e / D, d = e % D;
+    const int ri = r0 + rr;
+    if (ri >= R) continue;
+    // every remote load in flight before the fold
+    float mq[MAX_SPLIT], lq[MAX_SPLIT], aq[MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q) {
+      const bool in = q < p.n_split;
+      mq[q] = in ? cluster.map_shared_rank(mrg_m, q)[rr] : NEG_INF;
+      lq[q] = in ? cluster.map_shared_rank(mrg_l, q)[rr] : 0.f;
+      aq[q] = in ? cluster.map_shared_rank(mrg_acc, q)[rr * D + d] : 0.f;
+    }
+    float m_a = mq[0], l_a = lq[0], a_a = aq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float mm = fmaxf(m_a, mq[q]);
+        const float ea = expf(m_a - mm), eb = expf(mq[q] - mm);
+        l_a = l_a * ea + lq[q] * eb;
+        a_a = a_a * ea + aq[q] * eb;
+        m_a = mm;
+      }
+    }
+    const int ti = ri / p.G;
+    const int64_t oi =
+        ((static_cast<int64_t>(b) * p.T + ti) * p.H + h) * p.G + ri % p.G;
+    p.acc[oi * D + d] = a_a;
+    if (d == 0) {
+      p.m[oi] = m_a;
+      p.l[oi] = l_a;
     }
   }
+  cluster.sync();   // no block leaves while another reads its partials
+}
+
+template <int D, typename KVT>
+constexpr int kv_smem_bytes() {
+  return 2 * 2 * KT * D * int(sizeof(KVT));
 }
 
 template <int D, typename QT, typename KVT, bool PAGED>
-void launch(const Params& p, int B, cudaStream_t stream) {
+int launch(const Params& p, int B, cudaStream_t stream) {
+  auto kernel = partial_kernel<D, QT, KVT, PAGED>;
+  constexpr int smem = kv_smem_bytes<D, KVT>();
+  static bool attr = false;   // one flag per instantiation
+  if (!attr) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr = true;
+  }
   const int R = p.T * p.G;
-  dim3 grid((R + ROWS - 1) / ROWS, p.H, B);
-  partial_kernel<D, QT, KVT, PAGED><<<grid, THREADS, 0, stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((R + ROWS - 1) / ROWS) * p.n_split, p.H, B);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.n_split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = p.n_split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
 }
 
 template <int D, bool PAGED>
-void dispatch_dtypes(const Params& p, int B, int q_bf16, int kv_bf16,
-                     cudaStream_t stream) {
+int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv_bf16,
+                    cudaStream_t stream) {
   if (q_bf16 && kv_bf16)
-    launch<D, __nv_bfloat16, __nv_bfloat16, PAGED>(p, B, stream);
-  else if (q_bf16)
-    launch<D, __nv_bfloat16, float, PAGED>(p, B, stream);
-  else if (kv_bf16)
-    launch<D, float, __nv_bfloat16, PAGED>(p, B, stream);
-  else
-    launch<D, float, float, PAGED>(p, B, stream);
+    return launch<D, __nv_bfloat16, __nv_bfloat16, PAGED>(p, B, stream);
+  if (q_bf16) return launch<D, __nv_bfloat16, float, PAGED>(p, B, stream);
+  if (kv_bf16) return launch<D, float, __nv_bfloat16, PAGED>(p, B, stream);
+  return launch<D, float, float, PAGED>(p, B, stream);
 }
 
-// Launch on `stream` for head dim D in {16, 32, 64, 128}; returns
-// cudaGetLastError() (cudaErrorInvalidValue for another D).
+// Launch on `stream` for head dim D in {16, 32, 64, 128}; returns the
+// launch's error (cudaErrorInvalidValue for another D or n_split).
 template <bool PAGED>
 int dispatch(const Params& p, int B, int D, int q_bf16, int kv_bf16,
              cudaStream_t stream) {
+  if (p.n_split < 1 || p.n_split > MAX_SPLIT || p.span_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: dispatch_dtypes<16, PAGED>(p, B, q_bf16, kv_bf16, stream); break;
-    case 32: dispatch_dtypes<32, PAGED>(p, B, q_bf16, kv_bf16, stream); break;
-    case 64: dispatch_dtypes<64, PAGED>(p, B, q_bf16, kv_bf16, stream); break;
-    case 128: dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv_bf16, stream); break;
+    case 16: return dispatch_dtypes<16, PAGED>(p, B, q_bf16, kv_bf16, stream);
+    case 32: return dispatch_dtypes<32, PAGED>(p, B, q_bf16, kv_bf16, stream);
+    case 64: return dispatch_dtypes<64, PAGED>(p, B, q_bf16, kv_bf16, stream);
+    case 128: return dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv_bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace attn_partial

@@ -20,19 +20,21 @@
 //
 // What the design does about it: K/V are read in place from the resident
 // slot pool through `slot_idx` (no gathered copy, which would read and
-// write every byte once more), in their stored dtype (f32 or bf16) with
-// the conversion to f32 done on the way into shared memory. A key tile
-// whose positions no query row of the block can see (empty slots past a
-// request's length, keys above the causal diagonal, keys out of the
-// window) is skipped after reading only its 32 positions, so a request
-// reads the K/V of the tokens it holds, not the slot's capacity. One thread
-// block owns (request, KV head, tile of 16 query rows) and walks the keys
-// in tiles of 32 staged in shared memory, so every K/V byte is read once
-// per 16 query rows; all GQA rows of a head share that tile. The running
-// max, sum and the f32 accumulator stay in registers across the key loop
-// (the Pallas kernel's VMEM scratch and sequential K grid axis become a
-// loop inside the block). This first version uses CUDA cores in f32,
-// not wgmma; splitting K across blocks for decode is left for later.
+// write every byte once more), in their stored dtype (f32 or bf16), by
+// 16-byte `cp.async` copies into a double buffer and converted to f32
+// where they are used. The logical keys of each (request, KV head, tile
+// of 16 query rows) are split over a thread-block cluster of `n_split`
+// blocks (flash-decoding), whose partials merge in fixed order through
+// distributed shared memory, so decode's few rows still fill the SMs. A
+// key tile whose positions no query row of the block can see (empty
+// slots past a request's length, keys above the causal diagonal, keys
+// out of the window) is never copied, so a request reads the K/V of the
+// tokens it holds, not the slot's capacity. All GQA rows of a head share
+// each tile. The running max, sum and the f32 accumulator stay in
+// registers across the key loop (the Pallas kernel's VMEM scratch and
+// sequential K grid axis become a loop inside the block); the
+// arithmetic is f32 on CUDA cores, not wgmma (bf16 tensor cores would
+// need P in bf16, outside the 1e-4 tolerance: ROADMAP queue 2 item 2c).
 //
 // The kernel body is `../../csrc/attention_partial.cuh`, shared with the
 // paged-pool kernel; this file instantiates it for the resident slot pool
@@ -48,8 +50,8 @@ extern "C" int fa_partial_launch(
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
     int64_t kpos_sp, int64_t qpos_sb, int64_t mask_sb, int64_t mask_st,
-    float scale, int causal, int window, int q_bf16, int kv_bf16,
-    void* stream) {
+    float scale, int causal, int window, int q_bf16, int kv_bf16, int n_split,
+    int span_tiles, void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -82,6 +84,8 @@ extern "C" int fa_partial_launch(
   p.mask_sb = mask_sb;
   p.mask_st = mask_st;
   p.bt_sb = 0;
+  p.n_split = n_split;
+  p.span_tiles = span_tiles;
   p.scale = scale;
   p.causal = causal;
   p.window = window;

@@ -20,15 +20,21 @@ strides; `flash_attention_partial` below is that contract, for tests.
 On a CUDA tensor the wrapper launches the kernel of
 `csrc/flash_attention.cu` or raises; on a CPU tensor it runs the plain
 version, a transcription of the reference's `attend_partial` arithmetic.
+`plan_splits` fixes, from the shapes alone, how many blocks of a cluster
+split each (request, KV head, 16-row tile)'s keys and how many key tiles
+a block walks at a time; `split_ranges` gives each block's keys, over
+which the plain version merged in rank order (`merge_two`) is the
+kernel's arithmetic.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CSRC, KernelLibrary
+from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -36,6 +42,15 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 #: version with the same tile on the CPU
 KEY_TILE = 32
 _KV_DTYPES = (torch.float32, torch.bfloat16)
+#: query rows per block of the kernel
+ROW_TILE = 16
+#: the split plan aims at this many blocks (two per SM of 132), and never
+#: splits a (request, head, row tile) over more blocks than this (the
+#: non-portable cluster limit of the H100)
+SPLIT_TARGET_BLOCKS = 256
+MAX_SPLIT = 16
+#: the pool capacity the span is sized for (the serving phases' max_len)
+SPLIT_REF_KEYS = 1024
 
 #: kernel launches made by `attend_partial` (a plain integer; reset it
 #: to 0 before a run whose launches should be counted)
@@ -49,7 +64,8 @@ def _declare(lib):
                    + [i32] * 6          # B T G H S D
                    + [i64] * 14         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 4          # causal window q_bf16 kv_bf16
+                   + [i32] * 6          # causal window q_bf16 kv_bf16
+                                        # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
 
@@ -125,12 +141,89 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
 
 
 # =====================================================================
+# split planning (plain Python, tested on the CPU)
+# =====================================================================
+
+@functools.lru_cache(maxsize=1024)
+def plan_splits(B: int, H: int, R: int, S: int):
+    """(n_split, span_tiles) for B requests x H KV heads x R query rows
+    over S logical keys. The span (32-key tiles a block walks in one go)
+    comes from the grid alone: the fewest power-of-two blocks per
+    (request, head, row tile), at most MAX_SPLIT, that give
+    SPLIT_TARGET_BLOCKS blocks over a pool of SPLIT_REF_KEYS keys. The
+    cluster then covers S with ceil(tiles / span) blocks rounded up to a
+    power of two, at most MAX_SPLIT; past MAX_SPLIT spans a block walks
+    every n_split-th span. So the plan never reads the live lengths, and
+    two capacities holding the same keys (a slot pool, a page pool's
+    view) sum the same spans in the same order."""
+    base = B * H * -(-R // ROW_TILE)
+    n0 = 1
+    while n0 < MAX_SPLIT and base * n0 < SPLIT_TARGET_BLOCKS:
+        n0 *= 2
+    span = max(1, SPLIT_REF_KEYS // KEY_TILE // n0)
+    spans = -(-max(1, -(-S // KEY_TILE)) // span)
+    n = 1
+    while n < min(spans, MAX_SPLIT):
+        n *= 2
+    return n, span
+
+
+def kernel_smem(D: int, kv_element_size: int, paged: bool) -> int:
+    """Shared memory of one block: the double-buffered K/V tiles (dynamic)
+    and the key metadata, probabilities and merge rows (static)."""
+    dynamic = 2 * 2 * KEY_TILE * D * kv_element_size
+    meta = 3 * KEY_TILE * (4 + (2 * 8 if paged else 0))   # pos, offsets
+    return dynamic + meta + ROW_TILE * KEY_TILE * 4 + 2 * ROW_TILE * 4
+
+
+def split_ranges(S: int, n_split: int, span_tiles: int):
+    """The logical keys each block of a cluster walks, in rank order: a
+    list of [lo, hi) ranges per block (spans rank, rank + n_split, ...;
+    empty for a block past the last key)."""
+    span = span_tiles * KEY_TILE
+    return [[(lo, min(S, lo + span))
+             for lo in range(r * span, S, n_split * span)]
+            for r in range(n_split)]
+
+
+# =====================================================================
 # kernel wrapper
 # =====================================================================
 
+def as_int32(t):
+    """`t` as a contiguous int32 tensor, without a copy when it is one."""
+    if t.dtype != torch.int32 or not t.is_contiguous():
+        t = t.to(torch.int32).contiguous()
+    return t
+
+
+def kv_aligned(t, strides) -> bool:
+    """K/V rows are copied in 16-byte pieces: the base and the strides
+    (pool row, key, head) must be 16-byte multiples."""
+    per = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and strides[0] % per == 0
+            and strides[1] % per == 0 and strides[2] % per == 0)
+
+
+def empty_partials(shape, Dv, dev):
+    """(m, l, acc) outputs as contiguous views of one allocation."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.empty(n * (Dv + 2), dtype=torch.float32, device=dev)
+    return (buf[:n].view(shape), buf[n: 2 * n].view(shape),
+            buf[2 * n:].view(*shape, Dv))
+
+
 def _check(cond, msg):
+    """Raise on a failed check; `msg` is a string or a callable that
+    builds it."""
     if not cond:
-        raise ValueError(f"flash-attention kernel: {msg}")
+        raise ValueError(f"flash-attention kernel: "
+                         f"{msg() if callable(msg) else msg}")
+
+
+_FN = None
 
 
 def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
@@ -139,59 +232,64 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     P, S = k.shape[0], k.shape[1]
     Dv = v.shape[-1]
     dev = q.device
-    _check(Dk == Dv and Dk in SUPPORTED_HEAD_DIMS,
-           f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
-           f"{SUPPORTED_HEAD_DIMS}")
+    # (messages are built only when a check fails: this runs per call)
+    _check(Dk == Dv and Dk in SUPPORTED_HEAD_DIMS, lambda: (
+        f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
+        f"{SUPPORTED_HEAD_DIMS}"))
     _check(q.dtype in _KV_DTYPES and k.dtype in _KV_DTYPES
-           and v.dtype == k.dtype, f"dtypes q={q.dtype} k={k.dtype} "
-           f"v={v.dtype}; supported float32 / bfloat16, k and v alike")
-    _check(tuple(k.shape) == (P, S, Hkv, Dk)
-           and tuple(v.shape) == (P, S, Hkv, Dv), "k/v shapes")
-    _check(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
+           and v.dtype == k.dtype, lambda: (
+               f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}; supported "
+               "float32 / bfloat16, k and v alike"))
+    _check(k.shape == (P, S, Hkv, Dk) and v.shape == (P, S, Hkv, Dv),
+           "k/v shapes")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    _check(qs[4] == 1 and ks[3] == 1 and vs[3] == 1,
            "q, k and v need a contiguous last (head) dimension")
+    _check(kv_aligned(k, ks) and kv_aligned(v, vs), "k and v need 16-byte "
+           "aligned rows (base and strides)")
     for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos),
                     ("mask", mask), ("slot_idx", slot_idx)):
-        _check(t is None or t.device == dev,
-               f"{name} is on {getattr(t, 'device', None)}, q on {dev}")
-    _check(tuple(q_pos.shape) == (B, T) and tuple(k_pos.shape) == (P, S),
+        _check(t is None or t.device == dev, lambda: (
+            f"{name} is on {t.device}, q on {dev}"))
+    _check(q_pos.shape == (B, T) and k_pos.shape == (P, S),
            "q_pos (B, T) / k_pos (P, S) shapes")
-    q_pos = q_pos.to(torch.int32).contiguous()
-    k_pos = k_pos.to(torch.int32).contiguous()
+    q_pos = as_int32(q_pos)
+    k_pos = as_int32(k_pos)
     if slot_idx is None:
-        _check(P == B, f"k/v batch {P} != q batch {B} without slot_idx")
+        _check(P == B, lambda: f"k/v batch {P} != q batch {B} without "
+               "slot_idx")
     else:
-        _check(tuple(slot_idx.shape) == (B,), "slot_idx must be (B,)")
-        slot_idx = slot_idx.to(torch.int32).contiguous()
+        _check(slot_idx.shape == (B,), "slot_idx must be (B,)")
+        slot_idx = as_int32(slot_idx)
     if mask is not None:
-        _check(tuple(mask.shape) == (B, T, S) and mask.dtype == torch.bool,
+        _check(mask.shape == (B, T, S) and mask.dtype == torch.bool,
                "mask must be a (B, T, S) bool tensor")
-        mask = mask.contiguous()
+        if not mask.is_contiguous():
+            mask = mask.contiguous()
 
-    acc = torch.empty((B, T, Hkv, G, Dv), dtype=torch.float32, device=dev)
-    m = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
-    l = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    m, l, acc = empty_partials((B, T, Hkv, G), Dv, dev)
     if B * T * G == 0:
         return m.fill_(NEG_INF), l.zero_(), acc.zero_()
 
-    fn = LIBRARY.load().fa_partial_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    qs, ks, vs = q.stride(), k.stride(), v.stride()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
-            0 if slot_idx is None else slot_idx.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, T, G, Hkv, S, Dk,
-            qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
-            vs[0], vs[1], vs[2], k_pos.stride(0), q_pos.stride(0),
-            0 if mask is None else mask.stride(0),
-            0 if mask is None else mask.stride(1),
-            float(scale), int(bool(causal)), int(window),
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            stream)
+    global _FN, LAUNCHES
+    if _FN is None:
+        _FN = LIBRARY.load().fa_partial_launch
+    n_split, span = plan_splits(B, Hkv, T * G, S)
+    rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+             k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
+             0 if slot_idx is None else slot_idx.data_ptr(),
+             acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             B, T, G, Hkv, S, Dk,
+             qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
+             vs[0], vs[1], vs[2], k_pos.stride(0), q_pos.stride(0),
+             0 if mask is None else mask.stride(0),
+             0 if mask is None else mask.stride(1),
+             float(scale), int(bool(causal)), int(window),
+             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+             n_split, span, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
-    global LAUNCHES
     LAUNCHES += 1
     return m, l, acc
 

@@ -9,23 +9,57 @@ scales of any shape with N elements ((1, N) for dense weights, (V, 1) for
 the table). Returns (..., N) in x's dtype; the kernel's output is f32 and
 is cast once.
 
-On a CUDA tensor the wrapper launches the kernel of `csrc/int8_gemv.cu`
+On a CUDA tensor the wrapper launches one kernel of `csrc/int8_gemv.cu`
 for any number of rows, or raises; on a CPU tensor it runs
-`int8_gemv_plain`.
+`int8_gemv_plain`. `plan` picks the kernel path from the shapes alone
+(no host sync): split-K over a thread-block cluster for few rows of the
+dense layout, a streaming pass for the transposed table, tensor cores
+(`wgmma`) for bf16 x with many rows.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary
+from repro_torch.kernels.build import KernelLibrary, cuda_stream
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
-#: the kernel stages a row block of x as f32 in shared memory for the
-#: transposed (unit stride along K) layout: rows * K * 4 bytes <= this
-_ROWS_SMEM_MAX = 200 * 1024
+
+#: bf16 x with at least this many rows runs on tensor cores; fewer rows
+#: (decode) run the split-K CUDA-core path. Measured by `chip_smoke.py`
+#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): at 8 rows wgmma is 1.25x
+#: (wq/wo) and 1.6x (wg/wu) faster and even on wk/wv; at 16-32 rows split-K
+#: wins only on the 128-column wk/wv, by under 15 %.
+TC_MIN_ROWS = 8
+#: the split-K plan aims at this many blocks (132 SMs on the H100)...
+SPLITK_TARGET_BLOCKS = 96
+#: ... and at most this many rows of K per cluster rank (a thread reads
+#: 1/128 of them, 8 rows in flight)
+SPLITK_MAX_ROWS = 1536
+#: cluster sizes the split-K and wgmma paths may use (16 is non-portable)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: column tile of the split-K path: one 16-byte load of a weight row per
+#: thread (32 columns were 2.5x slower on wg/wu: PERF.md §6)
+SPLITK_TN = 16
+#: each cluster rank reads at least this many rows of K
+SPLITK_MIN_ROWS = 32
+#: rows of x the split-K kernel stages at a time, and its threads
+SPLITK_KC, SPLITK_THREADS = 1024, 128
+#: the transposed (rows) layout stages a row block of x as f32 in shared
+#: memory: rows * round_up(K, 16) * 4 bytes <= this
+ROWS_SMEM_MAX = 200 * 1024
+#: tensor-core tile: 64 rows x BN columns x 64 k, three ring stages (a
+#: fourth cost a block per SM and was slower: PERF.md §6)
+TC_BM, TC_BK, TC_STAGES = 64, 64, 3
+#: the wgmma plan splits K over a cluster until it has this many blocks,
+#: each rank keeping at least TC_MIN_KTILES k-tiles
+TC_TARGET_BLOCKS, TC_MIN_KTILES = 192, 2
+#: the most dynamic shared memory a block may ask for on the H100
+SMEM_LIMIT = 227 * 1024
 
 #: kernel launches made by `int8_gemv` (a plain integer; reset it to 0
 #: before a run whose launches should be counted)
@@ -34,13 +68,18 @@ LAUNCHES = 0
 
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    fn = lib.int8_gemv_launch
-    fn.argtypes = ([vp] * 4             # x w8 scale y
-                   + [i32] * 3          # M K N
-                   + [i64] * 3          # sx sk sn
-                   + [i32] * 2          # mb x_bf16
-                   + [vp])              # stream
-    fn.restype = ctypes.c_int
+    lib.int8_splitk_launch.argtypes = (
+        [vp] * 4 + [i32] * 3 + [i64] * 2      # x w8 scale y, M K N, sx sk
+        + [i32] * 3 + [vp])                   # mb cs x_bf16, stream
+    lib.int8_rows_launch.argtypes = (
+        [vp] * 4 + [i32] * 3 + [i64] * 2      # x w8 scale y, M K N, sx sn
+        + [i32] * 3 + [vp])                   # mb n_sm x_bf16, stream
+    lib.int8_tc_launch.argtypes = (
+        [vp] * 4 + [i32] * 3 + [i64] * 2      # x w8 scale y, M K N, sx sw
+        + [i32] * 3 + [vp])                   # rows bn cs, stream
+    for fn in (lib.int8_splitk_launch, lib.int8_rows_launch,
+               lib.int8_tc_launch):
+        fn.restype = ctypes.c_int
 
 
 #: the kernel's source and built library (`csrc/int8_gemv.cu`)
@@ -55,9 +94,25 @@ def int8_gemv_plain(x, w8, scale):
     return (x.float() @ w8.float()) * scale.reshape(-1).float()
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"int8 GEMV kernel: {msg}")
+# =====================================================================
+# path planning (plain Python, tested on the CPU)
+# =====================================================================
+
+class Plan(NamedTuple):
+    """One launch: `path` is "splitk", "rows" or "tc"; `mb` rows per
+    block (splitk, rows); `cs` blocks per cluster splitting K (splitk,
+    tc); `sms` the SMs the rows kernel fills (it launches as many blocks
+    as fit at once); `bn` columns per block (tc; split-K blocks own
+    SPLITK_TN columns)."""
+    path: str
+    mb: int = 0
+    cs: int = 1
+    sms: int = 0
+    bn: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def _rows_per_block(M: int) -> int:
@@ -67,45 +122,173 @@ def _rows_per_block(M: int) -> int:
     return mb
 
 
-def _launch(x, w8, scale):
+def splitk_smem(mb: int) -> int:
+    """Dynamic shared memory of the split-K kernel: the staged x chunk,
+    reused for the block's per-thread partials."""
+    return 4 * max(mb * SPLITK_KC, SPLITK_THREADS * (mb * 16 + 1))
+
+
+def rows_smem(mb: int, K: int) -> int:
+    """Dynamic shared memory of the rows kernel: x rows as f32."""
+    return mb * _cdiv(K, 16) * 16 * 4
+
+
+def tc_smem(bn: int) -> int:
+    """Dynamic shared memory of the tensor-core kernel: the ring of
+    (bf16 x tile, int8 w tile) stages and the bf16 w tile."""
+    return TC_STAGES * (TC_BM * TC_BK * 2 + TC_BK * bn) + bn * TC_BK * 2
+
+
+def splitk_ranges(K: int, cs: int):
+    """Rows [lo, hi) of K that each cluster rank reads, as the kernel
+    cuts them (kslice = ceil(K / cs); trailing ranks may be empty)."""
+    ks = _cdiv(K, cs)
+    return [(min(K, q * ks), min(K, (q + 1) * ks)) for q in range(cs)]
+
+
+def _splitk_cluster(K: int, N: int, mblocks: int) -> int:
+    """The smallest cluster that gives SPLITK_TARGET_BLOCKS blocks with
+    at most SPLITK_MAX_ROWS rows per rank, each rank reading at least
+    SPLITK_MIN_ROWS rows; else the largest those limits allow."""
+    sizes = [cs for cs in CLUSTER_SIZES
+             if cs == 1 or _cdiv(K, cs) >= SPLITK_MIN_ROWS]
+    for cs in sizes:
+        if (_cdiv(N, SPLITK_TN) * cs * mblocks >= SPLITK_TARGET_BLOCKS
+                and _cdiv(K, cs) <= SPLITK_MAX_ROWS):
+            return cs
+    return sizes[-1]
+
+
+def _tc_plan(M: int, K: int, N: int, n_sm: int) -> Plan:
+    """wgmma tiles: 128 columns a block when that still fills the SMs;
+    K split over a cluster while the tiles are too few (extend rows, a
+    long K), each rank keeping TC_MIN_KTILES k-tiles or more."""
+    mt = _cdiv(M, TC_BM)
+    bn = 128 if mt * _cdiv(N, 128) >= n_sm else 64
+    tiles, nk = mt * _cdiv(N, bn), _cdiv(K, TC_BK)
+    cs = 1
+    while (cs < CLUSTER_SIZES[-1] and tiles * cs < TC_TARGET_BLOCKS
+           and _cdiv(nk, 2 * cs) >= TC_MIN_KTILES):
+        cs *= 2
+    return Plan("tc", cs=cs, bn=bn)
+
+
+def tc_ranges(K: int, cs: int):
+    """k-tiles [lo, hi) each cluster rank of the wgmma path reads."""
+    nk = _cdiv(K, TC_BK)
+    per = _cdiv(nk, cs)
+    return [(min(nk, q * per), min(nk, (q + 1) * per)) for q in range(cs)]
+
+
+def _splitk_plan(M: int, K: int, N: int) -> Plan:
+    mb = _rows_per_block(M)
+    return Plan("splitk", mb=mb, cs=_splitk_cluster(K, N, _cdiv(M, mb)))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, rows_layout: bool, x_bf16: bool,
+         n_sm: int = 132) -> Plan:
+    """The kernel path and its tiling for x (M, K) @ w8 (K, N), from the
+    shapes alone. `rows_layout`: w8 has unit stride along K (the
+    transposed table)."""
+    if x_bf16 and M >= TC_MIN_ROWS:
+        return _tc_plan(M, K, N, n_sm)
+    if rows_layout:
+        mb = _rows_per_block(M)
+        while mb > 1 and rows_smem(mb, K) > ROWS_SMEM_MAX:
+            mb //= 2
+        return Plan("rows", mb=mb, sms=n_sm)
+    return _splitk_plan(M, K, N)
+
+
+def plan_smem(p: Plan, K: int) -> int:
+    """Dynamic shared memory the plan's launch asks for."""
+    if p.path == "tc":
+        return tc_smem(p.bn)
+    if p.path == "rows":
+        return rows_smem(p.mb, K)
+    return splitk_smem(p.mb)
+
+
+# =====================================================================
+# kernel wrapper
+# =====================================================================
+
+def _check(cond, msg):
+    """Raise on a failed check; `msg` is a string or a callable that
+    builds it."""
+    if not cond:
+        raise ValueError(f"int8 GEMV kernel: "
+                         f"{msg() if callable(msg) else msg}")
+
+
+_N_SM = {}
+_FNS = None
+
+
+def _launch(x, w8, scale, path=None):
+    """Launch the kernel; returns the f32 (..., N) result. `path`
+    overrides the planned path ("splitk" / "tc"), for measurements."""
+    global _FNS, LAUNCHES
     K, N = w8.shape
     dev = x.device
-    _check(x.dtype in _X_DTYPES, f"x dtype {x.dtype}; supported float32 "
-           "and bfloat16")
+    # (messages are built only when a check fails: this runs per call)
+    _check(x.dtype in _X_DTYPES, lambda: f"x dtype {x.dtype}; supported "
+           "float32 and bfloat16")
     _check(w8.dtype == torch.int8 and w8.dim() == 2, "w8 must be a 2-D "
            "int8 tensor")
-    _check(x.shape[-1] == K, f"x has {x.shape[-1]} features, w8 {K} rows")
+    _check(x.shape[-1] == K, lambda: f"x has {x.shape[-1]} features, w8 "
+           f"{K} rows")
     _check(scale.numel() == N and scale.dtype == torch.float32,
-           f"scale must hold {N} float32 values")
-    for name, t in (("w8", w8), ("scale", scale)):
-        _check(t.device == dev, f"{name} is on {t.device}, x on {dev}")
+           lambda: f"scale must hold {N} float32 values")
+    _check(w8.device == dev and scale.device == dev, lambda: (
+        f"w8 / scale on {w8.device} / {scale.device}, x on {dev}"))
     sk, sn = w8.stride()
-    _check(sn == 1 or sk == 1, f"w8 strides {w8.stride()}: one of them "
-           "must be 1 ((K, N) weights or a transposed (N, K) table)")
+    _check(sn == 1 or sk == 1, lambda: (
+        f"w8 strides {w8.stride()}: one of them must be 1 ((K, N) weights "
+        "or a transposed (N, K) table)"))
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K)
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     M = x2.shape[0]
-    mb = _rows_per_block(M)
-    if sn != 1:      # transposed layout: the row block is staged as f32
-        kp = (K + 3) // 4 * 4
-        while mb > 1 and mb * kp * 4 > _ROWS_SMEM_MAX:
-            mb //= 2
-        _check(mb * kp * 4 <= _ROWS_SMEM_MAX,
-               f"K = {K} is too large for the transposed layout")
-    scale = scale.reshape(-1).contiguous()
+    if not scale.is_contiguous():
+        scale = scale.contiguous()
     y = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M * N == 0:
         return y.zero_().reshape(*lead, N)
-    fn = LIBRARY.load().int8_gemv_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            M, K, N, x2.stride(0), sk, sn, mb,
-            int(x2.dtype == torch.bfloat16), stream)
+    bf16 = x2.dtype == torch.bfloat16
+    rows_layout = sn != 1
+    n_sm = _N_SM.get(dev.index)
+    if n_sm is None:
+        n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    p = plan(M, K, N, rows_layout, bf16, n_sm)
+    if path is not None and path != p.path:
+        _check(path in ("splitk", "tc") and not rows_layout
+               and (path == "splitk" or bf16),
+               lambda: f"path {path} does not serve this call")
+        p = (_tc_plan(M, K, N, n_sm) if path == "tc"
+             else _splitk_plan(M, K, N))
+    _check(p.path != "rows" or rows_smem(p.mb, K) <= ROWS_SMEM_MAX,
+           lambda: f"K = {K} is too large for the transposed layout")
+    if _FNS is None:
+        lib = LIBRARY.load()
+        _FNS = (lib.int8_splitk_launch, lib.int8_rows_launch,
+                lib.int8_tc_launch)
+    args = (x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            M, K, N, x2.stride(0))
+    stream = cuda_stream(dev)
+    if p.path == "tc":
+        rc = _FNS[2](*args, sn if rows_layout else sk, int(rows_layout),
+                     p.bn, p.cs, stream)
+    elif p.path == "rows":
+        rc = _FNS[1](*args, sn, p.mb, p.sms, int(bf16), stream)
+    else:
+        rc = _FNS[0](*args, sk, p.mb, p.cs, int(bf16), stream)
     if rc != 0:
-        raise RuntimeError(f"int8 GEMV kernel launch failed: CUDA error {rc}")
-    global LAUNCHES
+        raise RuntimeError(f"int8 GEMV kernel launch failed ({p}): CUDA "
+                           f"error {rc}")
     LAUNCHES += 1
     return y.reshape(*lead, N)
 

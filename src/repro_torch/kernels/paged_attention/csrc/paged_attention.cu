@@ -19,15 +19,17 @@
 // for 512-row prefill chunks.
 //
 // What the design does about it: the block table is read inside the
-// kernel, one entry per key of the current 32-key tile, and K/V rows are
-// loaded from their physical page in place, so HBM carries only the
-// pages held (the reference's XLA path gathers the view into a resident
-// copy first, which reads and writes every byte once more). The kernel
-// body is `../../csrc/attention_partial.cuh`, shared with the resident
-// kernel: the logical keys are walked page by page in order, in the same
-// 32-key tiles with the same tile skipping, so the partials are bit for
-// bit those of `flash_attention.cu` on the gathered view. Element
-// offsets are computed in int64.
+// kernel, one entry per key of a 32-key tile (three tiles ahead of its
+// use), and K/V rows are copied from their physical page in place by
+// 16-byte `cp.async` once their offsets are known, so HBM carries only
+// the pages held (the reference's XLA path gathers the view into a
+// resident copy first, which reads and writes every byte once more). The
+// kernel body is `../../csrc/attention_partial.cuh`, shared with the
+// resident kernel: the logical keys are split over a cluster and walked
+// in the same 32-key tiles, split the same way, with the same tile
+// skipping and merge order, so the partials are bit for bit those of
+// `flash_attention.cu` on the gathered view. Element offsets are computed
+// in int64.
 //
 // The C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError().
@@ -41,7 +43,8 @@ extern "C" int paged_partial_launch(
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
     int64_t pos_sp, int64_t qpos_sb, int64_t bt_sb, float scale, int window,
-    int q_bf16, int kv_bf16, void* stream) {
+    int q_bf16, int kv_bf16, int n_split,
+    int span_tiles, void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -74,6 +77,8 @@ extern "C" int paged_partial_launch(
   p.mask_sb = 0;
   p.mask_st = 0;
   p.bt_sb = bt_sb;
+  p.n_split = n_split;
+  p.span_tiles = span_tiles;
   p.scale = scale;
   p.causal = 1;
   p.window = window;

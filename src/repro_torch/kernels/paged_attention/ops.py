@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CSRC, KernelLibrary
+from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
 from repro_torch.kernels.flash_attention import ops as fa
 
 #: kernel launches made by `paged_attend_partial` (a plain integer; reset
@@ -44,7 +44,8 @@ def _declare(lib):
                    + [i32] * 7          # B T G H n_view page_size D
                    + [i64] * 13         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 3          # window q_bf16 kv_bf16
+                   + [i32] * 5          # window q_bf16 kv_bf16
+                                        # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
 
@@ -84,8 +85,14 @@ def paged_attend_partial_plain(q, k, v, q_pos, page_pos, page_view, *,
 # =====================================================================
 
 def _check(cond, msg):
+    """Raise on a failed check; `msg` is a string or a callable that
+    builds it."""
     if not cond:
-        raise ValueError(f"paged-attention kernel: {msg}")
+        raise ValueError(f"paged-attention kernel: "
+                         f"{msg() if callable(msg) else msg}")
+
+
+_FN = None
 
 
 def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
@@ -93,39 +100,46 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
     P, ps = page_pos.shape
     Dv = v.shape[-1]
     dev = q.device
-    _check(Dk == Dv and Dk in fa.SUPPORTED_HEAD_DIMS,
-           f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
-           f"{fa.SUPPORTED_HEAD_DIMS}")
+    # (messages are built only when a check fails: this runs per call)
+    _check(Dk == Dv and Dk in fa.SUPPORTED_HEAD_DIMS, lambda: (
+        f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
+        f"{fa.SUPPORTED_HEAD_DIMS}"))
     _check(q.dtype in fa._KV_DTYPES and k.dtype in fa._KV_DTYPES
-           and v.dtype == k.dtype, f"dtypes q={q.dtype} k={k.dtype} "
-           f"v={v.dtype}; supported float32 / bfloat16, k and v alike")
-    _check(tuple(k.shape) == (P, ps, Hkv, Dk)
-           and tuple(v.shape) == (P, ps, Hkv, Dv), "k/v page shapes")
-    _check(ps > 0 and ps & (ps - 1) == 0, f"page size {ps} is not a power "
-           "of two")
-    _check(q.stride(-1) == 1 and k.stride(-1) == 1 and v.stride(-1) == 1,
+           and v.dtype == k.dtype, lambda: (
+               f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}; supported "
+               "float32 / bfloat16, k and v alike"))
+    _check(k.shape == (P, ps, Hkv, Dk) and v.shape == (P, ps, Hkv, Dv),
+           "k/v page shapes")
+    _check(ps > 0 and ps & (ps - 1) == 0,
+           lambda: f"page size {ps} is not a power of two")
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    _check(qs[4] == 1 and ks[3] == 1 and vs[3] == 1,
            "q, k and v need a contiguous last (head) dimension")
+    _check(fa.kv_aligned(k, ks) and fa.kv_aligned(v, vs), "k and v need "
+           "16-byte aligned rows (base and strides)")
     for name, t in (("k", k), ("v", v), ("q_pos", q_pos),
                     ("page_pos", page_pos), ("page_view", page_view)):
-        _check(t.device == dev, f"{name} is on {t.device}, q on {dev}")
-    _check(tuple(q_pos.shape) == (B, T), "q_pos must be (B, T)")
+        _check(t.device == dev, lambda: f"{name} is on {t.device}, q on "
+               f"{dev}")
+    _check(q_pos.shape == (B, T), "q_pos must be (B, T)")
     _check(page_view.dim() == 2 and page_view.shape[0] == B,
            "page_view must be (B, n_view)")
     nv = page_view.shape[1]
-    q_pos = q_pos.to(torch.int32).contiguous()
-    page_pos = page_pos.to(torch.int32).contiguous()
-    page_view = page_view.to(torch.int32).contiguous()
+    q_pos = fa.as_int32(q_pos)
+    page_pos = fa.as_int32(page_pos)
+    page_view = fa.as_int32(page_view)
 
-    acc = torch.empty((B, T, Hkv, G, Dv), dtype=torch.float32, device=dev)
-    m = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
-    l = torch.empty((B, T, Hkv, G), dtype=torch.float32, device=dev)
+    m, l, acc = fa.empty_partials((B, T, Hkv, G), Dv, dev)
     if B * T * G == 0 or nv == 0:
         return m.fill_(fa.NEG_INF), l.zero_(), acc.zero_()
 
-    fn = LIBRARY.load().paged_partial_launch
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    qs, ks, vs = q.stride(), k.stride(), v.stride()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+    global _FN, LAUNCHES
+    if _FN is None:
+        _FN = LIBRARY.load().paged_partial_launch
+    # the split of kernel 1 on the gathered view (S = n_view * ps), so
+    # both kernels sum the same tiles in the same order
+    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps)
+    rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             page_pos.data_ptr(), page_view.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(),
             B, T, G, Hkv, nv, ps, Dk,
@@ -133,11 +147,10 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
             vs[0], vs[1], vs[2], page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            stream)
+            n_split, span, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
-    global LAUNCHES
     LAUNCHES += 1
     return m, l, acc
 

@@ -62,13 +62,14 @@ def test_cuda_kernel_matches_plain(cuda, D, G, T, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M_", [1, 4, 8, 64])
+@pytest.mark.parametrize("M_", [1, 4, 8, 9, 24, 64, 512])
 @pytest.mark.parametrize("K,N", [(896, 128), (100, 4864), (37, 13)])
 def test_int8_gemv_matches_plain(cuda, M_, K, N, xdtype):
     """The int8 GEMV kernel against its plain version, for the dense
-    (K, N) layout and the transposed (N, K) table, aligned and not. The
-    same f32 products summed in another order: rtol = atol = 1e-4 on
-    outputs of O(1)."""
+    (K, N) layout and the transposed (N, K) table, aligned and not, on
+    every path (split-K, rows, wgmma from 8 bf16 rows). The same f32
+    products summed in another order: rtol = atol = 1e-4 on outputs of
+    O(1)."""
     gen = torch.Generator(device=cuda).manual_seed(M_ * K)
     w = torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5
     q = quantize.quantize_weight(w)
@@ -86,6 +87,186 @@ def test_int8_gemv_matches_plain(cuda, M_, K, N, xdtype):
         out = ig.int8_gemv(x, w8, sc)
         assert out.dtype == xdtype
         assert torch.equal(out, y32.to(xdtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows_layout", [False, True])
+@pytest.mark.parametrize("M_,K,N,wide", [
+    (77, 144, 208, 0), (77, 144, 200, 224), (130, 37, 13, 0),
+    (9, 100, 4864, 0), (200, 4864, 96, 0)])
+def test_int8_tensor_core_path_ragged(cuda, M_, K, N, wide, rows_layout):
+    """The wgmma path at ragged M, N and K: 16-byte aligned rows with a
+    partial last k tile and column tile (cp.async zero-fill), a column
+    slice of a wider weight (a partial 16-byte chunk), unaligned strides
+    (byte loads), and a long K. rtol = atol = 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(M_ + K + N)
+    w = torch.randn((K, wide or N), generator=gen, device=cuda) / K ** 0.5
+    q = quantize.quantize_weight(w)
+    w8, sc = q["w8"][:, :N], q["scale"][:, :N].contiguous()
+    if rows_layout:
+        w8 = q["w8"].t().contiguous()[:N].t()
+    x = torch.randn((M_, K), generator=gen, device=cuda).to(torch.bfloat16)
+    assert ig.plan(M_, K, N, rows_layout, True).path == "tc"
+    got = ig._launch(x, w8, sc)
+    torch.testing.assert_close(got, ig.int8_gemv_plain(x, w8, sc),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _int8_case(cuda, path):
+    """x, w8 and scale for one call of each kernel path: split-K in a
+    cluster of 16, the transposed table, wgmma."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    M_, K, N = {"splitk": (4, 896, 128), "rows": (4, 896, 4096),
+                "tc": (64, 896, 896)}[path]
+    w = torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5
+    q = quantize.quantize_weight(w)
+    w8, sc = q["w8"], q["scale"]
+    if path == "rows":
+        w8 = w8.t().contiguous().t()
+    x = torch.randn((M_, K), generator=gen, device=cuda).to(torch.bfloat16)
+    assert ig.plan(M_, K, N, path == "rows", True).path == path
+    return x, w8, sc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["splitk", "rows", "tc"])
+def test_int8_same_bits_in_graph_on_stream_and_twice(cuda, path):
+    """One launch per call, and the same output bits from the default
+    stream, a second run, a second stream and a CUDA graph replay (no
+    atomics, sums in a fixed order, no state kept between calls)."""
+    x, w8, sc = _int8_case(cuda, path)
+    before = ig.LAUNCHES
+    ref = ig._launch(x, w8, sc)
+    assert ig.LAUNCHES == before + 1
+    assert torch.equal(ig._launch(x, w8, sc), ref)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = ig._launch(x, w8, sc)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(on_side, ref)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = ig._launch(x, w8, sc)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, ref)
+
+
+def _split_case(cuda, case, dtype):
+    """Kernel 1 inputs at the split's edges (see the test below)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, T, H, G, D, P = 4, 1, 2, 7, 64, 6
+    S = 1024 if case == "sixteen_splits" else 300
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    k = torch.randn((P, S, H, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((P, S, H, D), generator=gen, device=cuda).to(dtype)
+    lens = [250, 37, 0, 290]                      # slot 3 holds no key
+    kpos = torch.full((P, S), -1, dtype=torch.int32, device=cuda)
+    for slot, n in zip((1, 2, 3, 4), lens):
+        kpos[slot, :n] = torch.arange(n, dtype=torch.int32, device=cuda)
+    slot_idx = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    qpos = torch.tensor([[max(n - 1, 0)] for n in lens], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(scale=D ** -0.5, slot_idx=slot_idx)
+    if case == "window":
+        kw["window"] = 40                 # empties all splits but one
+    if case == "tree_mask":
+        kw["mask"] = torch.rand((B, T, S), generator=gen, device=cuda) < 0.5
+    return (q, k, v, qpos, kpos), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "window", "tree_mask",
+                                  "sixteen_splits"])
+def test_kernel1_split_edges_match_plain_and_repeat(cuda, case, dtype):
+    """Kernel 1 where the split-K plan cuts: S = 300 (10 tiles over 8
+    splits: trailing splits empty), a request with no keys (l = 0), a
+    window that empties whole splits, a tree mask, and 16 splits over
+    S = 1024 (a non-portable cluster). Within 1e-4 of the plain version,
+    and the same bits on a second run."""
+    args, kw = _split_case(cuda, case, dtype)
+    B, T, H, G, _ = args[0].shape
+    n, _ = fa.plan_splits(B, H, T * G, args[1].shape[1])
+    assert n == (16 if case == "sixteen_splits" else 8)
+    got = fa.attend_partial(*args, **kw)
+    want = fa.attend_partial_plain(*args, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    assert float(got[1][2].abs().max()) == 0.0      # no keys: l = 0
+    again = fa.attend_partial(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,G,H", [(1, 7, 2), (10, 1, 20), (6, 4, 8)])
+def test_kernel1_bits_do_not_depend_on_capacity(cuda, T, G, H, dtype):
+    """A slot pool of 1024 keys and a 128-key copy of the same keys give
+    kernel 1 the same bits: the span of the key split comes from the
+    grid, and blocks past the live keys merge in as exact no-ops. The
+    paged pool's streams equal the resident pool's by this (phase C)."""
+    gen = torch.Generator(device=cuda).manual_seed(T * G)
+    B, D, S = 4, 64, 1024
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    k = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
+    lens = [100, 128 - T, 1, 60]
+    kpos = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lens):
+        kpos[b, :n + T] = torch.arange(n + T, dtype=torch.int32, device=cuda)
+    qpos = torch.tensor([[n + t for t in range(T)] for n in lens],
+                        dtype=torch.int32, device=cuda)
+    full = fa.attend_partial(q, k, v, qpos, kpos, scale=D ** -0.5)
+    short = fa.attend_partial(q, k[:, :128].contiguous(),
+                              v[:, :128].contiguous(), qpos,
+                              kpos[:, :128].contiguous(), scale=D ** -0.5)
+    assert fa.plan_splits(B, H, T * G, S)[0] > fa.plan_splits(
+        B, H, T * G, 128)[0]
+    for a, b in zip(full, short):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps,nv,T,G", [(16, 3, 1, 7), (16, 64, 1, 7),
+                                       (64, 16, 6, 4), (128, 8, 10, 1)])
+def test_paged_kernel_bitwise_kernel1_at_split_shapes(cuda, ps, nv, T, G):
+    """The paged kernel splits the logical keys as kernel 1 does on the
+    gathered view (S = n_view * page_size, 48 keys to 1024), so their
+    partials are equal bit for bit, and so are two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(ps * nv)
+    B, H, D = 4, 2, 64
+    S = nv * ps
+    lens = [S, S // 2 + 3, 5, 0]
+    P = 2 + sum(-(-n // ps) for n in lens) + 2
+    k = torch.randn((P, ps, H, D), generator=gen, device=cuda)
+    v = torch.randn((P, ps, H, D), generator=gen, device=cuda)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    tbl = torch.ones((B, nv), dtype=torch.int32, device=cuda)
+    free = (torch.randperm(P - 2, generator=torch.Generator().manual_seed(1))
+            + 2).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            page = free.pop()
+            cnt = min(ps, n - j * ps)
+            pos[page, :cnt] = j * ps + torch.arange(cnt, dtype=torch.int32,
+                                                    device=cuda)
+            tbl[b, j] = page
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qp = torch.tensor([[max(n - T + t, 0) for t in range(T)] for n in lens],
+                      dtype=torch.int32, device=cuda)
+    got = pa.paged_attend_partial(q, k, v, qp, pos, tbl, scale=D ** -0.5)
+    k1 = fa.attend_partial(q, pa.gather_view(k, tbl), pa.gather_view(v, tbl),
+                           qp, pa.gather_view(pos, tbl), scale=D ** -0.5)
+    again = pa.paged_attend_partial(q, k, v, qp, pos, tbl, scale=D ** -0.5)
+    for a, b, c in zip(got, k1, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    want = pa.paged_attend_partial_plain(q, k, v, qp, pos, tbl,
+                                         scale=D ** -0.5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -214,3 +214,141 @@ def test_wrapper_reads_model_layout_views():
     _close(acc.permute(0, 2, 1, 3, 4).reshape(B, H, T * G, D), acc2, 1e-6)
     _close(m.permute(0, 2, 1, 3).reshape(B, H, T * G), m2, 1e-6)
     _close(l.permute(0, 2, 1, 3).reshape(B, H, T * G), l2, 1e-6)
+
+
+# the kernel's split-K plan: (B, Hkv, R, S) at the serving shapes (qwen
+# drafter decode, target cache pass, segment pass, prefill; jamba decode
+# and chain verification) and at ragged edges
+SPLIT_SHAPES = [(4, 2, 7, 1024), (4, 20, 10, 1024), (4, 20, 10, 10),
+                (1, 20, 512, 1024), (4, 8, 4, 1024), (4, 8, 24, 1024),
+                (1, 1, 7, 300), (3, 2, 80, 2048), (2, 1, 1, 16), (1, 1, 1, 1),
+                (5, 3, 33, 999)]
+
+
+@pytest.mark.parametrize("B,H,R,S", SPLIT_SHAPES)
+def test_split_plan_covers_every_key_tile_once(B, H, R, S):
+    """The blocks of a cluster walk spans of whole 32-key tiles, in rank
+    order, that cover the S logical keys exactly once, as the kernel
+    numbers them (rank r's i-th tile is (r + n (i // span)) span +
+    i % span); the span comes from the grid alone, never from S, and
+    meets the block target at the reference capacity unless the cluster
+    limit stops it."""
+    n, span = fa.plan_splits(B, H, R, S)
+    assert 1 <= n <= fa.MAX_SPLIT and n & (n - 1) == 0 and span >= 1
+    assert span == fa.plan_splits(B, H, R, 4 * S + 7)[1]
+    n_tiles = -(-S // fa.KEY_TILE)
+    ranges = fa.split_ranges(S, n, span)
+    assert len(ranges) == n
+    tiles = []
+    for r, keys in enumerate(ranges):
+        mine = [t for lo, hi in keys
+                for t in range(lo // fa.KEY_TILE, -(-hi // fa.KEY_TILE))]
+        assert all(lo % fa.KEY_TILE == 0 and lo < hi for lo, hi in keys)
+        assert mine == [(r + n * (i // span)) * span + i % span
+                        for i in range(len(mine))]
+        tiles += mine
+    assert sorted(tiles) == list(range(n_tiles))
+    n_ref = fa.SPLIT_REF_KEYS // fa.KEY_TILE // span
+    assert (B * H * -(-R // fa.ROW_TILE) * n_ref >= fa.SPLIT_TARGET_BLOCKS
+            or n_ref >= fa.MAX_SPLIT)
+
+
+def test_attention_kernel_smem_in_budget():
+    """Every instantiation's shared memory fits a block on the H100."""
+    for D in fa.SUPPORTED_HEAD_DIMS:
+        for size in (2, 4):
+            for paged in (False, True):
+                assert fa.kernel_smem(D, size, paged) <= 227 * 1024
+
+
+def _split_merged(q, k, v, qpos, kpos, mask, scale, window, slot_idx):
+    """The plain version over each block's keys (its spans in order),
+    merged in rank order with `merge_two`: the kernel's arithmetic."""
+    B, T, H, G, _ = q.shape
+    S = k.shape[1]
+    n, span = fa.plan_splits(B, H, T * G, S)
+    state = None
+    for keys in fa.split_ranges(S, n, span):
+        idx = torch.cat([torch.arange(lo, hi) for lo, hi in keys]
+                        or [torch.zeros(0, dtype=torch.long)])
+        part = fa.attend_partial_plain(
+            q, k[:, idx], v[:, idx], qpos, kpos[:, idx], scale=scale,
+            window=window, slot_idx=slot_idx, block=fa.KEY_TILE,
+            mask=None if mask is None else mask[:, :, idx])
+        state = part if state is None else fa.merge_two(state, part)
+    return n, state
+
+
+@pytest.mark.parametrize("window,with_mask", [(0, False), (40, False),
+                                              (0, True)])
+def test_split_merge_equals_unsplit_plain(window, with_mask):
+    """Split ranges merged in rank order equal the unsplit plain version
+    within 1e-6 (f32 summation order): a slot pool with an empty slot
+    (l = 0), a window that empties whole splits, a tree-like mask, S not
+    a multiple of the split."""
+    B, T, H, G, D, P, S = 3, 2, 2, 3, 16, 4, 300
+    q = torch.tensor(_np(1, (B, T, H, G, D)))
+    k = torch.tensor(_np(2, (P, S, H, D)))
+    v = torch.tensor(_np(3, (P, S, H, D)))
+    kpos = np.where(np.arange(S) < 250, np.arange(S), -1)[None].repeat(P, 0)
+    kpos[2] = -1
+    kpos = torch.tensor(kpos.astype(np.int32))
+    qpos = torch.tensor(np.array([[240, 241]] * B, np.int32))
+    slot_idx = torch.tensor([3, 2, 0], dtype=torch.int32)
+    mask = (torch.tensor(np.random.default_rng(4).random((B, T, S)) < 0.7)
+            if with_mask else None)
+    n, got = _split_merged(q, k, v, qpos, kpos, mask, 0.25, window,
+                           slot_idx)
+    assert n == 8
+    want = fa.attend_partial_plain(q, k, v, qpos, kpos, scale=0.25,
+                                   window=window, slot_idx=slot_idx,
+                                   block=fa.KEY_TILE, mask=mask)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-6)
+    assert float(got[1][1].abs().max()) == 0.0      # slot 2 is empty: l = 0
+
+
+def test_split_merge_matches_pallas_interpret():
+    """The split-and-merge arithmetic against the JAX package's Pallas
+    kernel (interpret mode) over all keys, normalised by
+    `merge_partials`: the kernel's tolerance, 1e-4."""
+    B, H, R, S, D = 2, 2, 6, 200, 16
+    qn = _np(1, (B, H, R, D))
+    kn, vn = _np(2, (B, H, S, D)), _np(3, (B, H, S, D))
+    kpos = np.where(np.arange(S) < 190, np.arange(S), -1)
+    kpos = np.broadcast_to(kpos, (B, S)).astype(np.int32).copy()
+    qpos = np.full((B, R), 189, np.int32)
+    acc_j, m_j, l_j = jax_partial(
+        jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(qpos),
+        jnp.asarray(kpos), scale=0.25, causal=True, block_q=8, block_k=16,
+        interpret=True)
+    out_j = jax_merge([(acc_j, m_j, l_j)])
+    # the kernel layout (B, Hkv, R, D) as the port's (B, T=R, Hkv, G=1, D)
+    qt = torch.tensor(qn).permute(0, 2, 1, 3).unsqueeze(3)
+    n, (m, l, acc) = _split_merged(qt, torch.tensor(kn).permute(0, 2, 1, 3),
+                              torch.tensor(vn).permute(0, 2, 1, 3),
+                              torch.tensor(qpos), torch.tensor(kpos), None,
+                              0.25, 0, None)
+    out_t = fa.finalize((m, l, acc))[:, :, :, 0].permute(0, 2, 1, 3)
+    assert n == 4
+    _close(out_t, out_j, 1e-4)
+
+
+def test_split_merge_bits_do_not_depend_on_capacity():
+    """A slot pool of 1024 keys and a 128-key view holding the same keys
+    (as a page pool's gathered view does) give the same bits: the span is
+    the same, and the extra blocks hold no live key, which the merge
+    passes through exactly. Phase C's streams equal phase A's by this."""
+    B, T, H, G, D, S = 1, 1, 1, 7, 16, 1024
+    q = torch.tensor(_np(1, (B, T, H, G, D)))
+    k = torch.tensor(_np(2, (B, S, H, D)))
+    v = torch.tensor(_np(3, (B, S, H, D)))
+    kpos = torch.tensor(np.where(np.arange(S) < 100, np.arange(S), -1)
+                        [None].astype(np.int32))
+    qpos = torch.tensor([[99]], dtype=torch.int32)
+    n1, full = _split_merged(q, k, v, qpos, kpos, None, 0.25, 0, None)
+    n2, view = _split_merged(q, k[:, :128], v[:, :128], qpos, kpos[:, :128],
+                             None, 0.25, 0, None)
+    assert (n1, n2) == (16, 2)
+    for a, b in zip(full, view):
+        assert torch.equal(a, b)

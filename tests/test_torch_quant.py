@@ -288,3 +288,62 @@ def test_mixed_pool_greedy_exact_and_equal_to_jax(mixed, strategy):
     assert t_iters == j_iters
     assert t_stats.total_committed == j_stats.total_committed
     assert t_stats.mean_acceptance > 1.0
+
+
+# ------------------------------------------------- the kernel's path plan
+
+INT8_PLAN_SHAPES = [(4, 896, 128), (4, 896, 896), (4, 896, 4864),
+                    (4, 4864, 896), (1, 37, 13), (8, 100, 4864),
+                    (24, 896, 896), (512, 896, 4864), (4, 896, 151936),
+                    (512, 896, 151936), (64, 37, 13), (77, 144, 208),
+                    (3, 5000, 7), (9, 64, 64)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rows_layout", [False, True])
+@pytest.mark.parametrize("M,K,N", INT8_PLAN_SHAPES)
+def test_int8_plan_covers_every_row_and_column_once(M, K, N, rows_layout,
+                                                    bf16):
+    """The path comes from the shapes alone: wgmma for bf16 x from
+    TC_MIN_ROWS rows, else the rows kernel for the transposed table and
+    split-K for the dense layout. The cluster ranks of split-K (rows of
+    K) and of wgmma (k-tiles) cut K into contiguous ranges read once each,
+    each long enough but the last, and every path's shared memory fits a
+    block."""
+    p = ig.plan(M, K, N, rows_layout, bf16)
+    assert ig.plan_smem(p, K) <= ig.SMEM_LIMIT
+    if bf16 and M >= ig.TC_MIN_ROWS:
+        assert p.path == "tc" and p.bn in (64, 128)
+        assert p.cs in ig.CLUSTER_SIZES
+        ranges = ig.tc_ranges(K, p.cs)
+        assert ranges[0][0] == 0 and ranges[-1][1] == -(-K // ig.TC_BK)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        if p.cs > 1:       # all but the last non-empty rank
+            full = [hi - lo for lo, hi in ranges if hi > lo][:-1]
+            assert all(n >= ig.TC_MIN_KTILES for n in full)
+        return
+    assert p.mb in (1, 2, 4, 8) and p.mb <= max(1, 2 * min(M, 8) - 1)
+    if rows_layout:
+        assert p.path == "rows" and p.sms > 0
+        assert ig.rows_smem(p.mb, K) <= ig.ROWS_SMEM_MAX
+        return
+    assert p.path == "splitk"
+    assert p.cs in ig.CLUSTER_SIZES
+    ranges = ig.splitk_ranges(K, p.cs)
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    if p.cs > 1:           # all but the last non-empty rank
+        full = [hi - lo for lo, hi in ranges if hi > lo][:-1]
+        assert all(n >= ig.SPLITK_MIN_ROWS for n in full)
+
+
+@pytest.mark.parametrize("K,N", [(896, 128), (896, 896), (896, 4864),
+                                 (4864, 896)])
+def test_int8_decode_products_fill_the_card(K, N):
+    """Every decode product of qwen2-0.5b (4 rows) launches at least
+    SPLITK_TARGET_BLOCKS blocks of the split-K path, no rank reading
+    more than SPLITK_MAX_ROWS rows."""
+    p = ig.plan(4, K, N, False, True)
+    assert p.path == "splitk"
+    assert -(-N // ig.SPLITK_TN) * p.cs >= ig.SPLITK_TARGET_BLOCKS
+    assert -(-K // p.cs) <= ig.SPLITK_MAX_ROWS
