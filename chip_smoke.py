@@ -10,10 +10,10 @@ in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
 function, that call as a yardstick; the int8 GEMV after phase D, at the
-row counts phase D gave it, with its split-K and wgmma paths side by side
-at 8-32 rows; the host cost of one call of the attention and int8
-wrappers), then serves the CoSine path end to end through
-`SpeculativeEngine.submit/run`:
+row counts phase D gave it, with its CUDA-core paths (split-K, and the
+rows kernel for the head) and wgmma side by side at 4-64 rows; the host
+cost of one call of the attention and int8 wrappers), then serves the
+CoSine path end to end through `SpeculativeEngine.submit/run`:
 
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
@@ -524,8 +524,8 @@ def _host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-# int8 launches of phase D by rows: decode (<= 8 rows: the split-K and
-# rows kernels), extend / commit (9-63 rows) and prefill (>= 64 rows)
+# int8 launches of phase D by rows: decode (<= 8 rows), extend / commit
+# (9-63 rows) and prefill (>= 64 rows)
 def int8_row_class(m: int) -> str:
     return "decode" if m <= 8 else "extend" if m < 64 else "prefill"
 
@@ -536,9 +536,10 @@ def int8_kernel_phase(torch, ig, quantize, row_counts):
     the row counts phase D gives them (decode, its most frequent extend
     count, a 512-row prefill chunk), against its plain version, and the
     model's wrapper `int8_gemv` against the kernel's f32 output cast to
-    bf16 (bit for bit); then the split-K and wgmma paths side by side at
-    8-32 rows, and the host cost of one quantized product against one
-    full-precision product. Returns (rows, crossover, host)."""
+    bf16 (bit for bit); then split-K (dense) or the rows kernel (head)
+    and wgmma side by side at 4-32 rows (the head to 64), and the host
+    cost of one quantized product against one full-precision product.
+    Returns (rows, crossover, host)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     V = 151936
@@ -604,26 +605,37 @@ def int8_kernel_phase(torch, ig, quantize, row_counts):
                   f"bound {bound:.4f} ms ({by})  bf16 matmul {lib_ms:.4f} ms",
                   flush=True)
 
-    # split-K (CUDA cores) against wgmma where they meet: TC_MIN_ROWS
+    # the CUDA-core paths against wgmma where they meet (TC_MIN_ROWS):
+    # each plan launched through `launch_plan`, whichever one `plan`
+    # would pick
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     crossover = []
-    for c in products[:3]:
-        for M_ in (8, 16, 24, 32):
-            x = torch.randn((M_, c["K"]), generator=gen,
+    for c in products:
+        K, N = c["K"], c["N"]
+        table = c["w8"].stride(1) != 1
+        counts = (4, 5, 6, 7, 8, 16, 32) + ((64,) if table else ())
+        for M_ in counts:
+            x = torch.randn((M_, K), generator=gen,
                             device="cuda").to(torch.bfloat16)
+            scale = c["scale"].contiguous()
+            want = ig.int8_gemv_plain(x, c["w8"], scale)
+            plans = (ig.rows_plan(M_, K, n_sm) if table
+                     else ig.splitk_plan(M_, K, N), ig.tc_plan(M_, K, N, n_sm))
             t = {}
-            for path in ("splitk", "tc"):
-                got = ig._launch(x, c["w8"], c["scale"], path=path)
-                want = ig.int8_gemv_plain(x, c["w8"], c["scale"])
+            for p in plans:
+                got = ig.launch_plan(x, c["w8"], scale, p)
                 if not torch.allclose(got, want, rtol=INT8_TOL,
                                       atol=INT8_TOL):
-                    fail(f"int8 crossover {c['what']} M{M_} {path}: "
+                    fail(f"int8 crossover {c['what']} M{M_} {p.path}: "
                          "outside the tolerance")
-                t[path] = _graph_ms(torch, lambda: ig._launch(
-                    x, c["w8"], c["scale"], path=path))
-            crossover.append(dict(what=c["what"], M=M_, K=c["K"], N=c["N"],
-                                  splitk_ms=t["splitk"], tc_ms=t["tc"]))
-            print(f"int8 crossover {c['what']} M{M_}: split-K "
-                  f"{t['splitk']:.4f} ms  wgmma {t['tc']:.4f} ms", flush=True)
+                t[p.path] = _graph_ms(torch, lambda: ig.launch_plan(
+                    x, c["w8"], scale, p))
+            core = plans[0].path
+            crossover.append(dict(what=c["what"], M=M_, K=K, N=N,
+                                  core_path=core, core_ms=t[core],
+                                  tc_ms=t["tc"]))
+            print(f"int8 crossover {c['what']} M{M_}: {core} "
+                  f"{t[core]:.4f} ms  wgmma {t['tc']:.4f} ms", flush=True)
 
     # host cost of one product as the model calls it (quantize.qdot): the
     # int8 drafter's against the full-precision drafter's f32 weight

@@ -11,6 +11,8 @@ concurrent first uses cannot load a half-written file.
 `build_all` starts one `nvcc` per kernel at once and waits for all of
 them, so a process that needs every kernel pays for the slowest build,
 not for their sum. `cuda_stream` is the wrappers' launch stream.
+`smem_report.cuh` (in `csrc/`) gives the tests each compiled kernel's
+shared memory.
 """
 from __future__ import annotations
 
@@ -41,20 +43,18 @@ def _nvcc() -> str:
     return found
 
 
-_raw_stream = None
+#: the most shared memory (static and dynamic) one block may have on the
+#: H100, its opt-in limit; the `gpu` tests hold it and every kernel's
+#: size against the device
+SMEM_LIMIT = 227 * 1024
 
 
 def cuda_stream(dev) -> int:
-    """The current CUDA stream of `dev` as an int, for a launch: the raw
-    lookup where this PyTorch build has it (no Stream object per call)."""
-    global _raw_stream
+    """The current CUDA stream of `dev` (a CUDA tensor's device, so its
+    index is set) as an int, for a launch: the raw handle, with no Stream
+    object built per call."""
     import torch
-    if _raw_stream is None:
-        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", False)
-    if _raw_stream:
-        return _raw_stream(dev.index if dev.index is not None
-                           else torch.cuda.current_device())
-    return torch.cuda.current_stream(dev).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 class KernelLibrary:

@@ -72,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "smem_report.cuh"
+
 namespace attn_partial {
 
 namespace cg = cooperative_groups;
@@ -580,6 +582,38 @@ int dispatch(const Params& p, int B, int D, int q_bf16, int kv_bf16,
     case 128: return dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv_bf16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int D, typename QT, bool PAGED>
+int smem_of(int kv_bf16, int* dynamic, int* static_bytes, int* limit) {
+  return kv_bf16
+             ? smem_report(partial_kernel<D, QT, __nv_bfloat16, PAGED>,
+                           kv_smem_bytes<D, __nv_bfloat16>(), dynamic,
+                           static_bytes, limit)
+             : smem_report(partial_kernel<D, QT, float, PAGED>,
+                           kv_smem_bytes<D, float>(), dynamic, static_bytes,
+                           limit);
+}
+
+// Shared memory of the instantiation for head dim D and these dtypes (see
+// smem_report.cuh).
+template <bool PAGED>
+int smem(int D, int q_bf16, int kv_bf16, int* dynamic, int* static_bytes,
+         int* limit) {
+#define D_CASE(D_)                                                         \
+  case D_:                                                                 \
+    return q_bf16 ? smem_of<D_, __nv_bfloat16, PAGED>(kv_bf16, dynamic,    \
+                                                     static_bytes, limit) \
+                  : smem_of<D_, float, PAGED>(kv_bf16, dynamic,            \
+                                              static_bytes, limit);
+  switch (D) {
+    D_CASE(16)
+    D_CASE(32)
+    D_CASE(64)
+    D_CASE(128)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef D_CASE
 }
 
 }  // namespace attn_partial

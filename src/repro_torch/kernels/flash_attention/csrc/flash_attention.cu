@@ -92,3 +92,10 @@ extern "C" int fa_partial_launch(
   return attn_partial::dispatch<false>(p, B, D, q_bf16, kv_bf16,
                                        static_cast<cudaStream_t>(stream));
 }
+
+// Shared memory of the instantiation for head dim D (for the tests).
+extern "C" int fa_smem(int D, int q_bf16, int kv_bf16, int* dynamic,
+                       int* static_bytes, int* limit) {
+  return attn_partial::smem<false>(D, q_bf16, kv_bf16, dynamic,
+                                   static_bytes, limit);
+}

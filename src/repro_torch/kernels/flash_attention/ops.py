@@ -68,13 +68,23 @@ def _declare(lib):
                                         # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
+    declare_smem(lib.fa_smem)
+
+
+def declare_smem(fn):
+    """Types of a library's shared-memory report: (D, q_bf16, kv_bf16,
+    *dynamic, *static, *limit) -> CUDA error."""
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int] * 3 + [ip] * 3
+    fn.restype = ctypes.c_int
 
 
 #: the kernel's source and built library (`csrc/flash_attention.cu`)
 LIBRARY = KernelLibrary(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    headers=[CSRC / "attention_partial.cuh"], declare=_declare)
+    headers=[CSRC / "attention_partial.cuh", CSRC / "smem_report.cuh"],
+    declare=_declare)
 
 
 # =====================================================================
@@ -168,12 +178,13 @@ def plan_splits(B: int, H: int, R: int, S: int):
     return n, span
 
 
-def kernel_smem(D: int, kv_element_size: int, paged: bool) -> int:
-    """Shared memory of one block: the double-buffered K/V tiles (dynamic)
-    and the key metadata, probabilities and merge rows (static)."""
-    dynamic = 2 * 2 * KEY_TILE * D * kv_element_size
-    meta = 3 * KEY_TILE * (4 + (2 * 8 if paged else 0))   # pos, offsets
-    return dynamic + meta + ROW_TILE * KEY_TILE * 4 + 2 * ROW_TILE * 4
+def kernel_smem(D: int, kv_element_size: int) -> int:
+    """Dynamic shared memory of one block: the double-buffered K/V tiles,
+    reused for the merge's (ROW_TILE, D) f32 rows. (Static shared memory
+    is known only from the compiled kernel: the `gpu` tests hold this
+    against the kernels' request and the sum of both against the
+    device's limit.)"""
+    return 2 * 2 * KEY_TILE * D * kv_element_size
 
 
 def split_ranges(S: int, n_split: int, span_tiles: int):

@@ -17,7 +17,7 @@
 // source serves any M through three paths, picked by the wrapper
 // (`ops.py::plan`) from the shapes alone:
 //
-// 1. `splitk_kernel` — few rows (M < 8, or f32 x), cols layout. Bound by
+// 1. `splitk_kernel` — few rows (M < 5, or f32 x), cols layout. Bound by
 //    the weight bytes over 3.35 TB/s, but at decode a 128- or 896-column
 //    product is too small to fill 132 SMs when a block owns a column tile
 //    over all of K, and launch plus load latency set the time. So a block
@@ -48,7 +48,7 @@
 //    is the blocks that fit on the SMs at once, striding over the
 //    columns, so x is staged a few hundred times, not once per 128
 //    columns. Each column's sum is a fixed butterfly over its half-warp.
-// 3. `tc_kernel` — bf16 x with M >= 8 (drafter prefill and extend), either
+// 3. `tc_kernel` — bf16 x with M >= 5 (drafter prefill and extend), either
 //    layout: tensor cores. Bound at 512 rows by the operations (bf16
 //    dense 989 TFLOP/s), where CUDA-core f32 FMAs re-reading each weight
 //    tile per 8-row block were 60x slower than a bf16 matmul. A block
@@ -69,16 +69,18 @@
 //    only the summation order differs from the plain version. wgmma (not
 //    the `mma.sync` fallback design) landed.
 //
-// Crossover between paths 1 and 3 at bf16 x: see `ops.py::TC_MIN_ROWS`
+// Crossover between paths 1 or 2 and 3 at bf16 x: see `ops.py::TC_MIN_ROWS`
 // (measured by `chip_smoke.py`).
 //
 // The C entry points launch on the caller's stream, allocate nothing and
-// return cudaGetLastError().
+// return cudaGetLastError(); `int8_smem` reports a path's shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "../../csrc/smem_report.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -339,6 +341,10 @@ constexpr int RW_CPL = 8;        // columns per lane (and per half-warp)
 constexpr int RW_U = 1;          // 16-byte chunks per column in flight
 constexpr int RW_CPB = (RW_THREADS / 32) * 2 * RW_CPL;   // 128 per block pass
 constexpr int RW_SMEM_MAX = 200 * 1024;
+
+constexpr int rows_smem(int mb, int K) {
+  return mb * ((K + 15) & ~15) * 4;   // x rows [mb][Kp] f32
+}
 
 // w8 element (k, n) at n * sn + k. x rows [m0, m0 + MB) staged as f32;
 // warp w of block b owns columns (b * 8 + w + i * gridDim.x * 8) * 16 +
@@ -767,7 +773,7 @@ template <int MB, typename XT>
 int launch_rows(const XT* x, const int8_t* w, const float* scale, float* y,
                 int M, int K, int N, int64_t sx, int64_t sn, int vec,
                 int n_sm, cudaStream_t stream) {
-  const int smem = MB * ((K + 15) & ~15) * 4;
+  const int smem = rows_smem(MB, K);
   if (smem > RW_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   static bool done = false;
   configure(rows_kernel<MB, XT>, RW_SMEM_MAX, done);
@@ -898,5 +904,64 @@ extern "C" int int8_tc_launch(const void* x, const void* w8,
   if (bn == 64) TC(64);
   if (bn == 128) TC(128);
 #undef TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+template <int MB>
+int splitk_report(int x_bf16, int* dynamic, int* static_bytes, int* limit) {
+  const int bytes = static_cast<int>(splitk_smem(MB));
+  return x_bf16 ? smem_report(splitk_kernel<MB, __nv_bfloat16>, bytes,
+                              dynamic, static_bytes, limit)
+                : smem_report(splitk_kernel<MB, float>, bytes, dynamic,
+                              static_bytes, limit);
+}
+
+template <int MB>
+int rows_report(int x_bf16, int K, int* dynamic, int* static_bytes,
+                int* limit) {
+  const int bytes = rows_smem(MB, K);
+  return x_bf16 ? smem_report(rows_kernel<MB, __nv_bfloat16>, bytes,
+                              dynamic, static_bytes, limit)
+                : smem_report(rows_kernel<MB, float>, bytes, dynamic,
+                              static_bytes, limit);
+}
+
+template <int BN>
+int tc_report(int rows, int* dynamic, int* static_bytes, int* limit) {
+  return rows ? smem_report(tc_kernel<BN, true>, TcSmem<BN>::TOTAL, dynamic,
+                            static_bytes, limit)
+              : smem_report(tc_kernel<BN, false>, TcSmem<BN>::TOTAL,
+                            dynamic, static_bytes, limit);
+}
+
+}  // namespace
+
+// Shared memory of one path's kernel: the dynamic bytes its launcher asks
+// for, the static bytes it declares, the device's limit per block. path
+// 0 split-K (param = mb, variant = x_bf16), 1 rows (param = mb, variant
+// = x_bf16; dynamic bytes at this K), 2 wgmma (param = bn, variant = 1
+// for the rows layout).
+extern "C" int int8_smem(int path, int param, int variant, int K,
+                         int* dynamic, int* static_bytes, int* limit) {
+  if (path == 2 && param == 64)
+    return tc_report<64>(variant, dynamic, static_bytes, limit);
+  if (path == 2 && param == 128)
+    return tc_report<128>(variant, dynamic, static_bytes, limit);
+#define MB_CASE(MB_)                                                     \
+  case MB_:                                                              \
+    if (path == 0)                                                       \
+      return splitk_report<MB_>(variant, dynamic, static_bytes, limit);  \
+    if (path == 1)                                                       \
+      return rows_report<MB_>(variant, K, dynamic, static_bytes, limit); \
+    break;
+  switch (param) {
+    MB_CASE(1)
+    MB_CASE(2)
+    MB_CASE(4)
+    MB_CASE(8)
+  }
+#undef MB_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

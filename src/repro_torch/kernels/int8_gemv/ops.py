@@ -14,7 +14,8 @@ for any number of rows, or raises; on a CPU tensor it runs
 `int8_gemv_plain`. `plan` picks the kernel path from the shapes alone
 (no host sync): split-K over a thread-block cluster for few rows of the
 dense layout, a streaming pass for the transposed table, tensor cores
-(`wgmma`) for bf16 x with many rows.
+(`wgmma`) for bf16 x with many rows. `launch_plan` launches one given
+plan; `chip_smoke.py` times the paths against each other through it.
 """
 from __future__ import annotations
 
@@ -25,16 +26,21 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, cuda_stream
+from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
-#: bf16 x with at least this many rows runs on tensor cores; fewer rows
-#: (decode) run the split-K CUDA-core path. Measured by `chip_smoke.py`
-#: (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6): at 8 rows wgmma is 1.25x
-#: (wq/wo) and 1.6x (wg/wu) faster and even on wk/wv; at 16-32 rows split-K
-#: wins only on the 128-column wk/wv, by under 15 %.
-TC_MIN_ROWS = 8
+#: bf16 x with at least this many rows runs on tensor cores (wgmma), in
+#: either layout; fewer rows (decode) run the CUDA-core paths: split-K for
+#: the dense layout, the rows kernel for the transposed head table.
+#: Measured by `chip_smoke.py`'s crossover (NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md §6): at 4 rows the CUDA-core paths are within 2 % of wgmma or
+#: faster (wg/wu 0.0097 against 0.0126 ms, the head 0.0822 against
+#: 0.1183); from 5 rows they run 8-row blocks and wgmma is faster on every
+#: product (the head 0.1168 against 0.1432 ms, wg/wu 0.0125 against
+#: 0.0197), but for the 128-column wk/wv, where the two stay within 13 %
+#: of each other up to 32 rows.
+TC_MIN_ROWS = 5
 #: the split-K plan aims at this many blocks (132 SMs on the H100)...
 SPLITK_TARGET_BLOCKS = 96
 #: ... and at most this many rows of K per cluster rank (a thread reads
@@ -58,8 +64,6 @@ TC_BM, TC_BK, TC_STAGES = 64, 64, 3
 #: the wgmma plan splits K over a cluster until it has this many blocks,
 #: each rank keeping at least TC_MIN_KTILES k-tiles
 TC_TARGET_BLOCKS, TC_MIN_KTILES = 192, 2
-#: the most dynamic shared memory a block may ask for on the H100
-SMEM_LIMIT = 227 * 1024
 
 #: kernel launches made by `int8_gemv` (a plain integer; reset it to 0
 #: before a run whose launches should be counted)
@@ -77,15 +81,17 @@ def _declare(lib):
     lib.int8_tc_launch.argtypes = (
         [vp] * 4 + [i32] * 3 + [i64] * 2      # x w8 scale y, M K N, sx sw
         + [i32] * 3 + [vp])                   # rows bn cs, stream
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.int8_smem.argtypes = [i32] * 4 + [ip] * 3   # path param variant K
     for fn in (lib.int8_splitk_launch, lib.int8_rows_launch,
-               lib.int8_tc_launch):
+               lib.int8_tc_launch, lib.int8_smem):
         fn.restype = ctypes.c_int
 
 
 #: the kernel's source and built library (`csrc/int8_gemv.cu`)
 LIBRARY = KernelLibrary(
     "int8_gemv", Path(__file__).resolve().parent / "csrc" / "int8_gemv.cu",
-    declare=_declare)
+    headers=[CSRC / "smem_report.cuh"], declare=_declare)
 
 
 def int8_gemv_plain(x, w8, scale):
@@ -123,9 +129,8 @@ def _rows_per_block(M: int) -> int:
 
 
 def splitk_smem(mb: int) -> int:
-    """Dynamic shared memory of the split-K kernel: the staged x chunk,
-    reused for the block's per-thread partials."""
-    return 4 * max(mb * SPLITK_KC, SPLITK_THREADS * (mb * 16 + 1))
+    """Dynamic shared memory of the split-K kernel: the staged x chunk."""
+    return mb * SPLITK_KC * 4
 
 
 def rows_smem(mb: int, K: int) -> int:
@@ -159,7 +164,7 @@ def _splitk_cluster(K: int, N: int, mblocks: int) -> int:
     return sizes[-1]
 
 
-def _tc_plan(M: int, K: int, N: int, n_sm: int) -> Plan:
+def tc_plan(M: int, K: int, N: int, n_sm: int) -> Plan:
     """wgmma tiles: 128 columns a block when that still fills the SMs;
     K split over a cluster while the tiles are too few (extend rows, a
     long K), each rank keeping TC_MIN_KTILES k-tiles or more."""
@@ -180,9 +185,19 @@ def tc_ranges(K: int, cs: int):
     return [(min(nk, q * per), min(nk, (q + 1) * per)) for q in range(cs)]
 
 
-def _splitk_plan(M: int, K: int, N: int) -> Plan:
+def splitk_plan(M: int, K: int, N: int) -> Plan:
+    """Split-K row blocks and the cluster splitting K."""
     mb = _rows_per_block(M)
     return Plan("splitk", mb=mb, cs=_splitk_cluster(K, N, _cdiv(M, mb)))
+
+
+def rows_plan(M: int, K: int, n_sm: int) -> Plan:
+    """Row blocks of the rows kernel, halved while x's rows overflow
+    ROWS_SMEM_MAX."""
+    mb = _rows_per_block(M)
+    while mb > 1 and rows_smem(mb, K) > ROWS_SMEM_MAX:
+        mb //= 2
+    return Plan("rows", mb=mb, sms=n_sm)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -192,17 +207,17 @@ def plan(M: int, K: int, N: int, rows_layout: bool, x_bf16: bool,
     shapes alone. `rows_layout`: w8 has unit stride along K (the
     transposed table)."""
     if x_bf16 and M >= TC_MIN_ROWS:
-        return _tc_plan(M, K, N, n_sm)
+        return tc_plan(M, K, N, n_sm)
     if rows_layout:
-        mb = _rows_per_block(M)
-        while mb > 1 and rows_smem(mb, K) > ROWS_SMEM_MAX:
-            mb //= 2
-        return Plan("rows", mb=mb, sms=n_sm)
-    return _splitk_plan(M, K, N)
+        return rows_plan(M, K, n_sm)
+    return splitk_plan(M, K, N)
 
 
 def plan_smem(p: Plan, K: int) -> int:
-    """Dynamic shared memory the plan's launch asks for."""
+    """Dynamic shared memory the plan's launch asks for. (Static shared
+    memory is known only from the compiled kernel: the `gpu` tests hold
+    each path's dynamic request against the kernel's, and the sum of both
+    against the device's limit.)"""
     if p.path == "tc":
         return tc_smem(p.bn)
     if p.path == "rows":
@@ -226,10 +241,45 @@ _N_SM = {}
 _FNS = None
 
 
-def _launch(x, w8, scale, path=None):
-    """Launch the kernel; returns the f32 (..., N) result. `path`
-    overrides the planned path ("splitk" / "tc"), for measurements."""
+def launch_plan(x2, w8, scale, p: Plan):
+    """Launch plan `p` on x2 (M, K) with unit stride along K, w8 and a
+    contiguous scale; returns y (M, N) f32. Any path that serves w8's
+    layout and x's dtype runs (the model takes `plan`'s)."""
     global _FNS, LAUNCHES
+    M, K = x2.shape
+    N = w8.shape[1]
+    sk, sn = w8.stride()
+    rows_layout = sn != 1
+    bf16 = x2.dtype == torch.bfloat16
+    _check(bf16 if p.path == "tc" else (p.path == "rows") == rows_layout,
+           lambda: f"{p} does not serve this call")
+    _check(p.path != "rows" or rows_smem(p.mb, K) <= ROWS_SMEM_MAX,
+           lambda: f"K = {K} is too large for the transposed layout")
+    if _FNS is None:
+        lib = LIBRARY.load()
+        _FNS = (lib.int8_splitk_launch, lib.int8_rows_launch,
+                lib.int8_tc_launch)
+    y = torch.empty((M, N), dtype=torch.float32, device=x2.device)
+    args = (x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            M, K, N, x2.stride(0))
+    stream = cuda_stream(x2.device)
+    if p.path == "tc":
+        rc = _FNS[2](*args, sn if rows_layout else sk, int(rows_layout),
+                     p.bn, p.cs, stream)
+    elif p.path == "rows":
+        rc = _FNS[1](*args, sn, p.mb, p.sms, int(bf16), stream)
+    else:
+        rc = _FNS[0](*args, sk, p.mb, p.cs, int(bf16), stream)
+    if rc != 0:
+        raise RuntimeError(f"int8 GEMV kernel launch failed ({p}): CUDA "
+                           f"error {rc}")
+    LAUNCHES += 1
+    return y
+
+
+def _launch(x, w8, scale):
+    """Check the call and launch the planned path; returns the f32
+    (..., N) result."""
     K, N = w8.shape
     dev = x.device
     # (messages are built only when a check fails: this runs per call)
@@ -252,45 +302,16 @@ def _launch(x, w8, scale, path=None):
     if x2.stride(-1) != 1:
         x2 = x2.contiguous()
     M = x2.shape[0]
+    if M * N == 0:
+        return torch.zeros((*lead, N), dtype=torch.float32, device=dev)
     if not scale.is_contiguous():
         scale = scale.contiguous()
-    y = torch.empty((M, N), dtype=torch.float32, device=dev)
-    if M * N == 0:
-        return y.zero_().reshape(*lead, N)
-    bf16 = x2.dtype == torch.bfloat16
-    rows_layout = sn != 1
     n_sm = _N_SM.get(dev.index)
     if n_sm is None:
         n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    p = plan(M, K, N, rows_layout, bf16, n_sm)
-    if path is not None and path != p.path:
-        _check(path in ("splitk", "tc") and not rows_layout
-               and (path == "splitk" or bf16),
-               lambda: f"path {path} does not serve this call")
-        p = (_tc_plan(M, K, N, n_sm) if path == "tc"
-             else _splitk_plan(M, K, N))
-    _check(p.path != "rows" or rows_smem(p.mb, K) <= ROWS_SMEM_MAX,
-           lambda: f"K = {K} is too large for the transposed layout")
-    if _FNS is None:
-        lib = LIBRARY.load()
-        _FNS = (lib.int8_splitk_launch, lib.int8_rows_launch,
-                lib.int8_tc_launch)
-    args = (x2.data_ptr(), w8.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            M, K, N, x2.stride(0))
-    stream = cuda_stream(dev)
-    if p.path == "tc":
-        rc = _FNS[2](*args, sn if rows_layout else sk, int(rows_layout),
-                     p.bn, p.cs, stream)
-    elif p.path == "rows":
-        rc = _FNS[1](*args, sn, p.mb, p.sms, int(bf16), stream)
-    else:
-        rc = _FNS[0](*args, sk, p.mb, p.cs, int(bf16), stream)
-    if rc != 0:
-        raise RuntimeError(f"int8 GEMV kernel launch failed ({p}): CUDA "
-                           f"error {rc}")
-    LAUNCHES += 1
-    return y.reshape(*lead, N)
+    p = plan(M, K, N, sn != 1, x2.dtype == torch.bfloat16, n_sm)
+    return launch_plan(x2, w8, scale, p).reshape(*lead, N)
 
 
 def int8_gemv(x, w8, scale):

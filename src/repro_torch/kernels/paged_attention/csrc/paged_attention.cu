@@ -85,3 +85,10 @@ extern "C" int paged_partial_launch(
   return attn_partial::dispatch<true>(p, B, D, q_bf16, kv_bf16,
                                       static_cast<cudaStream_t>(stream));
 }
+
+// Shared memory of the instantiation for head dim D (for the tests).
+extern "C" int paged_smem(int D, int q_bf16, int kv_bf16, int* dynamic,
+                          int* static_bytes, int* limit) {
+  return attn_partial::smem<true>(D, q_bf16, kv_bf16, dynamic,
+                                  static_bytes, limit);
+}

@@ -48,13 +48,15 @@ def _declare(lib):
                                         # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
+    fa.declare_smem(lib.paged_smem)
 
 
 #: the kernel's source and built library (`csrc/paged_attention.cu`)
 LIBRARY = KernelLibrary(
     "paged_attention",
     Path(__file__).resolve().parent / "csrc" / "paged_attention.cu",
-    headers=[CSRC / "attention_partial.cuh"], declare=_declare)
+    headers=[CSRC / "attention_partial.cuh", CSRC / "smem_report.cuh"],
+    declare=_declare)
 
 
 # =====================================================================

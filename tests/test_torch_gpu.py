@@ -7,12 +7,15 @@ conftest (which imports the JAX package):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.config import CoSineConfig, ModelConfig, SSMConfig
 from repro_torch.configs.drafters import int8_variant
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.int8_gemv import ops as ig
 from repro_torch.kernels.paged_attention import ops as pa
@@ -62,14 +65,14 @@ def test_cuda_kernel_matches_plain(cuda, D, G, T, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M_", [1, 4, 8, 9, 24, 64, 512])
+@pytest.mark.parametrize("M_", [1, 4, 5, 8, 9, 24, 64, 512])
 @pytest.mark.parametrize("K,N", [(896, 128), (100, 4864), (37, 13)])
 def test_int8_gemv_matches_plain(cuda, M_, K, N, xdtype):
     """The int8 GEMV kernel against its plain version, for the dense
     (K, N) layout and the transposed (N, K) table, aligned and not, on
-    every path (split-K, rows, wgmma from 8 bf16 rows). The same f32
-    products summed in another order: rtol = atol = 1e-4 on outputs of
-    O(1)."""
+    every path (split-K, rows, wgmma from TC_MIN_ROWS = 5 bf16 rows). The
+    same f32 products summed in another order: rtol = atol = 1e-4 on
+    outputs of O(1)."""
     gen = torch.Generator(device=cuda).manual_seed(M_ * K)
     w = torch.randn((K, N), generator=gen, device=cuda) / K ** 0.5
     q = quantize.quantize_weight(w)
@@ -151,6 +154,106 @@ def test_int8_same_bits_in_graph_on_stream_and_twice(cuda, path):
     g.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, ref)
+
+
+def _smem(fn, *args):
+    """(dynamic, static, limit) bytes from a library's shared-memory
+    report of one compiled kernel."""
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = fn(*args, *(ctypes.byref(o) for o in out))
+    assert rc == 0, f"CUDA error {rc}"
+    return tuple(o.value for o in out)
+
+
+@pytest.mark.gpu
+def test_int8_smem_matches_compiled_kernels(cuda):
+    """Every instantiation of the three paths asks for the dynamic shared
+    memory `plan_smem` counts, and that with the static shared memory of
+    the compiled kernel fits the device's limit per block, SMEM_LIMIT
+    (the rows kernel at the largest K its plan takes)."""
+    lib = ig.LIBRARY.load()
+    cases = [(ig.Plan("tc", bn=bn), 2, bn, rows, 896)
+             for bn in (64, 128) for rows in (0, 1)]
+    for x_bf16 in (0, 1):
+        for mb in (1, 2, 4, 8):
+            cases.append((ig.Plan("splitk", mb=mb), 0, mb, x_bf16, 896))
+            cases.append((ig.Plan("rows", mb=mb), 1, mb, x_bf16,
+                          ig.ROWS_SMEM_MAX // (4 * mb)))
+    for p, path, param, variant, K in cases:
+        dynamic, static, limit = _smem(lib.int8_smem, path, param, variant,
+                                       K)
+        assert limit == SMEM_LIMIT
+        assert dynamic == ig.plan_smem(p, K), (p, dynamic)
+        assert dynamic + static <= limit, (p, dynamic, static)
+
+
+@pytest.mark.gpu
+def test_attention_smem_matches_compiled_kernels(cuda):
+    """Both attention kernels, at every head dim and dtype pair, ask for
+    the dynamic shared memory `kernel_smem` counts, and that with the
+    static shared memory of the compiled kernel fits SMEM_LIMIT, the
+    device's limit per block."""
+    for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
+        for D in fa.SUPPORTED_HEAD_DIMS:
+            for q_bf16 in (0, 1):
+                for kv_bf16 in (0, 1):
+                    dynamic, static, limit = _smem(f, D, q_bf16, kv_bf16)
+                    case = (f.__name__, D, q_bf16, kv_bf16, dynamic, static)
+                    assert limit == SMEM_LIMIT
+                    assert dynamic == fa.kernel_smem(
+                        D, 2 if kv_bf16 else 4), case
+                    assert dynamic + static <= limit, case
+
+
+@pytest.mark.gpu
+def test_attention_kernels_refuse_unaligned_kv(cuda):
+    """K/V tiles are copied in 16-byte pieces, so both attention wrappers
+    raise ValueError, and launch nothing, on K/V whose base or key stride
+    is not a 16-byte multiple."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, T, H, G, D, S, ps = 2, 1, 2, 4, 64, 64, 16
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+
+    def kv(shape):
+        n = int(np.prod(shape))
+        flat = torch.randn(n + 1, generator=gen, device=cuda)
+        good = flat[:n].view(shape).to(torch.bfloat16)
+        off_base = flat.to(torch.bfloat16)[1:].view(shape)   # base + 2 B
+        wide = torch.randn((*shape[:-1], D + 1), generator=gen,
+                           device=cuda).to(torch.bfloat16)[..., :D]
+        return good, (off_base, wide)
+
+    v, bad = kv((B, S, H, D))
+    before = fa.LAUNCHES
+    for k in bad:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.attend_partial(q, k, v, qpos, kpos, scale=D ** -0.5)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.attend_partial(q, v, k, qpos, kpos, scale=D ** -0.5)
+    assert fa.LAUNCHES == before
+
+    P = 2 + B * S // ps
+    vp, bad = kv((P, ps, H, D))
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    pos[2:] = torch.arange(S, dtype=torch.int32, device=cuda).view(
+        -1, ps).repeat(B, 1)
+    tbl = torch.arange(2, P, dtype=torch.int32, device=cuda).view(B, -1)
+    before = pa.LAUNCHES
+    for kp in bad:
+        with pytest.raises(ValueError, match="16-byte"):
+            pa.paged_attend_partial(q, kp, vp, qpos, pos, tbl,
+                                    scale=D ** -0.5)
+        with pytest.raises(ValueError, match="16-byte"):
+            pa.paged_attend_partial(q, vp, kp, qpos, pos, tbl,
+                                    scale=D ** -0.5)
+    assert pa.LAUNCHES == before
+    # the aligned views launch once each
+    fa_before, pa_before = fa.LAUNCHES, pa.LAUNCHES
+    fa.attend_partial(q, v, v, qpos, kpos, scale=D ** -0.5)
+    pa.paged_attend_partial(q, vp, vp, qpos, pos, tbl, scale=D ** -0.5)
+    assert (fa.LAUNCHES, pa.LAUNCHES) == (fa_before + 1, pa_before + 1)
 
 
 def _split_case(cuda, case, dtype):

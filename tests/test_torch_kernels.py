@@ -23,6 +23,7 @@ from repro.kernels.common import merge_partials as jax_merge
 from repro.kernels.decode_attention.ref import (decode_attention_ref,
                                                 decode_attention_slots_ref)
 from repro.kernels.tree_attention.ref import tree_attention_ref
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention import ops as fa
 from test_kernels import DECODE_CASES, TREE_CASES
 
@@ -254,11 +255,13 @@ def test_split_plan_covers_every_key_tile_once(B, H, R, S):
 
 
 def test_attention_kernel_smem_in_budget():
-    """Every instantiation's shared memory fits a block on the H100."""
+    """Every instantiation's K/V double buffer fits a block on the H100
+    and holds the merge's (16, D) f32 rows (a `gpu` test holds it, with
+    the static part, against the compiled kernels)."""
     for D in fa.SUPPORTED_HEAD_DIMS:
         for size in (2, 4):
-            for paged in (False, True):
-                assert fa.kernel_smem(D, size, paged) <= 227 * 1024
+            dynamic = fa.kernel_smem(D, size)
+            assert fa.ROW_TILE * D * 4 <= dynamic <= SMEM_LIMIT
 
 
 def _split_merged(q, k, v, qpos, kpos, mask, scale, window, slot_idx):

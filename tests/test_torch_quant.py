@@ -32,6 +32,7 @@ from repro.models import model as JM
 from repro.models import quantize as JQ
 from repro.serving.engine import SpeculativeEngine as JaxEngine
 from repro_torch import config as tconfig
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.int8_gemv import ops as ig
 from repro_torch.models import model as TM
 from repro_torch.models import quantize as TQ
@@ -306,12 +307,14 @@ def test_int8_plan_covers_every_row_and_column_once(M, K, N, rows_layout,
                                                     bf16):
     """The path comes from the shapes alone: wgmma for bf16 x from
     TC_MIN_ROWS rows, else the rows kernel for the transposed table and
-    split-K for the dense layout. The cluster ranks of split-K (rows of
-    K) and of wgmma (k-tiles) cut K into contiguous ranges read once each,
-    each long enough but the last, and every path's shared memory fits a
-    block."""
+    split-K for the dense layout. The
+    cluster ranks of split-K (rows of K) and of wgmma (k-tiles) cut K
+    into contiguous ranges read once each, each long enough but the last,
+    and the dynamic shared memory every path asks for fits a block (a
+    `gpu` test holds it, with the static part, against the compiled
+    kernels)."""
     p = ig.plan(M, K, N, rows_layout, bf16)
-    assert ig.plan_smem(p, K) <= ig.SMEM_LIMIT
+    assert ig.plan_smem(p, K) <= SMEM_LIMIT
     if bf16 and M >= ig.TC_MIN_ROWS:
         assert p.path == "tc" and p.bn in (64, 128)
         assert p.cs in ig.CLUSTER_SIZES
