@@ -11,9 +11,13 @@ plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
 function, that call as a yardstick; the int8 GEMV after phase D, at the
 row counts phase D gave it, with its CUDA-core paths (split-K, and the
-rows kernel for the head) and wgmma side by side at 4-64 rows; the host
-cost of one call of the attention and int8 wrappers), then serves the
-CoSine path end to end through `SpeculativeEngine.submit/run`:
+rows kernel for the head) and wgmma side by side at 4-64 rows; the SSD
+scan at phases E-F's shapes on the path its plan takes and on the other
+one, in place with scrambled slot indices (unnamed rows and write=False
+leave the pool bitwise unchanged), and both paths across sequence
+lengths; the host cost of one call of the attention, int8 and SSD
+wrappers), then serves the CoSine path end to end through
+`SpeculativeEngine.submit/run`:
 
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
@@ -31,7 +35,9 @@ CoSine path end to end through `SpeculativeEngine.submit/run`:
            weights, bf16 activations) with two mamba2-130m drafters, one
            sharing its weights, on the resident pool; chain-only
            verification; every SSM layer of every forward goes through
-           the SSD scan kernel and no attention kernel launches;
+           the SSD scan kernel (launches counted by form: decode, the
+           recurrence above one token, the chunk path) and no attention
+           kernel launches;
   phase F  a hybrid target at jamba-v0.1-52b's widths, cut to 8 layers
            (one 1:7 period, attention at layer 4) with the dense FFN in
            place of the MoE, with two drafters sharing its weights, on
@@ -59,6 +65,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense
+# the SSD chunk path's products on the tensor cores: 3xTF32, each product
+# three TF32 passes at 495 TFLOP/s
+TF32X3_FLOPS = 495e12 / 3
 # kernel vs plain version on the same inputs: the kernel sums keys in
 # tiles of 32 and the plain version in one block, both in f32 with K/V
 # converted exactly from their stored dtype, so the only difference is
@@ -654,49 +663,100 @@ def int8_kernel_phase(torch, ig, quantize, row_counts):
 
 
 def _dual_ops(r, n, P, N):
-    """Operations of the SSD dual form over r tokens in chunks of n: per
-    chunk of c tokens the causal half of the scores C_i . B_j (c(c+1)/2
-    dots of N) and of their product with dt x (of P), dt x itself (c P),
-    the inter-chunk term C_i state (2 c P N), and the state's decay and
-    update (P N + 2 c P N)."""
+    """(tensor-core, f32) operations of the SSD dual form over r tokens in
+    chunks of n. Per chunk of c tokens, on tensor cores: the causal half
+    of the scores C_i . B_j (c(c+1)/2 dots of N) and of their product with
+    dt x (of P), the inter-chunk term C_i state (2 c P N) and the state's
+    update (2 c P N); in f32: dt x (c P) and the state's decay (P N)."""
     def chunk(c):
-        return c * (c + 1) * (N + P) + 4 * c * P * N + P * N + c * P
+        return c * (c + 1) * (N + P) + 4 * c * P * N, P * N + c * P
     k, rem = divmod(r, n)
-    return k * chunk(n) + (chunk(rem) if rem else 0)
+    tc, f32 = (k * v for v in chunk(n))
+    if rem:
+        tc, f32 = tc + chunk(rem)[0], f32 + chunk(rem)[1]
+    return tc, f32
 
 
 def ssd_work(dt, H, P, G, N, x_bytes):
     """Bytes the scan must move (x, dt, B and C per group, A, the initial
-    state in, y and the final state out) and the fewest f32 operations
-    the scan needs on this run's data, whatever a kernel's chunking. For
-    the r tokens of a (request, head) with dt != 0, the cheaper of the
-    recurrence (per token y_t = state_t C_t, 2 P N; the decay and update
-    state exp(dt A) + (dt x) Bᵀ, 3 P N; dt x, P) and the chunked dual
-    form at its best chunk length (`_dual_ops`); each dt = 0 token leaves
-    the state as it is and needs only its y (2 P N). Multiply and add
-    count as two; the exps are not counted."""
+    state in, y and the final state out) and the least time its
+    operations can take on this run's data, whatever the kernel's
+    chunking: for the r tokens of a (request, head) with dt != 0, the
+    faster of the recurrence (per token y_t = state_t C_t, 2 P N; the
+    decay and update state exp(dt A) + (dt x) Bᵀ, 3 P N; dt x, P; all f32
+    on CUDA cores at 67 TFLOP/s) and the dual form at its best chunk
+    length (`_dual_ops`: its products on tensor cores at the 3xTF32 rate,
+    495 / 3 TFLOP/s, the rest at 67); each dt = 0 token needs only its y
+    (2 P N: f32 for the recurrence, a product for the dual form).
+    Multiply and add count as two; the exps are not counted. Returns
+    (bytes, tensor-core ops, f32 ops, ops ms)."""
     b, L = dt.shape[:2]
     real = (dt != 0).sum(dim=1).flatten().tolist()          # r per (b, h)
-    flops = 0
+    f32_rate = PEAK_FLOPS["float32"]
+    tc_tot = f32_tot = 0
     for r in set(real):
-        best = min([r * (5 * P * N + P)]
-                   + [_dual_ops(r, n, P, N) for n in range(2, r + 1)])
-        flops += real.count(r) * (best + (L - r) * 2 * P * N)
+        opts = [(0, r * (5 * P * N + P) + (L - r) * 2 * P * N)]
+        for n in range(2, r + 1):
+            tc, f32 = _dual_ops(r, n, P, N)
+            opts.append((tc + (L - r) * 2 * P * N, f32))
+        best = min(opts, key=lambda o: o[0] / TF32X3_FLOPS + o[1] / f32_rate)
+        tc_tot += real.count(r) * best[0]
+        f32_tot += real.count(r) * best[1]
     nbytes = (b * L * H * P * x_bytes * 2          # x in, y out
               + b * L * H * 4 + H * 4              # dt, A
               + 2 * b * L * G * N * x_bytes        # B, C
               + 2 * b * H * P * N * 4)             # state in and out
-    return nbytes, flops
+    ops_ms = (tc_tot / TF32X3_FLOPS + f32_tot / f32_rate) * 1e3
+    return nbytes, tc_tot, f32_tot, ops_ms
+
+
+def _ssd_inputs(torch, gen, b, L, H, P, G, N, real=None):
+    """Scan inputs distributed as the mixer makes them (its activations
+    are f32: the f32 in_proj product promotes bf16 inputs), dt = 0 past
+    `real` tokens (a masked suffix), and an initial state."""
+    import math
+    dt_bias = math.log(math.expm1(0.01))
+    silu = torch.nn.functional.silu
+    x = silu(torch.randn((b, L, H, P), generator=gen, device="cuda"))
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, L, H), generator=gen, device="cuda") + dt_bias)
+    if real is not None:
+        dt[:, real:] = 0.0
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = silu(torch.randn((b, L, G, N), generator=gen, device="cuda"))
+    Cm = silu(torch.randn((b, L, G, N), generator=gen, device="cuda"))
+    s0 = 0.1 * torch.randn((b, H, P, N), generator=gen, device="cuda")
+    return x, dt, A, Bm, Cm, s0
+
+
+def _ssd_other_plan(sd, p, b, L, H, P, N):
+    """The path `plan` did not take at this shape."""
+    return sd.chunk_plan(b, L, H, P, N, 4) if p.path == "rec" \
+        else sd.rec_plan(P, N)
+
+
+def _ssd_check(name, part, got, want):
+    """max |got - want|, after failing unless got is finite and within
+    SSD_TOL of want."""
+    if not bool(got.isfinite().all()):
+        fail(f"ssd {name}: kernel {part} not finite")
+    if not got.allclose(want, rtol=SSD_TOL, atol=SSD_TOL):
+        fail(f"ssd {name}: kernel {part} vs plain max |err| "
+             f"{float((got - want).abs().max()):.3e} outside "
+             f"rtol=atol={SSD_TOL}")
+    return float((got - want).abs().max())
 
 
 def ssd_kernel_phase(torch, sd):
     """The SSD scan kernel at the serving shapes of phases E and F (and a
     case with G > 1), each with an initial state as the mixer always
-    passes one: against its plain version (chunk 128); returns rows."""
-    import math
+    passes one: the path `plan` takes and the other one, each against the
+    plain version (chunk 128); then the in-place form at decode and
+    verify shapes, the two paths across sequence lengths (the crossover)
+    and the host cost of one `ssd_slots` call. Returns (rows, in-place
+    checks, crossover, host cost)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
-    dt_bias = math.log(math.expm1(0.01))
     # (name, b, L, H, P, G, N, real tokens): mamba2-130m and jamba widths
     cases = [
         ("mamba2_prefill_b1_L512_H24_P64_N128", 1, 512, 24, 64, 1, 128, 512),
@@ -710,51 +770,146 @@ def ssd_kernel_phase(torch, sd):
     ]
     rows = []
     for name, b, L, H, P, G, N, real in cases:
-        # distributed as the mixer makes them (its activations are f32:
-        # the f32 in_proj product promotes bf16 inputs)
-        x = torch.nn.functional.silu(torch.randn((b, L, H, P), generator=gen,
-                                                 device="cuda"))
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, L, H), generator=gen, device="cuda") + dt_bias)
-        dt[:, real:] = 0.0                 # a masked suffix of the chunk
-        A = -torch.linspace(1.0, 16.0, H, device="cuda")
-        Bm = torch.nn.functional.silu(torch.randn(
-            (b, L, G, N), generator=gen, device="cuda"))
-        Cm = torch.nn.functional.silu(torch.randn(
-            (b, L, G, N), generator=gen, device="cuda"))
-        s0 = 0.1 * torch.randn((b, H, P, N), generator=gen, device="cuda")
+        x, dt, A, Bm, Cm, s0 = _ssd_inputs(torch, gen, b, L, H, P, G, N,
+                                           real)
+        p = sd.plan(b, L, H, P, G, N, torch.float32)
         args = (x, dt, A, Bm, Cm, 128, s0)
         y, st = sd.ssd(*args)
         yp, sp = sd.ssd_chunked(*args)
         torch.cuda.synchronize()
-        for part, got, want in (("y", y, yp), ("state", st, sp)):
-            if not torch.isfinite(got).all():
-                fail(f"ssd {name}: kernel {part} not finite")
-            if not torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL):
-                fail(f"ssd {name}: kernel {part} vs plain max |err| "
-                     f"{float((got - want).abs().max()):.3e} outside "
-                     f"rtol=atol={SSD_TOL}")
-        err_y = float((y - yp).abs().max())
-        err_s = float((st - sp).abs().max())
+        err_y = _ssd_check(name, "y", y, yp)
+        err_s = _ssd_check(name, "state", st, sp)
+        # the other path at the same shape, held to the same tolerance
+        other = _ssd_other_plan(sd, p, b, L, H, P, N)
+        fin = torch.empty_like(s0)
+        yo = sd.launch_plan(x, dt, A, Bm, Cm, s0, fin, None, other)
+        torch.cuda.synchronize()
+        err_o = max(_ssd_check(f"{name} ({other.path})", "y", yo, yp),
+                    _ssd_check(f"{name} ({other.path})", "state", fin, sp))
         ms = _graph_ms(torch, lambda: sd.ssd(*args))
+        other_ms = _graph_ms(torch, lambda: sd.launch_plan(
+            x, dt, A, Bm, Cm, s0, fin, None, other))
         plain_ms = _graph_ms(torch, lambda: sd.ssd_chunked(*args), reps=3)
-        nbytes, flops = ssd_work(dt, H, P, G, N, 4)
-        bound, by = _bound(nbytes, flops, "float32")
-        rows.append(dict(name=name, max_abs_err=max(err_y, err_s),
+        nbytes, tc, f32, ops_ms = ssd_work(dt, H, P, G, N, 4)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_bytes, ops_ms)
+        by = "bytes" if t_bytes >= ops_ms else "operations"
+        rows.append(dict(name=name, path=p.path, pb=p.pb, q=p.q,
+                         max_abs_err=max(err_y, err_s, err_o),
                          max_abs_err_y=err_y, max_abs_err_state=err_s,
                          ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by=by, library_ms=None, bytes=nbytes,
-                         flops=flops, dtype="float32",
-                         kernel_chunk=sd.kernel_chunk(P, N, L)))
-        print(f"kernel ssd {name}: max|err| y {err_y:.2e} state "
-              f"{err_s:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-              f"bound {bound:.4f} ms ({by})  library: none", flush=True)
-    return rows
+                         flops=tc + f32, tc_flops=tc, f32_flops=f32,
+                         ops_ms=ops_ms, dtype="float32",
+                         other_path=dict(path=other.path, pb=other.pb,
+                                         q=other.q, ms=other_ms,
+                                         max_abs_err=err_o)))
+        print(f"kernel ssd {name}: path {p.path} pb {p.pb} q {p.q}  "
+              f"max|err| y {err_y:.2e} state {err_s:.2e}  kernel {ms:.4f} "
+              f"ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by}: "
+              f"bytes {t_bytes:.4f}, ops {ops_ms:.4f})  {other.path} path "
+              f"pb {other.pb} q {other.q} {other_ms:.4f} ms (max|err| "
+              f"{err_o:.2e})  library: none", flush=True)
+    in_place = ssd_in_place_phase(torch, sd, gen)
+    crossover = ssd_crossover(torch, sd, gen)
+    x, dt, A, Bm, Cm, _ = _ssd_inputs(torch, gen, 4, 1, 24, 64, 1, 128)
+    pool = torch.zeros((16, 24, 64, 128), device="cuda")
+    idx = torch.tensor([5, 11, 2, 8], dtype=torch.int32, device="cuda")
+    host = dict(ssd_slots_us=_host_us(torch, lambda: sd.ssd_slots(
+        x, dt, A, Bm, Cm, 128, pool, idx)), shape="mamba2 decode b4 L1")
+    print(f"host cost per call (mamba2 decode b4): ssd_slots "
+          f"{host['ssd_slots_us']:.1f} us (enqueue only)", flush=True)
+    return rows, in_place, crossover, host
+
+
+def ssd_in_place_phase(torch, sd, gen):
+    """The in-place form at the decode and verify shapes of phases E and
+    F, on both paths, with slot_idx scrambled over a pool of 3b + 5 rows:
+    the named rows hold what the plain version writes (SSD_TOL), every
+    other row stays bitwise as it was, write=False leaves the whole pool
+    bitwise unchanged, and the wrapper the mixer calls gives its path's
+    bits."""
+    out = []
+    for name, b, L, H, N in (("mamba2_decode_b4_L1", 4, 1, 24, 128),
+                             ("mamba2_verify_b4_L6", 4, 6, 24, 128),
+                             ("jamba_decode_b4_L1", 4, 1, 128, 16),
+                             ("jamba_verify_b4_L6", 4, 6, 128, 16)):
+        P, G, rows = 64, 1, 3 * 4 + 5
+        x, dt, A, Bm, Cm, _ = _ssd_inputs(torch, gen, b, L, H, P, G, N)
+        pool = 0.1 * torch.randn((rows, H, P, N), generator=gen,
+                                 device="cuda")
+        perm = torch.randperm(rows, generator=gen, device="cuda")
+        idx, others = perm[:b].to(torch.int32), perm[b:].long()
+        ref = pool.clone()
+        yp = sd.ssd_slots_plain(x, dt, A, Bm, Cm, 128, ref, idx)
+        p = sd.plan(b, L, H, P, G, N, torch.float32)
+        for path_plan in (p, _ssd_other_plan(sd, p, b, L, H, P, N)):
+            for write in (False, True):
+                st = pool.clone()
+                y = sd.launch_plan(x, dt, A, Bm, Cm, st,
+                                   st if write else None, idx, path_plan)
+                torch.cuda.synchronize()
+                label = f"{name} in place ({path_plan.path}, write={write})"
+                err = _ssd_check(label, "y", y, yp)
+                if write:
+                    err = max(err, _ssd_check(label, "state",
+                                              st[idx.long()],
+                                              ref[idx.long()]))
+                    if not torch.equal(st[others], pool[others]):
+                        fail(f"ssd {label}: a row no request names changed")
+                elif not torch.equal(st, pool):
+                    fail(f"ssd {label}: write=False changed the pool")
+                if path_plan == p and write:
+                    st2 = pool.clone()
+                    if not torch.equal(sd.ssd_slots(x, dt, A, Bm, Cm, 128,
+                                                    st2, idx), y) \
+                            or not torch.equal(st2, st):
+                        fail(f"ssd {label}: ssd_slots differs from its "
+                             "plan's launch")
+                out.append(dict(case=name, path=path_plan.path, write=write,
+                                max_abs_err=err))
+                print(f"kernel ssd {label}: pool of {rows} rows, slots "
+                      f"{idx.tolist()}; max|err| {err:.2e}; unnamed rows "
+                      f"bitwise unchanged" + ("" if write else
+                                              "; pool bitwise unchanged"),
+                      flush=True)
+    return out
+
+
+def ssd_crossover(torch, sd, gen):
+    """Device ms of the recurrence and the chunk path at 4 requests across
+    sequence lengths, at mamba2-130m's and jamba's widths: where the
+    chunk path starts to win sets `REC_MAX_L`."""
+    out = {}
+    for label, H, N in (("mamba2", 24, 128), ("jamba", 128, 16)):
+        line = []
+        for L in (1, 2, 4, 6, 8, 12, 16, 24, 32, 48, 64):
+            x, dt, A, Bm, Cm, s0 = _ssd_inputs(torch, gen, 4, L, H, 64, 1,
+                                               N)
+            fin = torch.empty_like(s0)
+            t = {}
+            for p in (sd.rec_plan(64, N), sd.chunk_plan(4, L, H, 64, N, 4)):
+                t[p.path] = _graph_ms(torch, lambda: sd.launch_plan(
+                    x, dt, A, Bm, Cm, s0, fin, None, p))
+            line.append(dict(L=L, rec_ms=t["rec"], chunk_ms=t["chunk"]))
+        out[label] = line
+        faster = [r["L"] for r in line if r["chunk_ms"] < r["rec_ms"]]
+        print(f"ssd crossover {label} b4 (ms rec / chunk): " + "  ".join(
+            f"L{r['L']} {r['rec_ms']:.4f}/{r['chunk_ms']:.4f}"
+            for r in line) + f"; chunk faster from L "
+            f"{min(faster) if faster else 'never (to 64)'}; plan: rec up "
+            f"to L {sd.rec_max_l(N)}", flush=True)
+    return out
 
 
 # =====================================================================
 # serving phases
 # =====================================================================
+
+# SSD scan calls by form: decode, the recurrence above one token
+# (verification, commits, drafter extends) and the chunk path (prefill)
+SSD_FORMS = ("L = 1", "rec", "chunk")
+
 
 class PathCounters:
     """Counts, during one serving run, the model's calls of each kernel —
@@ -784,6 +939,7 @@ class PathCounters:
         self.ssm_layer_calls = 0
         self.attn_layer_calls = 0
         self.snapshots_layers = 0
+        self.ssd_forms = dict.fromkeys(SSD_FORMS, 0)
         self.take_rows_calls = 0
         self.plain_calls = 0
         self._saved = []
@@ -810,6 +966,7 @@ class PathCounters:
         orig_gather = self.M.gather_paged_slots
         orig_take = self.attn.take_rows
         orig_int8 = self.ig.int8_gemv
+        orig_slots = self.sd.ssd_slots
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
@@ -849,6 +1006,12 @@ class PathCounters:
             self.int8_rows[m] = self.int8_rows.get(m, 0) + 1
             return orig_int8(x, *a, **kw)
 
+        def slots(x, dt, A, B, C, *a, **kw):
+            form = ("L = 1" if x.shape[1] == 1
+                    else self.sd.plan_for(x, B).path)
+            self.ssd_forms[form] += 1
+            return orig_slots(x, dt, A, B, C, *a, **kw)
+
         def plain(orig):
             def call(*a, **kw):
                 self.plain_calls += 1
@@ -861,10 +1024,12 @@ class PathCounters:
         self._patch(self.M, "gather_paged_slots", gather)
         self._patch(self.attn, "take_rows", take)
         self._patch(self.ig, "int8_gemv", int8)
+        self._patch(self.sd, "ssd_slots", slots)
         for mod, name in ((self.fa, "attend_partial_plain"),
                           (self.pa, "paged_attend_partial_plain"),
                           (self.ig, "int8_gemv_plain"),
-                          (self.sd, "ssd_chunked")):
+                          (self.sd, "ssd_chunked"),
+                          (self.sd, "ssd_slots_plain")):
             self._patch(mod, name, plain(getattr(mod, name)))
         self.fa.LAUNCHES = self.pa.LAUNCHES = self.ig.LAUNCHES = 0
         self.sd.LAUNCHES = 0
@@ -904,6 +1069,9 @@ class PathCounters:
             fail(f"{label}: {L['ssd_scan_pallas']} SSD scan launches for "
                  f"{self.ssm_layer_calls} SSM layers of {self.forwards} "
                  "forwards")
+        if sum(self.ssd_forms.values()) != L["ssd_scan_pallas"]:
+            fail(f"{label}: SSD scan calls by form {self.ssd_forms} for "
+                 f"{L['ssd_scan_pallas']} launches")
         if paged_path and set(self.resident) - {"segment", "snapshot"}:
             fail(f"{label}: resident reads {self.resident} on the paged "
                  "path (only segment passes and snapshots may use kernel 1)")
@@ -1072,6 +1240,7 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         int8_products_per_forward=sorted(set(
             calls.int8_per_forward.values())),
         snapshot_layer_gathers=calls.snapshots_layers,
+        ssd_launches_by_form=calls.ssd_forms,
         setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results)
     if extra is not None:
         summary.update(extra())
@@ -1082,8 +1251,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
           f"mean acceptance {stats.mean_acceptance:.3f}; launches "
           f"{calls.launches} = resident attention calls {calls.resident}, "
           f"pool reads {calls.paged}, int8 products {calls.int8_products}, "
-          f"SSM layers {calls.ssm_layer_calls} of {calls.forwards} forwards",
-          flush=True)
+          f"SSM layers {calls.ssm_layer_calls} of {calls.forwards} forwards "
+          f"(SSD launches by form {calls.ssd_forms})", flush=True)
     eng.backend.shutdown()
     return summary, streams, calls.launches
 
@@ -1214,7 +1383,7 @@ def main() -> int:
 
     fa_rows, fa_host = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
-    sd_rows = ssd_kernel_phase(torch, sd)
+    sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
     kernel_err = max(r["max_abs_err"] for r in fa_rows + pa_rows)
     ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
     paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
@@ -1226,6 +1395,7 @@ def main() -> int:
         return [rng.integers(1, cfg.vocab, n).tolist() for n in PROMPT_LENS]
 
     launches = {name: 0 for name in KERNEL_SOURCES}
+    ssd_forms = {}
     summaries = []
 
     def run(label, target, drafters, prompts, refs, err, **kw):
@@ -1233,6 +1403,8 @@ def main() -> int:
             torch, label, target, drafters, prompts, err, refs, **kw)
         for name, n in counts.items():
             launches[name] += n
+        if kw.get("ssm"):
+            ssd_forms[label] = summary["ssd_launches_by_form"]
         summaries.append(summary)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1365,7 +1537,12 @@ def main() -> int:
     kernels = []
     extra = {"flash_attention_partial": dict(host=fa_host),
              "int8_gemv_call": dict(host=ig_host, crossover=crossover,
-                                    launches_by_rows=int8_launch_classes)}
+                                    launches_by_rows=int8_launch_classes),
+             "ssd_scan_pallas": dict(host=sd_host, crossover=sd_crossover,
+                                     in_place=sd_in_place,
+                                     rec_max_l={"N128": sd.rec_max_l(128),
+                                                "N16": sd.rec_max_l(16)},
+                                     launches_by_form=ssd_forms)}
     for name, rows in (("flash_attention_partial", fa_rows),
                        ("paged_flash_decode", pa_rows),
                        ("int8_gemv_call", ig_rows),
@@ -1374,7 +1551,10 @@ def main() -> int:
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]
         t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(r["flops"] / PEAK_FLOPS[r["dtype"]] for r in rows) * 1e3
+        # (the SSD rows count their tensor-core operations at that unit's
+        # rate: `ops_ms`)
+        t_ops = sum(r.get("ops_ms", r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3)
+                    for r in rows)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],

@@ -1,10 +1,11 @@
 """Mamba2 SSD (state-space duality) mixer (port of `repro.models.ssm`).
 
-The scan goes through `kernels.ssd_scan.ops.ssd`: on CUDA tensors the
-hand-written Hopper kernel, for every sequence length (decode, chain
-verification, commit and prefill chunks); on CPU tensors its plain
-version `ssd_chunked`, re-exported here. `ssd_reference` (the naive
-recurrence over time) is the oracle of the tests.
+The scan goes through `kernels.ssd_scan.ops.ssd_slots`: on CUDA tensors
+the hand-written Hopper kernel, for every sequence length (decode, chain
+verification, commit and prefill chunks), reading and writing the
+layer's recurrent state in place; on CPU tensors its plain version. The
+plain chunked scan `ssd_chunked` is re-exported here; `ssd_reference`
+(the naive recurrence over time) is the oracle of the tests.
 
 SSM state does not page: the recurrent state (`ssm`, (B, H, P, N)), the
 conv tail (`conv`, (B, d_conv - 1, conv_dim)) and `pos` are O(1) per
@@ -15,7 +16,9 @@ reference.
 Unlike the reference, which returns a write delta for its caller to
 scatter, the port writes the new state of the active slots IN PLACE
 (`slot_idx`), or of the rows of a plain batch cache, and only when
-`write` is set.
+`write` is set. The scan kernel reads the `ssm` rows through `slot_idx`
+and writes them back itself (no gather, no scatter); `conv` and `pos`
+are gathered and written here.
 """
 from __future__ import annotations
 
@@ -131,10 +134,11 @@ def ssm_mixer(p, cfg: ModelConfig, x, state=None, slot_idx=None, write=True,
 
     state: None (self-contained), a plain batch state (make_ssm_state of B
     rows) or, with slot_idx (B,), a resident slot pool whose row
-    slot_idx[b] row b of x advances. Reads gather the B active rows; with
-    `write` the new recurrent state, conv tail and pos are written in
-    place into those rows (the returned state is the argument).
-    write=False scores without committing (returns None).
+    slot_idx[b] row b of x advances. The scan reads and (with `write`)
+    writes the recurrent state of those rows in place; the conv tail and
+    pos are gathered here and, with `write`, written back in place (the
+    returned state is the argument). write=False scores without
+    committing anything (returns None).
 
     token_mask: (B, L) bool — real tokens True, a suffix of shape padding
     False (chunked prefill's pad-and-mask final chunk). Masked tokens get
@@ -153,8 +157,9 @@ def ssm_mixer(p, cfg: ModelConfig, x, state=None, slot_idx=None, write=True,
     elif slot_idx is None:
         st = state
     else:
+        # the scan reads the recurrent state through slot_idx itself
         idx = slot_idx.long()
-        st = {f: t.index_select(0, idx) for f, t in state.items()}
+        st = {f: state[f].index_select(0, idx) for f in ("conv", "pos")}
     if token_mask is not None:
         assert st is not None, "token_mask requires a carried state"
 
@@ -192,8 +197,9 @@ def ssm_mixer(p, cfg: ModelConfig, x, state=None, slot_idx=None, write=True,
         dt = torch.where(token_mask[:, :, None], dt, torch.zeros_like(dt))
     A = -torch.exp(p["A_log"])
 
-    init = st["ssm"] if st is not None else None
-    y, s_final = ssd_ops.ssd(xs, dt, A, Bmat, Cmat, s.chunk_size, init)
+    y = ssd_ops.ssd_slots(xs, dt, A, Bmat, Cmat, s.chunk_size,
+                          None if state is None else state["ssm"],
+                          slot_idx, write=write)
     y = y + p["D_skip"][:, None] * xs
     y = y.reshape(B_, L, din)
     y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
@@ -202,7 +208,7 @@ def ssm_mixer(p, cfg: ModelConfig, x, state=None, slot_idx=None, write=True,
     if state is None or not write:
         return out, None
     adv = L if token_mask is None else token_mask.sum(-1).to(torch.int32)
-    new = {"ssm": s_final, "conv": new_conv, "pos": st["pos"] + adv}
+    new = {"conv": new_conv, "pos": st["pos"] + adv}
     for f, v in new.items():
         dst = state[f]
         if slot_idx is None:

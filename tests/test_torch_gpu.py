@@ -8,6 +8,10 @@ conftest (which imports the JAX package):
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
 import ctypes
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -551,6 +555,175 @@ def test_ssd_kernel_masked_tail_and_strided_views(cuda):
     assert torch.equal(yv, y) and torch.equal(sv, s)
 
 
+def _ssd_close(y, st, yp, sp, dtype):
+    """The module's 2e-4 rule: y and the state within rtol = atol = 2e-4 of
+    the plain version; a bf16 y within that plus one bf16 ulp of the f32
+    value (it is the kernel's f32 value rounded once)."""
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yp, rtol=2e-4, atol=2e-4)
+    else:
+        _, e = torch.frexp(yp)
+        ulp = torch.where(yp == 0, torch.zeros_like(yp),
+                          torch.ldexp(torch.ones_like(yp), e - 8))
+        err = (y.float() - yp).abs()
+        assert bool((err <= 2e-4 + 2e-4 * yp.abs() + ulp).all()), float(
+            (err - 2e-4 - 2e-4 * yp.abs() - ulp).max())
+    torch.testing.assert_close(st, sp, rtol=2e-4, atol=2e-4)
+
+
+def _ssd_plans(b, L, H, P, N, dtype, path):
+    """The plans of one path the kernel can be given at a shape: the
+    recurrence's, or the chunk path's at every state slice and block
+    size its plan can pick (8 rows up to its widest; 8 or 16 warps), the
+    plan's own first."""
+    if path == "rec":
+        return [ssd.rec_plan(P, N)]
+    esize = 2 if dtype == torch.bfloat16 else 4
+    base = ssd.chunk_plan(b, L, H, P, N, esize)
+    widest = ssd.slice_max(P, N)
+    return [base] + [
+        base._replace(pb=pb, threads=threads,
+                      smem=ssd.chunk_smem(base.q, N, pb, esize))
+        for pb in (8, 16, 32, 64, 128) if pb <= widest and P % pb == 0
+        for threads in (ssd.CHUNK_THREADS_TWO, ssd.CHUNK_THREADS_ONE)
+        if (pb, threads) != (base.pb, base.threads)]
+
+
+# (b, L, H, P, G, N): the served widths at decode, verify and extend
+# lengths on both sides of REC_MAX_L, a ragged chunk, N = 8 (padded to the
+# 16-row tile), N = 256 (8 columns a thread) and P = 128
+SSD_PATH_SHAPES = [(4, 1, 24, 64, 1, 128), (4, 6, 24, 64, 1, 128),
+                   (1, 40, 24, 64, 1, 128), (2, 77, 24, 64, 4, 128),
+                   (4, 6, 128, 64, 1, 16), (1, 130, 128, 64, 1, 16),
+                   (2, 37, 4, 16, 2, 8), (1, 20, 2, 64, 1, 256),
+                   (3, 19, 2, 128, 1, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["rec", "chunk"])
+@pytest.mark.parametrize("shape", SSD_PATH_SHAPES)
+def test_ssd_each_path_and_slice_matches_plain(cuda, shape, path, dtype):
+    """Each path, at each state slice its plan can pick, against the plain
+    version (chunk 128), with and without an initial state, under the 2e-4
+    rule; every slice gives the same bits (a column's arithmetic does not
+    depend on which block computes it)."""
+    b, L, H, P, G, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x, dt, A, B, C, s0 = _ssd_inputs(gen, b, L, H, P, G, N, dtype, cuda)
+    for init in (None, s0):
+        yp, sp = ssd.ssd_chunked(x.float(), dt, A, B.float(), C.float(),
+                                 128, init)
+        first = None
+        for p in _ssd_plans(b, L, H, P, N, dtype, path):
+            st = torch.full_like(s0, float("nan"))
+            y = ssd.launch_plan(x, dt, A, B, C, init, st, None, p)
+            torch.cuda.synchronize()
+            _ssd_close(y, st, yp, sp, dtype)
+            if first is None:
+                first = (y, st)
+            else:
+                assert torch.equal(y, first[0]) and torch.equal(st, first[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["rec", "chunk"])
+@pytest.mark.parametrize("shape", [(4, 1, 24, 64, 1, 128),
+                                   (4, 6, 128, 64, 1, 16),
+                                   (3, 21, 8, 32, 2, 16)])
+def test_ssd_slots_in_place_scrambled(cuda, shape, path, dtype):
+    """The in-place form with slot_idx scrambled over a larger pool: the
+    named rows hold what the plain version writes (2e-4), every other row
+    is bitwise unchanged, write=False leaves the whole pool bitwise
+    unchanged, and y is the same with and without write."""
+    b, L, H, P, G, N = shape
+    gen = torch.Generator(device=cuda).manual_seed(7 + sum(shape))
+    x, dt, A, B, C, _ = _ssd_inputs(gen, b, L, H, P, G, N, dtype, cuda)
+    rows = 2 * b + 3
+    pool = 0.1 * torch.randn((rows, H, P, N), generator=gen, device=cuda)
+    perm = torch.randperm(rows, generator=gen, device=cuda)
+    idx = perm[:b].to(torch.int32)
+    others = perm[b:].long()
+    p = _ssd_plans(b, L, H, P, N, dtype, path)[0]
+    ref = pool.clone()
+    yp = ssd.ssd_slots_plain(x.float(), dt, A, B.float(), C.float(), 128,
+                             ref, idx)
+    got = {}
+    for write in (False, True):
+        st = pool.clone()
+        got[write] = ssd.launch_plan(x, dt, A, B, C, st,
+                                     st if write else None, idx, p)
+        torch.cuda.synchronize()
+        if write:
+            _ssd_close(got[write], st[idx.long()], yp, ref[idx.long()],
+                       dtype)
+            assert torch.equal(st[others], pool[others])
+        else:
+            assert torch.equal(st, pool)
+    assert torch.equal(got[False], got[True])
+    if p == ssd.plan_for(x, B):           # the wrapper the mixer calls
+        st = pool.clone()
+        assert torch.equal(ssd.ssd_slots(x, dt, A, B, C, 128, st, idx),
+                           got[True])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["rec", "chunk"])
+def test_ssd_strided_views_bitwise_on_both_paths(cuda, path):
+    """x, B and C given as views of one wider tensor (the mixer's layout)
+    give the contiguous inputs' result bit for bit on either path, f32 and
+    bf16."""
+    b, L, H, P, G, N = 2, 40, 4, 16, 2, 8
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        x, dt, A, B, C, s0 = _ssd_inputs(gen, b, L, H, P, G, N, dtype, cuda)
+        wide = torch.cat([x.reshape(b, L, H * P), B.reshape(b, L, G * N),
+                          C.reshape(b, L, G * N)], dim=-1)
+        xv = wide[..., : H * P].reshape(b, L, H, P)
+        Bv = wide[..., H * P: H * P + G * N].reshape(b, L, G, N)
+        Cv = wide[..., H * P + G * N:].reshape(b, L, G, N)
+        assert not xv.is_contiguous()
+        p = _ssd_plans(b, L, H, P, N, dtype, path)[0]
+        s1, s2 = torch.empty_like(s0), torch.empty_like(s0)
+        y1 = ssd.launch_plan(x, dt, A, B, C, s0, s1, None, p)
+        y2 = ssd.launch_plan(xv, dt, A, Bv, Cv, s0, s2, None, p)
+        assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.gpu
+def test_ssd_smem_matches_compiled_kernels(cuda):
+    """Both paths, at every supported N, dtype, state slice and (chunk
+    path) block size, ask for the dynamic shared memory their plan counts
+    (`chunk_smem`, `rec_smem`),
+    and that with the compiled kernel's static shared memory fits the
+    device's limit per block, SMEM_LIMIT."""
+    lib = ssd.LIBRARY.load()
+    for N in ssd.SUPPORTED_N:
+        for dtype in (torch.float32, torch.bfloat16):
+            esize = 2 if dtype == torch.bfloat16 else 4
+            for P in (8, 64, 128):
+                cases = [(0, ssd.rec_plan(P, N))]
+                widest = ssd.slice_max(P, N)
+                for q in (16, 32, 64):
+                    for pb in (8, 16, 32, 64, 128):
+                        smem = ssd.chunk_smem(q, N, pb, esize)
+                        if pb <= widest and P % pb == 0 \
+                                and smem <= SMEM_LIMIT:
+                            cases += [(1, ssd.Plan("chunk", pb, q, threads,
+                                                   smem))
+                                      for threads in (256, 512)]
+                for chunk_path, p in cases:
+                    dynamic, static, limit = _smem(
+                        lib.ssd_smem, chunk_path, p.threads, p.q, N, p.pb,
+                        esize == 2)
+                    case = (N, dtype, P, p, dynamic, static)
+                    assert limit == SMEM_LIMIT
+                    assert dynamic == p.smem, case
+                    assert dynamic + static <= limit, case
+
+
 @pytest.mark.gpu
 def test_ssd_wrapper_raises_instead_of_falling_back(cuda):
     """A CUDA tensor the kernel does not take raises; the plain version
@@ -569,13 +742,62 @@ def test_ssd_wrapper_raises_instead_of_falling_back(cuda):
         three = torch.zeros((1, 8, 3, 8), device=cuda)
         ssd.ssd(x, dt, A, three, three, 16)
     big = torch.zeros((1, 4, 1, 256), device=cuda)
-    wide = torch.zeros((1, 4, 1, 256), device=cuda)
-    with pytest.raises(ValueError, match="does not fit"):
+    wide = torch.zeros((1, 4, 1, 512), device=cuda)
+    with pytest.raises(ValueError, match="is not supported"):
         ssd.ssd(big, dt[:, :4, :1].contiguous(), A[:1].contiguous(), wide,
                 wide, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ssd.ssd(x[..., :12], dt, A, B, C, 16)
+    pool = torch.zeros((4, 2, 16, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_slots(x, dt, A, B, C, 16, pool.transpose(2, 3).contiguous()
+                      .transpose(2, 3))
     assert ssd.LAUNCHES == before
     ssd.ssd(x, dt, A, B, C, 16)
     assert ssd.LAUNCHES == before + 1
+
+
+_OUTSIDE_SLOT = """
+import torch
+from repro_torch.kernels.ssd_scan import ops as ssd
+dev = torch.device("cuda")
+x = torch.randn((1, 4, 2, 16), device=dev)
+dt = torch.full((1, 4, 2), 0.1, device=dev)
+A = -torch.ones(2, device=dev)
+B = torch.randn((1, 4, 1, 8), device=dev)
+pool = torch.zeros((4, 2, 16, 8), device=dev)
+for slot in (3, 4):
+    ssd.ssd_slots(x, dt, A, B, B, 16, pool,
+                  torch.tensor([slot], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    print("slot", slot, "ran", flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_ssd_slots_refuses_unaligned_state_and_stops_on_outside_slot(cuda):
+    """A state whose start is not 16-byte aligned is refused before any
+    launch (the recurrence moves its rows as 16-byte vectors); a slot
+    outside the state stops the kernel with a CUDA error instead of
+    reading and writing past the pool (in a process of its own: the
+    error ends that process's CUDA context)."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, A, B, C, _ = _ssd_inputs(gen, 1, 4, 2, 16, 1, 8, torch.float32,
+                                    cuda)
+    flat = torch.zeros(4 * 2 * 16 * 8 + 1, device=cuda)
+    shifted = flat[1:].view(4, 2, 16, 8)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    before = ssd.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssd.ssd_slots(x, dt, A, B, C, 16, shifted)
+    assert ssd.LAUNCHES == before
+    src = Path(ssd.__file__).resolve().parents[3]
+    run = subprocess.run([sys.executable, "-c", _OUTSIDE_SLOT],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(src)})
+    assert "slot 3 ran" in run.stdout, run.stderr
+    assert "slot 4 ran" not in run.stdout
+    assert run.returncode != 0 and "CUDA error" in run.stderr, run.stderr
 
 
 @pytest.mark.gpu

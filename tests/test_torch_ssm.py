@@ -8,6 +8,13 @@ the SSM and hybrid models, on the CPU.
   `tests/test_kernels.py` plus L = 1, a ragged L, an initial state and a
   dt = 0 tail, at rtol = atol = 2e-4 (the reference's own tolerance: f32
   sums in another order and another chunking).
+* The in-place entry `ssd_slots` (plain version) against the same
+  references with its initial state gathered from a scrambled slot pool;
+  write=False leaves the pool bitwise unchanged, write=True changes only
+  the named rows, and the result does not depend on the pool's capacity.
+* The kernel's `plan` (plain Python): the recurrence up to
+  `rec_max_l(N)` tokens, the chunk path above; its P-slices cover P exactly and its
+  shared memory fits the H100's limit.
 * `ssm_mixer` against the JAX mixer without state, on a slot pool, with
   a token mask and with write=False, at f32 and bf16 activations
   (1e-4 at f32; bf16 inputs, f32 arithmetic after the promoting
@@ -29,6 +36,7 @@ from repro.kernels.ssd_scan.ops import ssd as jax_ssd_pallas
 from repro.models import model as JM
 from repro.models import ssm as JS
 from repro_torch import config as tconfig
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TS
@@ -129,11 +137,11 @@ def test_ssd_masked_tail_leaves_state_unchanged():
 
 
 def test_ssd_chunk_length_changes_only_summation_order():
-    """The kernel scans in chunks of its own (`kernel_chunk`), the plain
+    """The kernel scans in chunks of its own (`plan(...).q`), the plain
     version in cfg.chunk_size: the two chunkings agree to f32 order."""
     case = (1, 300, 4, 64, 1, 128, 128)
     args = _ssd_inputs(case, seed=11)
-    q = ssd_ops.kernel_chunk(64, 128, 300)
+    q = ssd_ops.plan(1, 300, 4, 64, 1, 128, torch.float32).q
     assert q == 64
     y1, s1 = _port_ssd(args, 128)
     y2, s2 = _port_ssd(args, q)
@@ -141,21 +149,188 @@ def test_ssd_chunk_length_changes_only_summation_order():
     _close(s1, s2.numpy(), SSD_TOL)
 
 
-@pytest.mark.parametrize("P,N,L,Q", [(64, 128, 512, 64), (64, 128, 1, 1),
-                                     (64, 16, 512, 64), (64, 16, 5, 5),
-                                     (128, 256, 512, 16)])
+@pytest.mark.parametrize("P,N,L,Q", [(64, 128, 512, 64), (64, 128, 1, 16),
+                                     (64, 16, 512, 64), (64, 16, 5, 16),
+                                     (128, 256, 512, 32)])
 def test_kernel_chunk_fits_shared_memory(P, N, L, Q):
-    """The kernel's inner chunk at the served shapes (mamba2-130m P 64
-    N 128, jamba P 64 N 16) and a large state: the tiles fit the
-    dynamic shared memory a block may ask for."""
-    assert ssd_ops.kernel_chunk(P, N, L) == Q
-    assert ssd_ops.smem_bytes(P, N, Q) <= ssd_ops.SMEM_MAX
+    """The plan's chunk (chunk path) or staged tokens (recurrence) at the
+    served shapes (mamba2-130m P 64 N 128, jamba P 64 N 16) and a large
+    state, f32: the tiles fit the dynamic shared memory a block may ask
+    for, and at the served widths the chunk path's blocks all run at
+    once."""
+    p = ssd_ops.plan(1, L, 24, P, 1, N, torch.float32)
+    assert p.path == ("rec" if L <= ssd_ops.rec_max_l(N) else "chunk")
+    assert p.q == Q
+    assert p.smem <= SMEM_LIMIT
+    if p.path == "chunk" and N <= 128:
+        assert (P // p.pb) * 24 <= ssd_ops.N_SM * _blocks_per_sm(p)
 
 
 def test_ssd_wrapper_refuses_other_devices():
     x = torch.zeros((1, 2, 2, 4), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ssd_ops.ssd(x, x[..., 0], x[0, 0, :, 0], x, x, 16)
+
+
+def _pool_case(case, seed, rows):
+    """Scan inputs and a (rows, H, P, N) state pool whose named slots are
+    scrambled over it (numpy)."""
+    x, dt, A, B, C, _ = _ssd_inputs(case, seed, init=False)
+    b, _, H, P, _, N, _ = case
+    rng = np.random.default_rng(seed + 1)
+    pool = (0.1 * rng.standard_normal((rows, H, P, N))).astype(np.float32)
+    sidx = rng.permutation(rows)[:b].astype(np.int32)
+    return (x, dt, A, B, C), pool, sidx
+
+
+SLOT_CASES = [(3, 1, 4, 16, 2, 8, 16), (2, 6, 8, 16, 2, 8, 16),
+              (2, 50, 8, 16, 2, 8, 16), (1, 70, 2, 64, 1, 128, 64)]
+
+
+@pytest.mark.parametrize("case", SLOT_CASES)
+def test_ssd_slots_plain_matches_references(case):
+    """The in-place entry's plain version (what `ssd_slots` runs on CPU
+    tensors): y and the rows it writes against the JAX Pallas `ssd`
+    (interpret mode) and `ssd_reference` started from the gathered rows,
+    at 2e-4 (f32 sums in another order)."""
+    args, pool, sidx = _pool_case(case, sum(case), rows=7)
+    state = torch.from_numpy(pool.copy())
+    y = ssd_ops.ssd_slots(*map(torch.from_numpy, args), case[-1], state,
+                          torch.from_numpy(sidx))
+    assert ssd_ops.LAUNCHES == 0
+    jargs = [jnp.asarray(a) for a in args]
+    init = jnp.asarray(pool[sidx])
+    for yr, sr in (jax_ssd_pallas(*jargs, chunk=case[-1], initial_state=init,
+                                  interpret=True),
+                   JS.ssd_reference(*jargs, initial_state=init)):
+        _close(y, yr, SSD_TOL)
+        _close(state[torch.from_numpy(sidx).long()], sr, SSD_TOL)
+
+
+@pytest.mark.parametrize("write", [False, True])
+def test_ssd_slots_writes_only_named_rows(write):
+    """write=False leaves the whole pool bitwise unchanged; write=True
+    replaces exactly the named rows (with ssd's final state) and leaves
+    every other row bitwise as it was. y is the same either way."""
+    case = (3, 9, 4, 16, 2, 8, 16)
+    args, pool, sidx = _pool_case(case, 21, rows=8)
+    targs = list(map(torch.from_numpy, args))
+    state = torch.from_numpy(pool.copy())
+    y = ssd_ops.ssd_slots(*targs, 16, state, torch.from_numpy(sidx),
+                          write=write)
+    want_y, want_s = ssd_ops.ssd(*targs, 16, torch.from_numpy(pool[sidx]))
+    assert torch.equal(y, want_y)
+    others = [r for r in range(8) if r not in sidx]
+    assert np.array_equal(state[others].numpy(), pool[others])
+    if write:
+        assert torch.equal(state[torch.from_numpy(sidx).long()], want_s)
+    else:
+        assert np.array_equal(state.numpy(), pool)
+
+
+def test_ssd_slots_does_not_depend_on_pool_capacity():
+    """The plan takes no capacity and no slot indices, and the same rows
+    in pools of 5 and 12 slots (at other indices) give bitwise equal y
+    and final rows."""
+    import inspect
+    assert list(inspect.signature(ssd_ops.plan).parameters) == [
+        "b", "L", "H", "P", "G", "N", "dtype"]
+    case = (2, 20, 4, 16, 2, 8, 16)
+    args, pool, _ = _pool_case(case, 8, rows=5)
+    targs = list(map(torch.from_numpy, args))
+    small = torch.from_numpy(pool.copy())
+    big = torch.zeros((12, *pool.shape[1:]))
+    big[[9, 4]] = small[[1, 3]]
+    y1 = ssd_ops.ssd_slots(*targs, 16, small, torch.tensor([1, 3],
+                                                            dtype=torch.int32))
+    y2 = ssd_ops.ssd_slots(*targs, 16, big, torch.tensor([9, 4],
+                                                          dtype=torch.int32))
+    assert torch.equal(y1, y2)
+    assert torch.equal(small[[1, 3]], big[[9, 4]])
+
+
+@pytest.mark.parametrize("write", [False, True])
+def test_ssd_slots_without_slots_takes_the_first_rows(write):
+    """No slot_idx: request b reads row b of a pool with more rows than
+    requests, and with `write` only the first b rows change; a slot
+    outside the pool raises (the kernel stops on one)."""
+    case = (2, 12, 4, 16, 2, 8, 16)
+    args, pool, _ = _pool_case(case, 5, rows=5)
+    targs = list(map(torch.from_numpy, args))
+    state = torch.from_numpy(pool.copy())
+    y = ssd_ops.ssd_slots(*targs, 16, state, write=write)
+    want_y, want_s = ssd_ops.ssd(*targs, 16, torch.from_numpy(pool[:2]))
+    assert torch.equal(y, want_y)
+    assert np.array_equal(state[2:].numpy(), pool[2:])
+    assert torch.equal(state[:2], want_s if write
+                       else torch.from_numpy(pool[:2]))
+    with pytest.raises(IndexError):
+        ssd_ops.ssd_slots(*targs, 16, state,
+                          torch.tensor([1, 5], dtype=torch.int32))
+
+
+def test_ssd_slots_without_state_starts_from_zeros():
+    """state=None: the scan starts from zeros and writes nothing (the
+    self-contained mixer)."""
+    case = (2, 12, 4, 16, 2, 8, 16)
+    args, _, _ = _pool_case(case, 3, rows=2)
+    targs = list(map(torch.from_numpy, args))
+    y = ssd_ops.ssd_slots(*targs, 16, None)
+    assert torch.equal(y, ssd_ops.ssd(*targs, 16)[0])
+
+
+PLAN_SHAPES = [(b, L, H, P, N) for b in (1, 4) for L in (1, 6, 16, 17, 77,
+                                                           512)
+               for H, P in ((24, 64), (128, 64), (8, 32), (4, 8), (2, 128))
+               for N in ssd_ops.SUPPORTED_N]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_covers_P_and_fits_shared_memory(dtype):
+    """Every plan's P-slices cover P exactly (pb >= 8 divides P), its
+    blocks have at most 256 threads on the recurrence and 256 or 512 on
+    the chunk path (whole 16-row chunk tiles, q <= 64) and its dynamic
+    shared memory (the kernels declare
+    no static shared memory; the `gpu` tests hold both against the
+    compiled kernels) fits the H100's 227 KB. The path is the recurrence
+    exactly up to rec_max_l(N) tokens, and the plan is the same whatever
+    the number of groups."""
+    for b, L, H, P, N in PLAN_SHAPES:
+        p = ssd_ops.plan(b, L, H, P, 1, N, dtype)
+        case = (b, L, H, P, N, p)
+        assert p.pb >= 8 and P % p.pb == 0, case
+        assert p.threads <= 512 and p.smem <= SMEM_LIMIT, case
+        assert p.path == ("rec" if L <= ssd_ops.rec_max_l(N) else "chunk"), case
+        if p.path == "chunk":
+            assert p.q % 16 == 0 and 16 <= p.q <= 64
+            assert p.threads in (256, 512)
+            assert p.pb <= ssd_ops.slice_max(P, N), case
+        else:
+            assert p.threads == p.pb * N // ssd_ops.REC_COLUMNS
+        assert ssd_ops.plan(b, L, H, P, 2, N, dtype) == p
+
+
+def _blocks_per_sm(p):
+    """Chunk-path blocks of plan p one SM holds at once."""
+    return (1 if p.threads == ssd_ops.CHUNK_THREADS_ONE
+            else ssd_ops.chunk_blocks_per_sm(p.smem))
+
+
+@pytest.mark.parametrize("b,L,H,N,q,pb,threads", [
+    (1, 512, 24, 128, 64, 16, 512), (1, 128, 24, 128, 64, 16, 512),
+    (1, 512, 128, 16, 64, 64, 512), (2, 77, 24, 128, 32, 16, 256),
+    (4, 1000, 24, 128, 32, 16, 256)])
+def test_plan_chunk_runs_in_one_wave(b, L, H, N, q, pb, threads):
+    """The chunk path at the served prefill shapes (mamba2-130m: 24 heads,
+    N 128; jamba: 128 heads, N 16; G = 4 at b 2) takes the longest chunk
+    and the narrowest slice whose blocks all run at once on the H100's
+    132 SMs, one an SM with 16 warps where that fits, else two with 8;
+    where neither does (4 long prefills), 32 tokens and the widest
+    slice."""
+    p = ssd_ops.plan(b, L, H, 64, 1, N, torch.float32)
+    assert (p.path, p.q, p.pb, p.threads) == ("chunk", q, pb, threads)
+    waves = (64 // p.pb) * H * b / (ssd_ops.N_SM * _blocks_per_sm(p))
+    assert waves <= 1 or (b, L) == (4, 1000)
 
 
 # ------------------------------------------------------------- the mixer
@@ -394,6 +569,31 @@ def test_slot_steps(pair):
     lt, tc, _ = TM.slot_extend(tp, tcfg, torch.tensor(ct), tc, ts)
     _close(lt[real], np.asarray(lj)[real])
     caches_close(tc, jc, tcfg, rows=real_slots)
+
+
+def test_verification_writes_no_ssm_state(pair):
+    """A verification forward (write=False) on a slot pool, with padding
+    rows on the scratch slot, leaves every SSM leaf of every slot bitwise
+    as it was: the scan is handed no state to write."""
+    cfg, tcfg, jp, tp = pair
+    tc = TM.init_cache(tcfg, 5, MAX_LEN, dtype=torch.float32, device="cpu")
+    ts = torch.tensor([3, 1, 0, 0], dtype=torch.int32)
+    TM.slot_extend(tp, tcfg, torch.tensor(_tokens(5, (4, 7), cfg.vocab)),
+                   tc, ts)
+    before = [{f: t.clone() for f, t in layer["self"].items()}
+              for layer in tc["layers"] if "ssm" in layer["self"]]
+    assert before
+    G = 4
+    depth = torch.arange(G, dtype=torch.int32).repeat(4, 1)
+    mask = torch.tril(torch.ones((G, G), dtype=torch.bool)).repeat(4, 1, 1)
+    TM.slot_verify_chunk(tp, tcfg, torch.tensor(_tokens(6, (4, G),
+                                                        cfg.vocab)),
+                         tc, ts, depth, mask)
+    after = [layer["self"] for layer in tc["layers"] if "ssm" in
+             layer["self"]]
+    for b, a in zip(before, after):
+        for f in b:
+            assert torch.equal(a[f], b[f]), f
 
 
 def test_params_from_numpy(pair):
