@@ -42,11 +42,31 @@ wrappers), then serves the CoSine path end to end through
            (one 1:7 period, attention at layer 4) with the dense FFN in
            place of the MoE, with two drafters sharing its weights, on
            the resident pool;
-  phase G  phase F on the paged pool: its streams equal phase F's.
+  phase G  phase F on the paged pool: its streams equal phase F's;
+  phase H  phase A on the wall-clock backend (`backend="async"`): the
+           target verifies on a server thread with a CUDA stream of its
+           own while the engine thread drafts the next cohort on another
+           stream; every forward must run on its side's stream (neither
+           the legacy default one), no `torch.cuda.synchronize` may run
+           during the serve, and `overlap_frac` (the share of cohorts
+           whose drafting began before the previous verification ended)
+           must reach 0.5;
+  phase H-serial  the same engine with `executor.overlap = False`, the
+           reference's serial twin; then a `torch.profiler` window over a
+           few of phase H's iterations (device busy share, top device
+           operations, the longest device-idle gaps with what each host
+           thread was doing);
+  phase I  phase E on the wall-clock backend (the target's SSM state
+           written in place on the server's stream).
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
-the model's calls of that kernel in the phase. The last line is
+the model's calls of that kernel in the phase (counted under a lock: on
+the wall-clock backend two threads launch). Phases H, H-serial and I
+print their wall tokens/s beside their simulated twin's (A, E), the
+verifier idle fractions and their ratio `idle_ratio` (reported, not
+gated), the draft-ahead outcomes and the server's spans by kind. The
+last line is
 `{"ok": true, "device": {...}}`; any failure exits non-zero before it.
 Without CUDA, or without the repository beside it, it exits non-zero and
 prints no result.
@@ -918,9 +938,16 @@ class PathCounters:
     and attention layers of each forward — and the snapshot gathers of
     attention layers with their `take_rows` copies, to hold every
     kernel's launch counter against them; also counts any call of a
-    plain version (there must be none)."""
+    plain version (there must be none). Every count is taken under one
+    lock: on the async backend two threads run forwards at once. It also
+    records the CUDA stream each thread ran its forwards on and counts
+    calls of `torch.cuda.synchronize` (a device-wide wait that would
+    serialize the two threads)."""
 
     def __init__(self):
+        import threading
+
+        import torch
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.int8_gemv import ops as ig
         from repro_torch.kernels.paged_attention import ops as pa
@@ -942,6 +969,11 @@ class PathCounters:
         self.ssd_forms = dict.fromkeys(SSD_FORMS, 0)
         self.take_rows_calls = 0
         self.plain_calls = 0
+        self.device_syncs = 0
+        self.streams = {}
+        self._torch = torch
+        self._lock = threading.Lock()
+        self._thread = threading.current_thread
         self._saved = []
 
     def _patch(self, mod, name, fn):
@@ -950,14 +982,16 @@ class PathCounters:
 
     def _n_int8(self, params):
         key = id(params)
-        if key not in self.int8_per_forward:
+        n = self.int8_per_forward.get(key)
+        if n is None:
             q = self.quantize.is_quantized
             n = sum(q(w) for layer in params["layers"]
                     for sub in ("mixer", "ffn")
                     for w in layer.get(sub, {}).values())
             n += q(params.get("head")) + q(params["embed"])
-            self.int8_per_forward[key] = n
-        return self.int8_per_forward[key]
+            with self._lock:
+                self.int8_per_forward[key] = n
+        return n
 
     def __enter__(self):
         orig_attend = self.attn.attend_partial
@@ -967,6 +1001,8 @@ class PathCounters:
         orig_take = self.attn.take_rows
         orig_int8 = self.ig.int8_gemv
         orig_slots = self.sd.ssd_slots
+        orig_sync = self._torch.cuda.synchronize
+        lock, cuda = self._lock, self._torch.cuda
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
@@ -974,49 +1010,65 @@ class PathCounters:
                     else "snapshot" if kw.get("slot_idx") is None
                     else "decode" if T == 1
                     else "prefill" if T > 64 else "commit/verify")
-            self.resident[form] = self.resident.get(form, 0) + 1
+            with lock:
+                self.resident[form] = self.resident.get(form, 0) + 1
             return orig_attend(q, k, v, q_pos, k_pos, **kw)
 
         def paged(q, *a, **kw):
             T = q.shape[1]
             form = ("decode" if T == 1 else "prefill" if T > 64
                     else "commit/verify")
-            self.paged[form] = self.paged.get(form, 0) + 1
+            with lock:
+                self.paged[form] = self.paged.get(form, 0) + 1
             return orig_paged(q, *a, **kw)
 
         def apply(params, *a, **kw):
-            self.int8_products += self._n_int8(params)
+            n_int8 = self._n_int8(params)
             n_ssm = sum("A_log" in layer["mixer"] for layer in params["layers"])
-            self.forwards += 1
-            self.ssm_layer_calls += n_ssm
-            self.attn_layer_calls += len(params["layers"]) - n_ssm
+            where = (self._thread().name, cuda.current_stream().cuda_stream)
+            with lock:
+                self.int8_products += n_int8
+                self.forwards += 1
+                self.ssm_layer_calls += n_ssm
+                self.attn_layer_calls += len(params["layers"]) - n_ssm
+                self.streams[where] = self.streams.get(where, 0) + 1
             return orig_apply(params, *a, **kw)
 
         def gather(cfg, cache, *a, **kw):
-            self.snapshots_layers += sum("slot_pos" in layer["self"]
-                                         for layer in cache["layers"])
+            n = sum("slot_pos" in layer["self"] for layer in cache["layers"])
+            with lock:
+                self.snapshots_layers += n
             return orig_gather(cfg, cache, *a, **kw)
 
         def take(*a, **kw):
-            self.take_rows_calls += 1
+            with lock:
+                self.take_rows_calls += 1
             return orig_take(*a, **kw)
 
         def int8(x, *a, **kw):
             m = x.numel() // x.shape[-1]
-            self.int8_rows[m] = self.int8_rows.get(m, 0) + 1
+            with lock:
+                self.int8_rows[m] = self.int8_rows.get(m, 0) + 1
             return orig_int8(x, *a, **kw)
 
         def slots(x, dt, A, B, C, *a, **kw):
             form = ("L = 1" if x.shape[1] == 1
                     else self.sd.plan_for(x, B).path)
-            self.ssd_forms[form] += 1
+            with lock:
+                self.ssd_forms[form] += 1
             return orig_slots(x, dt, A, B, C, *a, **kw)
 
         def plain(orig):
             def call(*a, **kw):
-                self.plain_calls += 1
+                with lock:
+                    self.plain_calls += 1
                 return orig(*a, **kw)
             return call
+
+        def sync(*a, **kw):
+            with lock:
+                self.device_syncs += 1
+            return orig_sync(*a, **kw)
 
         self._patch(self.attn, "attend_partial", attend)
         self._patch(self.pa, "paged_attend_partial", paged)
@@ -1025,6 +1077,7 @@ class PathCounters:
         self._patch(self.attn, "take_rows", take)
         self._patch(self.ig, "int8_gemv", int8)
         self._patch(self.sd, "ssd_slots", slots)
+        self._patch(cuda, "synchronize", sync)
         for mod, name in ((self.fa, "attend_partial_plain"),
                           (self.pa, "paged_attend_partial_plain"),
                           (self.ig, "int8_gemv_plain"),
@@ -1150,21 +1203,34 @@ def target_references(torch, M, cfg, params, prompts):
     return out
 
 
-def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
-                paged=False, int8=False, observe=None, attention=True,
-                ssm=False):
-    """Serve `prompts` through the engine and check the run; returns
-    (summary, committed streams, launches by kernel)."""
+def make_engine(target, drafters, paged=False, backend=None):
+    """The serving phases' engine: `cosine`, two drafters a request, tree
+    width 2, on the card."""
     from repro_torch.config import CoSineConfig
-    from repro_torch.models import model as M
     from repro_torch.serving.engine import SpeculativeEngine
 
     cos = CoSineConfig(n_drafters=len(drafters), drafters_per_request=2,
                        tree_width=2, paged_pool=paged, page_size=PAGE_SIZE,
                        pool_pages=POOL_PAGES)
+    return SpeculativeEngine(target, drafters, cos, strategy="cosine",
+                             max_len=MAX_LEN, seed=0, backend=backend,
+                             device="cuda")
+
+
+def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
+                paged=False, int8=False, observe=None, attention=True,
+                ssm=False, backend=None, overlap=True):
+    """Serve `prompts` through the engine and check the run; returns
+    (summary, committed streams, launches by kernel). With
+    `backend="async"` the run is also held to the wall-clock backend's
+    contract (`check_async_run`) and its wall-clock quantities join the
+    summary; `overlap=False` serves the serial twin (no draft-ahead)."""
+    from repro_torch.models import model as M
+
     t0 = time.perf_counter()
-    eng = SpeculativeEngine(target, drafters, cos, strategy="cosine",
-                            max_len=MAX_LEN, seed=0, device="cuda")
+    eng = make_engine(target, drafters, paged=paged, backend=backend)
+    if backend == "async":
+        eng.executor.overlap = overlap
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
@@ -1172,11 +1238,19 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
     torch.cuda.reset_peak_memory_stats()
     with PathCounters() as calls:
         t0 = time.perf_counter()
-        stats = eng.run()
+        try:
+            stats = eng.run()
+        finally:
+            # the server is joined before anything else runs on the card
+            eng.backend.shutdown()
+        syncs_in_run = calls.device_syncs
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     calls.check(label, paged, int8, attention=attention, ssm=ssm)
+    if backend == "async":
+        wallclock = check_async_run(torch, label, eng, stats, calls,
+                                    syncs_in_run, overlap)
     if stats.total_committed != len(prompts) * NEW_TOKENS:
         fail(f"{label}: committed {stats.total_committed} tokens, expected "
              f"{len(prompts) * NEW_TOKENS}")
@@ -1244,6 +1318,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results)
     if extra is not None:
         summary.update(extra())
+    if backend == "async":
+        summary.update(wallclock)
     print(f"{label}: wall clock {wall:.2f} s for {stats.total_committed} "
           f"tokens ({stats.total_committed / wall:.1f} tokens/s on the "
           f"card); simulated-clock throughput {stats.throughput_tps:.1f} "
@@ -1253,8 +1329,223 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
           f"pool reads {calls.paged}, int8 products {calls.int8_products}, "
           f"SSM layers {calls.ssm_layer_calls} of {calls.forwards} forwards "
           f"(SSD launches by form {calls.ssd_forms})", flush=True)
-    eng.backend.shutdown()
     return summary, streams, calls.launches
+
+
+def check_async_run(torch, label, eng, stats, calls, syncs_in_run, overlap):
+    """Hold a run of the wall-clock backend to its contract and gather
+    the reference's wall-clock quantities (`benchmarks/wallclock.py`):
+    the target's forwards ran on the server thread's stream and the
+    drafters' on the engine thread's, two distinct streams, neither the
+    legacy default one; no device-wide synchronize ran during the run.
+    Returns overlap_frac (the share of cohorts whose drafting began
+    before the previous verification finished), the verifier idle
+    fraction, the draft-ahead outcomes and the server's spans summed by
+    kind."""
+    from repro_torch.serving.backend import AsyncTorchBackend
+
+    b = eng.backend
+    if not isinstance(b, AsyncTorchBackend):
+        fail(f"{label}: the engine did not get the async backend")
+    default = torch.cuda.default_stream().cuda_stream
+    ts, ds = b.target_stream.cuda_stream, b.draft_stream.cuda_stream
+    server, engine = set(), set()
+    n_server = n_engine = 0
+    for (thread, stream), n in calls.streams.items():
+        if thread.startswith("verify-server"):
+            server.add(stream)
+            n_server += n
+        else:
+            engine.add(stream)
+            n_engine += n
+    if server != {ts} or engine != {ds} or ts == ds or default in (ts, ds):
+        fail(f"{label}: forwards ran on streams {calls.streams} (server "
+             f"{ts}, drafters {ds}, default {default})")
+    if syncs_in_run:
+        fail(f"{label}: {syncs_in_run} torch.cuda.synchronize calls during "
+             "the run (a device-wide wait serializes the two threads)")
+    rs = stats.records
+    hits = sum(1 for prev, nxt in zip(rs, rs[1:])
+               if nxt.draft_start_ms < prev.verify_start_ms + prev.verify_ms)
+    overlap_frac = hits / max(len(rs) - 1, 1)
+    busy, idle = stats.verifier_busy_ms, stats.verifier_idle_ms
+    spans, tasks = {}, {}
+    for sp in b.timeline:
+        spans[sp["kind"]] = spans.get(sp["kind"], 0.0) + sp["t1"] - sp["t0"]
+        tasks[sp["kind"]] = tasks.get(sp["kind"], 0) + 1
+    out = dict(backend="async", overlap=overlap, overlap_frac=overlap_frac,
+               verifier_busy_ms=busy, verifier_idle_ms=idle,
+               verifier_idle_frac=idle / max(busy + idle, 1e-9),
+               draft_ahead_survived=eng.executor.n_survived,
+               draft_ahead_invalidated=eng.executor.n_invalidated,
+               server_ms_by_kind=spans, server_tasks_by_kind=tasks,
+               server_forwards=n_server,
+               engine_forwards=n_engine)
+    print(f"{label}: overlap_frac {overlap_frac:.3f} ({hits} of "
+          f"{len(rs) - 1} cohorts began drafting before the previous "
+          f"verification finished); verifier busy {busy:.1f} ms, idle "
+          f"{idle:.1f} ms (idle fraction {out['verifier_idle_frac']:.3f}); "
+          f"draft-ahead survived {eng.executor.n_survived}, invalidated "
+          f"{eng.executor.n_invalidated}; server spans by kind (ms, tasks) "
+          f"{ {k: (round(v, 1), tasks[k]) for k, v in spans.items()} }; "
+          f"forwards on the "
+          f"server's stream {n_server}, on the drafters' {n_engine}",
+          flush=True)
+    return out
+
+
+class HostLog:
+    """Wall intervals (perf_counter seconds) of labelled host work, per
+    thread: wraps functions so that each call is recorded as (thread,
+    label, t0, t1). Used by the profiler window to say what each host
+    thread was doing while the device idled."""
+
+    def __init__(self):
+        import threading
+        self.spans = []
+        self._lock = threading.Lock()
+        self._thread = threading.current_thread
+        self._saved = []
+
+    def wrap(self, owner, name, label):
+        orig = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                t1 = time.perf_counter()
+                with self._lock:
+                    self.spans.append((self._thread().name, label, t0, t1))
+
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, timed)
+
+    def restore(self):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+
+
+def _merge(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def profile_async_window(torch, target, drafters, prompts, warm=4, steps=6):
+    """`torch.profiler` over `steps` iterations of phase H's engine (after
+    `warm` unprofiled ones): the device's busy share over the window (the
+    union of its kernels, copies and sets), the device operations that
+    took the most time, and the longest device-idle gaps with what each
+    host thread was doing meanwhile (labelled wall intervals of the
+    server's and the engine's calls). Returns a summary dict (not a trace
+    file)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.serving import backend as backend_mod
+
+    eng = make_engine(target, drafters, backend="async")
+    b = eng.backend
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    host = HostLog()
+    host.wrap(b.target, "verify_device", "server: verify forward (enqueue)")
+    host.wrap(b.target, "extend_committed", "server: commit forward")
+    host.wrap(b.target, "prefill_requests", "server: target prefill")
+    host.wrap(torch.cuda.Stream, "synchronize",
+              "server: wait for its stream")
+    for name in ("draft_snapshot", "draft_extend", "draft_decode",
+                 "prefill_drafters", "commit_drafters"):
+        host.wrap(b, name, f"engine: drafter {name.split('_', 1)[1]}")
+    host.wrap(backend_mod.VerifyHandle, "result",
+              "engine: wait for verification + logits to host")
+    host.wrap(eng, "_resolve_tails", "engine: wait for commit tails")
+    try:
+        with b.engine_stream():
+            for _ in range(warm):
+                eng.step()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                with record_function("chip_smoke anchor"):
+                    t_anchor = time.perf_counter()
+                t_w0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                t_w1 = time.perf_counter()
+    finally:
+        host.restore()
+        b.shutdown()
+    events = prof.events()
+    anchor = [e for e in events if e.name == "chip_smoke anchor"]
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not anchor or not dev:
+        print("phase H profiler: torch.profiler recorded no device "
+              "activity; device busy share not measured", flush=True)
+        return dict(profiler="no device activity recorded")
+    # profiler times are us from the trace's start; host spans are
+    # perf_counter seconds: the anchor ties the two clocks
+    off = anchor[0].time_range.start - t_anchor * 1e6
+
+    def us(t):
+        return t * 1e6 + off
+
+    w0, w1 = us(t_w0), us(t_w1)
+    ivals = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
+             for e in dev if e.time_range.end > w0 and e.time_range.start < w1]
+    merged = _merge(ivals)
+    busy = sum(b1 - b0 for b0, b1 in merged)
+    by_name = {}
+    for e in dev:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    edges = [w0] + [x for iv in merged for x in iv] + [w1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), reverse=True)[:5]
+    spans = [(th, lab, us(a), us(bb)) for th, lab, a, bb in host.spans]
+    threads = sorted({th for th, *_ in spans})
+    gap_rows = []
+    for length, g0, g1 in gaps:
+        doing = {}
+        for th in threads:
+            acc = {}
+            for th2, lab, a, bb in spans:
+                ov = min(bb, g1) - max(a, g0)
+                if th2 == th and ov > 0:
+                    acc[lab] = acc.get(lab, 0.0) + ov
+            acc["(unlabelled host work or idle)"] = max(
+                0.0, length - sum(acc.values()))
+            doing[th] = {k: round(v / 1e3, 3) for k, v in
+                         sorted(acc.items(), key=lambda kv: -kv[1])}
+        gap_rows.append(dict(ms=length / 1e3, starts_ms=(g0 - w0) / 1e3,
+                             host=doing))
+    window_ms = (w1 - w0) / 1e3
+    out = dict(window_ms=window_ms, steps=steps,
+               device_busy_ms=busy / 1e3, device_busy_share=busy / (w1 - w0),
+               device_ops=len(ivals),
+               top_device_ops=[dict(name=n, calls=c, ms=t / 1e3)
+                               for n, (c, t) in top],
+               longest_idle_gaps=gap_rows,
+               profiled_cpu_threads=sorted({e.thread for e in events
+                                            if e.device_type
+                                            == DeviceType.CPU}))
+    print(f"phase H profiler: {steps} iterations in {window_ms:.1f} ms; the "
+          f"device was busy {busy / 1e3:.1f} ms ({out['device_busy_share']:.1%}"
+          f" of the window) over {len(ivals)} device operations", flush=True)
+    for row in out["top_device_ops"]:
+        print(f"  device op {row['ms']:8.2f} ms {row['calls']:6d} calls  "
+              f"{row['name'][:100]}", flush=True)
+    for g in gap_rows:
+        print(f"  device idle {g['ms']:.3f} ms from {g['starts_ms']:.2f} ms: "
+              f"{g['host']}", flush=True)
+    return out
 
 
 def observe_pools(eng, label="phase C"):
@@ -1336,6 +1627,39 @@ def observe_drafter_steps(eng):
                     drafter_decode_steps=[len(t) for t in times])
 
     return report
+
+
+def compare_wallclock(async_sum, serial_sum, sim_sum):
+    """A wall-clock phase beside its simulated twin (phase A or E) and,
+    where there is one, its serial twin: wall tokens/s of each, the
+    verifier idle fractions and their ratio `idle_ratio` (the
+    reference's `wallclock_serving` row; reported, not gated)."""
+    label = async_sum["phase"]
+    out = dict(phase=label,
+               wall_tokens_per_s=async_sum["wall_tokens_per_s"],
+               simulated_backend_wall_tokens_per_s=sim_sum[
+                   "wall_tokens_per_s"],
+               simulated_backend_phase=sim_sum["phase"],
+               overlap_frac=async_sum["overlap_frac"],
+               verifier_idle_frac=async_sum["verifier_idle_frac"])
+    line = (f"{label}: wall {async_sum['wall_tokens_per_s']:.2f} tokens/s on "
+            f"the async backend; {sim_sum['phase']} (simulated backend) "
+            f"{sim_sum['wall_tokens_per_s']:.2f} tokens/s on the card")
+    if serial_sum is not None:
+        ratio = (async_sum["verifier_idle_frac"]
+                 / max(serial_sum["verifier_idle_frac"], 1e-9))
+        out.update(serial_wall_tokens_per_s=serial_sum["wall_tokens_per_s"],
+                   serial_overlap_frac=serial_sum["overlap_frac"],
+                   serial_verifier_idle_frac=serial_sum[
+                       "verifier_idle_frac"],
+                   idle_ratio=ratio)
+        line += (f"; {serial_sum['phase']} "
+                 f"{serial_sum['wall_tokens_per_s']:.2f} tokens/s; verifier "
+                 f"idle fraction {async_sum['verifier_idle_frac']:.3f} "
+                 f"(serial {serial_sum['verifier_idle_frac']:.3f}), "
+                 f"idle_ratio {ratio:.3f} (reported, not gated)")
+    print(line, flush=True)
+    return out
 
 
 def main() -> int:
@@ -1431,7 +1755,7 @@ def main() -> int:
 
     # phase A: qwen1.5-4b target + two qwen2-0.5b drafters
     full = [(QWEN2_0_5B, dparams[i], f"d{i}") for i in range(2)]
-    _, streams_a = run("phase A", drafters=full, **dense)
+    sum_a, streams_a = run("phase A", drafters=full, **dense)
     # phase B: perfect drafters sharing the target's weights
     sum_b, _ = run("phase B", drafters=[(QWEN1_5_4B, tparams, f"p{i}")
                                         for i in range(2)], **dense)
@@ -1462,6 +1786,19 @@ def main() -> int:
         int8_launch_classes[int8_row_class(m)] += n
     print(f"phase D int8 launches by rows {by_rows}: {int8_launch_classes}",
           flush=True)
+    # phases H and H-serial: phase A on the wall-clock backend, drafting
+    # the next cohort while a verification is in flight, then its serial
+    # twin (no draft-ahead); then a profiler window over phase H's loop
+    sum_h, _ = run("phase H", drafters=full, backend="async", **dense)
+    sum_hs, _ = run("phase H-serial", drafters=full, backend="async",
+                    overlap=False, **dense)
+    wallclock = compare_wallclock(sum_h, sum_hs, sum_a)
+    if sum_h["overlap_frac"] < 0.5:
+        fail(f"phase H: overlap_frac {sum_h['overlap_frac']:.3f} < 0.5 "
+             "(drafting did not overlap verification: serialized)")
+    wallclock["profile"] = profile_async_window(torch, target, full, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
     del tparams, dparams, full, mixed, target, dense
     gc.collect()
     torch.cuda.empty_cache()
@@ -1489,9 +1826,20 @@ def main() -> int:
                    attention=False, ssm=True)
     if not sum_e["mean_acceptance"] > 1.0:
         fail(f"phase E mean acceptance {sum_e['mean_acceptance']:.3f} <= 1")
-    if sum_e["ssm_layer_calls"] != mcfg.n_layers * sum_e["forwards"]:
-        fail(f"phase E: {sum_e['ssm_layer_calls']} SSM layer calls for "
-             f"{sum_e['forwards']} forwards of {mcfg.n_layers} layers")
+    # phase I: phase E on the wall-clock backend (the target's SSM state
+    # written in place on the server's stream, the drafters' on the
+    # engine's)
+    sum_i, _ = run("phase I", target=(mcfg, mparams),
+                   drafters=[(mcfg, mparams, "m0"), (mcfg, mdraft, "m1")],
+                   prompts=mprompts, refs=mrefs, err=ssm_kernel_err,
+                   attention=False, ssm=True, backend="async")
+    wallclock["phase I"] = compare_wallclock(sum_i, None, sum_e)
+    for label, sm in (("phase E", sum_e), ("phase I", sum_i)):
+        if sm["ssm_layer_calls"] != mcfg.n_layers * sm["forwards"]:
+            fail(f"{label}: {sm['ssm_layer_calls']} SSM layer calls for "
+                 f"{sm['forwards']} forwards of {mcfg.n_layers} layers")
+    if not sum_i["mean_acceptance"] > 1.0:
+        fail(f"phase I mean acceptance {sum_i['mean_acceptance']:.3f} <= 1")
     del mparams, mdraft
     gc.collect()
     torch.cuda.empty_cache()
@@ -1534,6 +1882,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print(json.dumps({"serving": summaries}), flush=True)
+    print(json.dumps({"wallclock": wallclock}), flush=True)
     kernels = []
     extra = {"flash_attention_partial": dict(host=fa_host),
              "int8_gemv_call": dict(host=ig_host, crossover=crossover,

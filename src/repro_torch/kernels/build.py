@@ -10,7 +10,11 @@ concurrent first uses cannot load a half-written file.
 
 `build_all` starts one `nvcc` per kernel at once and waits for all of
 them, so a process that needs every kernel pays for the slowest build,
-not for their sum. `cuda_stream` is the wrappers' launch stream.
+not for their sum. A lock per library makes its build and load happen
+once when several threads call a wrapper first at the same time (the
+async backend's server and engine threads), and `COUNT_LOCK` keeps the
+wrappers' launch counters exact under such threads. `cuda_stream` is
+the wrappers' launch stream (the calling thread's current stream).
 `smem_report.cuh` (in `csrc/`) gives the tests each compiled kernel's
 shared memory.
 """
@@ -21,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -48,6 +53,10 @@ def _nvcc() -> str:
 #: size against the device
 SMEM_LIMIT = 227 * 1024
 
+#: held by every wrapper while it adds one to its `LAUNCHES` count: the
+#: add is a read and a write, which two threads could interleave
+COUNT_LOCK = threading.Lock()
+
 
 def cuda_stream(dev) -> int:
     """The current CUDA stream of `dev` (a CUDA tensor's device, so its
@@ -69,6 +78,8 @@ class KernelLibrary:
         self.headers = tuple(Path(h) for h in headers)
         self._declare = declare
         self._lib = None
+        # re-entrant: `build` starts the build it waits for
+        self._lock = threading.RLock()
         self._proc = None
         self._tmp = None
         #: compiler output of the build in this process (ptxas register
@@ -85,39 +96,44 @@ class KernelLibrary:
 
     def start_build(self) -> None:
         """Start `nvcc` in the background unless the library exists."""
-        if self._proc is not None or self.library_path().exists():
-            return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self._tmp = self.library_path().with_suffix(f".{os.getpid()}.tmp")
-        self._cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp),
-                     str(self.source)]
-        self._proc = subprocess.Popen(self._cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
+        with self._lock:
+            if self._proc is not None or self.library_path().exists():
+                return
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            self._tmp = self.library_path().with_suffix(
+                f".{os.getpid()}.tmp")
+            self._cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp),
+                         str(self.source)]
+            self._proc = subprocess.Popen(self._cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
 
     def build(self) -> Path:
         """Compile the kernel (or wait for the build `start_build` began)
         unless the library for this source exists."""
-        out = self.library_path()
-        if self._proc is None:
-            if out.exists():
-                return out
-            self.start_build()
-        proc, self._proc = self._proc, None
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build the {self.name} "
-                               f"kernel:\n{' '.join(self._cmd)}\n{log}")
-        self.build_log = log
-        os.replace(self._tmp, out)
-        return out
+        with self._lock:
+            out = self.library_path()
+            if self._proc is None:
+                if out.exists():
+                    return out
+                self.start_build()
+            proc, self._proc = self._proc, None
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build the {self.name} "
+                                   f"kernel:\n{' '.join(self._cmd)}\n{log}")
+            self.build_log = log
+            os.replace(self._tmp, out)
+            return out
 
     def load(self):
         """The loaded library with its entry points' types declared."""
         if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            if self._declare is not None:
-                self._declare(lib)
-            self._lib = lib
+            with self._lock:
+                if self._lib is None:
+                    lib = ctypes.CDLL(str(self.build()))
+                    if self._declare is not None:
+                        self._declare(lib)
+                    self._lib = lib
         return self._lib
 
 

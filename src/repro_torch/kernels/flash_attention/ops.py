@@ -34,7 +34,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
+from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
+                                      cuda_stream)
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
@@ -301,7 +302,8 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return m, l, acc
 
 

@@ -26,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
+from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
+                                      cuda_stream)
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -237,8 +238,14 @@ def _check(cond, msg):
                          f"{msg() if callable(msg) else msg}")
 
 
-_N_SM = {}
 _FNS = None
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    """SMs of CUDA device `index`, cached (two threads' first calls may
+    both ask the device; they get the same count)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch_plan(x2, w8, scale, p: Plan):
@@ -273,7 +280,8 @@ def launch_plan(x2, w8, scale, p: Plan):
     if rc != 0:
         raise RuntimeError(f"int8 GEMV kernel launch failed ({p}): CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return y
 
 
@@ -306,11 +314,7 @@ def _launch(x, w8, scale):
         return torch.zeros((*lead, N), dtype=torch.float32, device=dev)
     if not scale.is_contiguous():
         scale = scale.contiguous()
-    n_sm = _N_SM.get(dev.index)
-    if n_sm is None:
-        n_sm = _N_SM[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    p = plan(M, K, N, sn != 1, x2.dtype == torch.bfloat16, n_sm)
+    p = plan(M, K, N, sn != 1, x2.dtype == torch.bfloat16, _n_sm(dev.index))
     return launch_plan(x2, w8, scale, p).reshape(*lead, N)
 
 

@@ -29,7 +29,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import CSRC, KernelLibrary, cuda_stream
+from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
+                                      cuda_stream)
 from repro_torch.kernels.flash_attention import ops as fa
 
 #: kernel launches made by `paged_attend_partial` (a plain integer; reset
@@ -153,7 +154,8 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return m, l, acc
 
 

@@ -43,8 +43,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.build import (CSRC, SMEM_LIMIT, KernelLibrary,
-                                      cuda_stream)
+from repro_torch.kernels.build import (COUNT_LOCK, CSRC, SMEM_LIMIT,
+                                      KernelLibrary, cuda_stream)
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 #: d_state values the kernel takes (powers of two: a thread's columns of
@@ -410,7 +410,8 @@ def launch_plan(x, dt, A, B, C, state_in, state_out, slot_idx, p: Plan):
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed ({p}): CUDA "
                            f"error {rc}")
-    LAUNCHES += 1
+    with COUNT_LOCK:
+        LAUNCHES += 1
     return y
 
 

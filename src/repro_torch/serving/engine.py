@@ -59,8 +59,8 @@ from repro_torch.core.scheduler import (PipelineObservation, RequestScheduler,
                                   adaptive_speculation)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import STAGE, Tracer
-from repro_torch.serving.backend import (ASYNC_ROADMAP, ExecutionBackend,
-                                         VerifyHandle, make_backend)
+from repro_torch.serving.backend import (ExecutionBackend, VerifyHandle,
+                                         make_backend)
 from repro_torch.serving.events import DRAFT, VERIFY
 
 STRATEGIES = ("ar", "vanilla", "specinfer", "pipeinfer", "cosine")
@@ -312,8 +312,8 @@ class SpeculativeEngine:
                                          cosine.drafter_quant)
         # engine/backend split (DESIGN.md §2.7): the backend owns the
         # runners, the caches and the serving clock; `backend` is "sim"
-        # (default — the discrete-event seed behaviour) or a ready
-        # ExecutionBackend ("async" is not ported yet).
+        # (default — the discrete-event seed behaviour), "async" (the
+        # wall-clock AsyncTorchBackend) or a ready ExecutionBackend.
         # `self.target`/`self.drafters` stay as runner aliases for
         # calibration and tests; the serving path goes through
         # `self.backend` only.
@@ -367,8 +367,13 @@ class SpeculativeEngine:
         # consumed by the *next* acceptance walk, so they resolve lazily
         self._tails_fut = None
         if self.backend.is_wallclock:
-            raise NotImplementedError(ASYNC_ROADMAP)
-        if strategy in PIPELINED_STRATEGIES:
+            assert strategy != "ar", \
+                "async backend serves speculative strategies; use the " \
+                "simulated backend for the ar baseline"
+            from repro_torch.serving.async_loop import WallClockExecutor
+            self.executor = WallClockExecutor(
+                self, overlap=strategy in PIPELINED_STRATEGIES)
+        elif strategy in PIPELINED_STRATEGIES:
             from repro_torch.serving.pipeline import PipelineExecutor
             self.executor = PipelineExecutor(self)
         else:
@@ -1054,8 +1059,11 @@ class SpeculativeEngine:
                 self.on_commit(r, toks, self.clock_ms)
 
     def run(self, max_iterations: int = 10_000) -> ServeStats:
-        """Step until the pool drains; returns the run's ServeStats."""
-        for _ in range(max_iterations):
-            if self.step() is None:
-                break
+        """Step until the pool drains; returns the run's ServeStats. The
+        steps run in the backend's `engine_stream` (on the wall-clock
+        backend, the drafters' CUDA stream)."""
+        with self.backend.engine_stream():
+            for _ in range(max_iterations):
+                if self.step() is None:
+                    break
         return self.stats

@@ -562,12 +562,13 @@ class ModelRunner:
             new_cache = None
         return self._host(lg[:B, 0, : self.cfg.vocab]), new_cache
 
-    def verify(self, rids: Sequence[int], tokens: np.ndarray,
-               rel_pos: np.ndarray, seg_mask: np.ndarray) -> np.ndarray:
-        """Tree/chain verification (no cache commit).
-
-        tokens: (B, Gmax); rel_pos: (B, Gmax) node depths; seg_mask
-        (B, Gmax, Gmax) ancestor mask. Returns logits (B, Gmax, V)."""
+    def verify_device(self, rids: Sequence[int], tokens: np.ndarray,
+                      rel_pos: np.ndarray, seg_mask: np.ndarray
+                      ) -> torch.Tensor:
+        """Tree/chain verification forward (no cache commit), result left
+        on the device: (rows, Gmax, padded vocab) logits. The async
+        backend's server dispatches this and the engine copies the real
+        rows to the host only when its acceptance walk reads them."""
         B, G = tokens.shape
         sidx = self.slots.padded_idx(rids)
         rows = int(sidx.shape[0])
@@ -578,12 +579,21 @@ class ModelRunner:
                 [mask, np.broadcast_to(np.tril(np.ones((G, G), bool)),
                                        (rows - B, G, G))], axis=0)
         pv = self.slots.prepare(rids, write=0)
-        lg = M.slot_verify_chunk(
+        return M.slot_verify_chunk(
             self.params, self.cfg,
             self._t(self._pad_rows(np.asarray(tokens, np.int32), rows)),
             self.slots.cache, sidx,
             self._t(self._pad_rows(np.asarray(rel_pos, np.int32), rows)),
             self._t(mask, torch.bool), page_view=pv)
+
+    def verify(self, rids: Sequence[int], tokens: np.ndarray,
+               rel_pos: np.ndarray, seg_mask: np.ndarray) -> np.ndarray:
+        """Tree/chain verification (no cache commit).
+
+        tokens: (B, Gmax); rel_pos: (B, Gmax) node depths; seg_mask
+        (B, Gmax, Gmax) ancestor mask. Returns logits (B, Gmax, V)."""
+        B = tokens.shape[0]
+        lg = self.verify_device(rids, tokens, rel_pos, seg_mask)
         return self._host(lg[:B, :, : self.cfg.vocab])
 
     def extend_committed(self, rid_tokens: Dict[int, List[int]]

@@ -831,3 +831,157 @@ def test_cuda_engine_ssm_and_hybrid_are_greedy_exact(cuda, family, paged):
     assert (fa.LAUNCHES + pa.LAUNCHES > 0) == (family == "hybrid")
     for r, p in zip(reqs, prompts):
         assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
+
+
+# ---------------------------------------------------------------------
+# the wall-clock backend: a verification server on its own stream
+# ---------------------------------------------------------------------
+
+def _async_case(family):
+    kw = dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+              d_ff=256, vocab=300, tie_embeddings=True, dtype="float32")
+    if family == "ssm":
+        tcfg = ModelConfig(name="s", family="ssm",
+                           ssm=SSMConfig(d_state=32, head_dim=32,
+                                         chunk_size=32), **kw)
+    else:
+        tcfg = ModelConfig(name="t", family="dense", **kw)
+    dcfg = tcfg.with_overrides(name="d", n_layers=1)
+    tp = M.init_params(tcfg, 0)
+    drafters = [(dcfg, M.init_params(dcfg, 1), "a"), (tcfg, tp, "b")]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
+    return tcfg, tp, drafters, prompts
+
+
+def _serve_streams(tcfg, tp, drafters, prompts, backend, watch=None):
+    eng = SpeculativeEngine((tcfg, tp), drafters, CoSineConfig(n_drafters=2),
+                            max_len=128, seed=0, backend=backend)
+    if watch is not None:
+        watch(eng)
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    try:
+        stats = eng.run()
+    finally:
+        eng.backend.shutdown()
+    return [list(map(int, r.generated)) for r in reqs], stats, eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "ssm"])
+def test_async_backend_commits_the_simulated_streams(cuda, family):
+    """The wall-clock backend on the card (target on the server's stream,
+    drafters on the engine's, float32 tiny models) commits what the
+    simulated backend commits, which is the target's greedy stream; its
+    kernels launched."""
+    tcfg, tp, drafters, prompts = _async_case(family)
+    sim, _, _ = _serve_streams(tcfg, tp, drafters, prompts, None)
+    fa.LAUNCHES = ssd.LAUNCHES = 0
+    got, stats, eng = _serve_streams(tcfg, tp, drafters, prompts, "async")
+    assert (ssd.LAUNCHES if family == "ssm" else fa.LAUNCHES) > 0
+    assert got == sim
+    for s, p in zip(got, prompts):
+        assert s == _greedy(tcfg, tp, p, 16, cuda)
+    assert stats.records and all(r.verify_ms > 0 for r in stats.records)
+
+
+@pytest.mark.gpu
+def test_async_backend_streams_are_distinct_and_not_default(cuda):
+    """Target forwards run on the server thread under the backend's
+    target stream, drafter forwards on the engine thread under its draft
+    stream: two distinct streams, neither the legacy default stream."""
+    import threading
+
+    tcfg, tp, drafters, prompts = _async_case("dense")
+    seen = set()
+
+    def watch(eng):
+        b = eng.backend
+        for runner, side in [(b.target, "target")] + [
+                (d, "drafter") for d in b.drafters]:
+            for name in ("verify_device", "extend_committed",
+                         "prefill_requests", "prefill_request",
+                         "extend_snapshot", "decode"):
+                orig = getattr(runner, name)
+
+                def rec(*a, orig=orig, side=side, **kw):
+                    seen.add((side, threading.current_thread().name,
+                              torch.cuda.current_stream().cuda_stream))
+                    return orig(*a, **kw)
+
+                setattr(runner, name, rec)
+
+    _, _, eng = _serve_streams(tcfg, tp, drafters, prompts, "async", watch)
+    b = eng.backend
+    ts, ds = b.target_stream.cuda_stream, b.draft_stream.cuda_stream
+    default = torch.cuda.default_stream().cuda_stream
+    assert ts != ds and default not in (ts, ds)
+    assert {s for side, _, s in seen if side == "target"} == {ts}
+    assert {s for side, _, s in seen if side == "drafter"} == {ds}
+    assert {side for side, _, _ in seen} == {"target", "drafter"}
+    assert all(t.startswith("verify-server")
+               for side, t, _ in seen if side == "target")
+    assert all(t == threading.current_thread().name
+               for side, t, _ in seen if side == "drafter")
+
+
+@pytest.mark.gpu
+def test_launch_counters_exact_under_two_threads(cuda):
+    """Two threads, each on its own stream, launch each kernel N times at
+    once (with a short switch interval): every counter rises by exactly
+    2 N."""
+    import sys
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((2, 3, 2, 2, 64), generator=gen, device=cuda)
+    k = torch.randn((4, 64, 2, 64), generator=gen, device=cuda)
+    kpos = torch.arange(64, dtype=torch.int32, device=cuda).repeat(4, 1)
+    qpos = torch.full((2, 3), 63, dtype=torch.int32, device=cuda)
+    slot = torch.tensor([1, 3], dtype=torch.int32, device=cuda)
+    pool = torch.randn((4, 16, 2, 64), generator=gen, device=cuda)
+    ppos = torch.full((4, 16), -1, dtype=torch.int32, device=cuda)
+    ppos[2] = torch.arange(16, dtype=torch.int32, device=cuda)
+    ppos[3] = ppos[2] + 16
+    tbl = torch.tensor([[2, 3], [2, 3]], dtype=torch.int32, device=cuda)
+    qp = torch.full((2, 3), 31, dtype=torch.int32, device=cuda)
+    x8, w8, sc = _int8_case(cuda, "splitk")
+    sx = _ssd_inputs(gen, 1, 8, 2, 16, 1, 8, torch.float32, cuda)[:5]
+    calls = {
+        "fa": (fa, lambda: fa.attend_partial(q, k, k, qpos, kpos, scale=0.1,
+                                             slot_idx=slot)),
+        "pa": (pa, lambda: pa.paged_attend_partial(q, pool, pool, qp, ppos,
+                                                   tbl, scale=0.1)),
+        "ig": (ig, lambda: ig.int8_gemv(x8, w8, sc)),
+        "ssd": (ssd, lambda: ssd.ssd(*sx, 16)),
+    }
+    for _, fn in calls.values():
+        fn()                                   # build and load first
+    torch.cuda.synchronize()
+    N = 200
+    before = {name: mod.LAUNCHES for name, (mod, _) in calls.items()}
+    errors = []
+
+    def worker():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for _ in range(N):
+                    for _, fn in calls.values():
+                        fn()
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:           # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    for name, (mod, _) in calls.items():
+        assert mod.LAUNCHES == before[name] + 2 * N, name

@@ -355,3 +355,41 @@ def test_split_merge_bits_do_not_depend_on_capacity():
     assert (n1, n2) == (16, 2)
     for a, b in zip(full, view):
         assert torch.equal(a, b)
+
+
+def test_kernel_library_builds_once_under_threads(tmp_path, monkeypatch):
+    """Four threads' first builds of one kernel library (the async
+    backend's server and engine threads may both call a wrapper first)
+    run the compiler once and all get its library. A stand-in `nvcc`
+    records each run and writes its `-o` file after a pause."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build
+
+    runs = tmp_path / "runs"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(f"#!{sys.executable}\n"
+                    "import sys, time\n"
+                    f"open({str(runs)!r}, 'a').write('x')\n"
+                    "time.sleep(0.3)\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w')"
+                    ".write('lib')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    src = tmp_path / "probe.cu"
+    src.write_text("// a kernel source\n")
+    lib = build.KernelLibrary("probe", src)
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(lib.build()))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert runs.read_text() == "x"
+    assert len(got) == 4 and len(set(got)) == 1
+    assert got[0] == lib.library_path() and got[0].read_text() == "lib"
