@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's four hand-written Hopper kernels from the sources
+It builds the port's four hand-written Hopper kernels (kernels 1 and 2 with
+their f32, bf16 and int8 K/V forms) from the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
@@ -57,7 +58,31 @@ wrappers), then serves the CoSine path end to end through
            operations, the longest device-idle gaps with what each host
            thread was doing);
   phase I  phase E on the wall-clock backend (the target's SSM state
-           written in place on the server's stream).
+           written in place on the server's stream);
+  phase K  phase A with int8 KV caches (`kv_dtype="int8"`) for the target
+           and both drafters: every cache read, snapshots included, goes
+           through kernel 1's int8 K/V form (only verification's fresh
+           segment, unquantized as in the reference, reads bf16 K/V);
+  phase K-paged  phase K on the paged pool: every pool read through the
+           paged kernel's int8 form, and the committed streams equal
+           phase K's;
+  phase J  (last) a qwen2-moe-a2.7b target at full width (24 layers, d_model
+           2048, MHA 16 x 128 with QKV bias, 60 routed experts top-4 of
+           width 1408 and a shared expert of 5632 in every layer, vocab
+           151936; ~57 GB of random f32 weights) with two qwen2-0.5b
+           drafters: every MoE layer of every forward counted with its
+           one host read of the group sizes, the host wall time per MoE
+           layer, and the router top-k sets that differ between a
+           one-token decode and a batched prefill on the committed prefix;
+  phase J-f32  phase J with f32 activations (the same weights), where the
+           two paths agree closely enough for a tight tie rule.
+
+Before the serving phases the int8 K/V forms of kernels 1 and 2 are held
+against their plain versions (the reference's dequantized bf16 view) at
+phases K and K-paged's shapes and timed beside their bytes bound (int8
+K/V and 4 bytes of scale per row and head) and a dequantize + SDPA
+yardstick; the paged int8 form must equal kernel 1's int8 form on the
+gathered view bit for bit.
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
@@ -84,7 +109,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense
+# f32 CUDA cores; bf16 dense; int8 dense (TOP/s), the rate of an int8
+# K/V form's bound
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 # the SSD chunk path's products on the tensor cores: 3xTF32, each product
 # three TF32 passes at 495 TFLOP/s
 TF32X3_FLOPS = 495e12 / 3
@@ -122,6 +149,14 @@ KERNEL_SOURCES = {
     "ssd_scan_pallas": (
         "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan/kernel.py:74"),
+    # the int8 K/V forms of kernels 1 and 2 (the same sources; their
+    # launches are also counted in the two entries above)
+    "flash_attention_partial_int8_kv": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
+    "paged_flash_decode_int8_kv": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:127"),
 }
 
 
@@ -408,6 +443,29 @@ def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
         qs, ks, vs, attn_mask=am, scale=D ** -0.5))
 
 
+def _paged_pool(torch, gen, perm, H, D, held):
+    """A page pool holding positions [0, held[b]) of request b on pages
+    handed out in a scrambled order (`perm`), with the view of those
+    columns per request (power of two pages, NULL filler), as the runner
+    builds it. Returns k, v (f32), positions and the block table."""
+    n_req_pages = [-(-n // PAGE_SIZE) for n in held]
+    P = 2 + sum(n_req_pages) + 8
+    k = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
+    v = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
+    pos = torch.full((P, PAGE_SIZE), -1, dtype=torch.int32, device="cuda")
+    nv = 1 << (max(n_req_pages) - 1).bit_length()
+    tbl = torch.ones((len(held), nv), dtype=torch.int32, device="cuda")
+    free = (torch.randperm(P - 2, generator=perm) + 2).tolist()
+    for b, n in enumerate(held):
+        for j in range(n_req_pages[b]):
+            page = free.pop()
+            cnt = min(PAGE_SIZE, n - j * PAGE_SIZE)
+            pos[page, :cnt] = j * PAGE_SIZE + torch.arange(
+                cnt, dtype=torch.int32, device="cuda")
+            tbl[b, j] = page
+    return k, v, pos, tbl
+
+
 def paged_kernel_phase(torch, fa, pa):
     """The paged kernel at phase C's pool reads: against its plain version
     and, bit for bit, against the flash-attention kernel on the gathered
@@ -417,29 +475,8 @@ def paged_kernel_phase(torch, fa, pa):
     perm = torch.Generator().manual_seed(7)
     lens = [80, 230, 380, 630]           # phase A's requests mid-run
 
-    def pool(H, D, held, rows_per_req):
-        """A page pool holding positions [0, held[b]) of request b on
-        pages handed out in a scrambled order, with the view of
-        `rows_per_req` columns per request (power of two pages, NULL
-        filler), as the runner builds it."""
-        n_req_pages = [-(-n // PAGE_SIZE) for n in held]
-        P = 2 + sum(n_req_pages) + 8
-        k = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
-        v = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
-        pos = torch.full((P, PAGE_SIZE), -1, dtype=torch.int32,
-                         device="cuda")
-        need = max(-(-n // PAGE_SIZE) for n in rows_per_req)
-        nv = 1 << (need - 1).bit_length()
-        tbl = torch.ones((len(held), nv), dtype=torch.int32, device="cuda")
-        free = (torch.randperm(P - 2, generator=perm) + 2).tolist()
-        for b, n in enumerate(held):
-            for j in range(n_req_pages[b]):
-                page = free.pop()
-                cnt = min(PAGE_SIZE, n - j * PAGE_SIZE)
-                pos[page, :cnt] = j * PAGE_SIZE + torch.arange(
-                    cnt, dtype=torch.int32, device="cuda")
-                tbl[b, j] = page
-        return k, v, pos, tbl
+    def pool(H, D, held):
+        return _paged_pool(torch, gen, perm, H, D, held)
 
     def rows_from(start, T):
         return torch.tensor([[s + t for t in range(T)] for s in start],
@@ -450,13 +487,13 @@ def paged_kernel_phase(torch, fa, pa):
     # read with the lens[b] keys before it (target, then drafter)
     held = [n + 1 for n in lens]
     for H, G, D, who in ((20, 1, 128, "target"), (2, 7, 64, "drafter")):
-        k, v, pos, tbl = pool(H, D, held, held)
+        k, v, pos, tbl = pool(H, D, held)
         cases.append(dict(
             name=f"{who}_decode_B4_T1_H{H}_G{G}_D{D}_f32",
             q=torch.randn((4, 1, H, G, D), generator=gen, device="cuda"),
             k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 1)))
     # target verification, cache pass: the pool as it was (write=0 view)
-    k, v, pos, tbl = pool(20, 128, lens, lens)
+    k, v, pos, tbl = pool(20, 128, lens)
     cases.append(dict(
         name="target_verify_cache_B4_T10_H20_D128_f32",
         q=torch.randn((4, 10, 20, 1, 128), generator=gen, device="cuda"),
@@ -466,19 +503,19 @@ def paged_kernel_phase(torch, fa, pa):
                    torch.int32)))
     # target commit of 5 accepted tokens: written first, then read
     held = [n + 5 for n in lens]
-    k, v, pos, tbl = pool(20, 128, held, held)
+    k, v, pos, tbl = pool(20, 128, held)
     cases.append(dict(
         name="target_commit_B4_T5_H20_D128_f32",
         q=torch.randn((4, 5, 20, 1, 128), generator=gen, device="cuda"),
         k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(lens, 5)))
     # a 512-row target prefill chunk on the pool
-    k, v, pos, tbl = pool(20, 128, [512], [512])
+    k, v, pos, tbl = pool(20, 128, [512])
     cases.append(dict(
         name="target_prefill_B1_T512_H20_D128_f32",
         q=torch.randn((1, 512, 20, 1, 128), generator=gen, device="cuda"),
         k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from([0], 512)))
     # a drafter commit (one-behind: the previous token + 4 accepted)
-    k, v, pos, tbl = pool(2, 64, held, held)
+    k, v, pos, tbl = pool(2, 64, held)
     cases.append(dict(
         name="drafter_commit_B4_T5_H2_G7_D64_f32",
         q=torch.randn((4, 5, 2, 7, 64), generator=gen, device="cuda"),
@@ -492,7 +529,7 @@ def paged_kernel_phase(torch, fa, pa):
             (f"hybrid_verify_cache_B4_T{T}_{tag}", lens, lens, T),
             (f"hybrid_commit_B4_T{T}_{tag}", [n + T for n in lens], lens, T),
             (f"hybrid_prefill_B1_T512_{tag}", [512], [0], 512)):
-        k, v, pos, tbl = pool(H, D, held, held)
+        k, v, pos, tbl = pool(H, D, held)
         cases.append(dict(
             name=name, q=torch.randn((len(held), rows, H, G, D),
                                      generator=gen, device="cuda"),
@@ -536,6 +573,169 @@ def paged_kernel_phase(torch, fa, pa):
               f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
               f"{lib_ms:.4f} ms", flush=True)
     return rows
+
+
+# the int8 K/V forms of kernels 1 and 2 at phases A and C's shapes
+# (target Hkv 20, G 1, D 128; drafter Hkv 2, G 7, D 64): decode, the
+# tree's cache pass (T = 10), a commit of T = 6 rows, a 512-row prefill
+INT8KV_SHAPES = ((20, 1, 128, "target"), (2, 7, 64, "drafter"))
+INT8KV_NO_LIBRARY = ("no one PyTorch call attends over int8 K/V with "
+                     "scales; yardstick_ms times the dequantized bf16 view "
+                     "and one scaled_dot_product_attention (two calls)")
+
+
+def _int8kv_forms(torch, lens):
+    """(name, B, T, q_pos, held) of each form: the query positions and
+    the keys each request holds when the kernel reads the pool."""
+    cur = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    ar = torch.arange(512, dtype=torch.int32, device="cuda")
+    depth = torch.tensor(TREE_DEPTH, dtype=torch.int32, device="cuda")
+    return [
+        ("decode_T1", 4, 1, (cur - 1)[:, None], lens),
+        ("verify_cache_T10", 4, 10, cur[:, None] + depth[None], lens),
+        ("commit_T6", 4, 6, cur[:, None] + ar[None, :6],
+         [n + 6 for n in lens]),
+        ("prefill_T512", 1, 512, ar[None], [512]),
+    ]
+
+
+def _dequant_sdpa_ms(torch, fa, q, k8, ks, v8, vs, kp, q_pos):
+    """The yardstick of an int8 form: the dequantized bf16 view and one
+    scaled_dot_product_attention call over it, timed together (two calls:
+    the dequantization and SDPA; the gather, GQA expansion and mask are
+    made outside the timed region)."""
+    import torch.nn.functional as F
+    B, T, H, G, D = q.shape
+    valid = (kp >= 0)[:, None, :] & (kp[:, None, :] <= q_pos[:, :, None])
+    qs = q.to(torch.bfloat16).reshape(B, T, H * G, D).transpose(
+        1, 2).contiguous()
+
+    def heads(t):
+        return t.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+
+    ke, ve, kse, vse = heads(k8), heads(v8), heads(ks), heads(vs)
+    am = valid[:, None].expand(B, H * G, T, kp.shape[1]).contiguous()
+    return _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, fa.dequantize_kv(ke, kse), fa.dequantize_kv(ve, vse),
+        attn_mask=am, scale=D ** -0.5))
+
+
+def int8kv_kernel_phase(torch, fa, pa, attn):
+    """Kernel 1's and the paged kernel's int8 K/V forms at phases K and
+    K-paged's shapes: each within KERNEL_TOL of its plain version (the
+    reference's dequantized bf16 view through the plain partials), the
+    paged form bit for bit kernel 1's int8 form on the gathered view;
+    times against the bytes bound (int8 K/V and 4 bytes of scale per
+    row and head) and the dequantize + SDPA yardstick. Returns (resident
+    rows, paged rows)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(808)
+    perm = torch.Generator().manual_seed(9)
+    lens = [80, 230, 380, 630]
+    res_rows, pag_rows = [], []
+    for H, G, D, who in INT8KV_SHAPES:
+        k8, ks = attn._quantize(torch.randn((9, MAX_LEN, H, D), generator=gen,
+                                            device="cuda"))
+        v8, vs = attn._quantize(torch.randn((9, MAX_LEN, H, D), generator=gen,
+                                            device="cuda"))
+        slot_idx = torch.tensor([1, 2, 3, 4], dtype=torch.int32,
+                                device="cuda")
+        for form, B, T, q_pos, held in _int8kv_forms(torch, lens):
+            name = f"{who}_{form}_H{H}_G{G}_D{D}_int8"
+            q = torch.randn((B, T, H, G, D), generator=gen, device="cuda")
+            q_pos = q_pos.to(torch.int32).contiguous()
+            # resident: slots 1..B hold positions [0, held[b])
+            kp = torch.full((9, MAX_LEN), -1, dtype=torch.int32,
+                            device="cuda")
+            for b, n in enumerate(held):
+                kp[1 + b, :n] = torch.arange(n, dtype=torch.int32,
+                                             device="cuda")
+            sidx = slot_idx[:B].clone()
+            args = (q, k8, v8, q_pos, kp)
+            kw = dict(scale=D ** -0.5, slot_idx=sidx, k_scale=ks, v_scale=vs)
+            got = fa.attend_partial(*args, **kw)
+            want = fa.attend_partial_plain(*args, **kw)
+            torch.cuda.synchronize()
+            err = _check_partials(torch, fa, f"int8 {name}", got, want)
+            ms = _graph_ms(torch, lambda: fa.attend_partial(*args, **kw))
+            plain_ms = _graph_ms(torch, lambda: fa.attend_partial_plain(
+                *args, **kw), reps=3)
+            idx = sidx.long()
+            yard_ms = _dequant_sdpa_ms(torch, fa, q, k8[idx], ks[idx],
+                                      v8[idx], vs[idx], kp[idx], q_pos)
+            nbytes, flops = _work(torch, q, k8, v8, q_pos, kp, sidx, None,
+                                  True)
+            nbytes += int((kp[idx] >= 0).sum()) * H * 4 * 2
+            bound, by = _bound(nbytes, flops, "int8")
+            res_rows.append(dict(
+                name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                yardstick_ms=yard_ms, bytes=nbytes,
+                flops=flops, dtype="int8"))
+            print(f"kernel int8 K/V {name}: splits "
+                  f"{fa.plan_splits(B, H, T * G, MAX_LEN)}  max|err| "
+                  f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"bound {bound:.4f} ms ({by})  dequantize + sdpa "
+                  f"{yard_ms:.4f} ms", flush=True)
+
+            # paged: the same held keys on scrambled pages
+            pk, pv, ppos, tbl = _paged_pool(torch, gen, perm, H, D, held)
+            pk8, pks = attn._quantize(pk)
+            pv8, pvs = attn._quantize(pv)
+            pargs = (q, pk8, pv8, q_pos, ppos, tbl)
+            pkw = dict(scale=D ** -0.5, k_scale=pks, v_scale=pvs)
+            pgot = pa.paged_attend_partial(*pargs, **pkw)
+            pwant = pa.paged_attend_partial_plain(*pargs, **pkw)
+            g = pa.gather_view
+            k1_args = (q, g(pk8, tbl), g(pv8, tbl), q_pos, g(ppos, tbl))
+            k1_kw = dict(scale=D ** -0.5, k_scale=g(pks, tbl),
+                         v_scale=g(pvs, tbl))
+            k1 = fa.attend_partial(*k1_args, **k1_kw)
+            torch.cuda.synchronize()
+            perr = _check_partials(torch, fa, f"int8 paged {name}", pgot,
+                                   pwant)
+            vs_k1 = max(float((a - b).abs().max()) for a, b in zip(pgot, k1))
+            pms = _graph_ms(torch, lambda: pa.paged_attend_partial(
+                *pargs, **pkw))
+            pplain = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
+                *pargs, **pkw), reps=3)
+            pyard = _dequant_sdpa_ms(torch, fa, q, k1_args[1],
+                                    k1_kw["k_scale"], k1_args[2],
+                                    k1_kw["v_scale"], k1_args[4], q_pos)
+            nb, fl = _work(torch, *k1_args, None, None, True)
+            nb += int((k1_args[4] >= 0).sum()) * H * 4 * 2 + tbl.numel() * 4
+            pbound, pby = _bound(nb, fl, "int8")
+            pag_rows.append(dict(
+                name=name, max_abs_err=perr, max_abs_diff_vs_kernel1=vs_k1,
+                ms=pms, plain_ms=pplain, bound_ms=pbound, bound_by=pby,
+                library_ms=None, yardstick_ms=pyard,
+                bytes=nb, flops=fl, dtype="int8"))
+            print(f"kernel paged int8 K/V {name}: max|err| {perr:.2e}  "
+                  f"|paged - kernel 1 on the gathered view| {vs_k1:.3g}  "
+                  f"kernel {pms:.4f} ms  plain {pplain:.4f} ms  bound "
+                  f"{pbound:.4f} ms ({pby})  dequantize + sdpa {pyard:.4f} "
+                  "ms", flush=True)
+            if vs_k1 != 0.0:
+                fail(f"int8 paged {name}: not bitwise kernel 1's int8 form "
+                     "on the gathered view")
+    # host cost of one layer's cache write as the model makes it (kv_rows
+    # then set_rows, a decode step of 4 requests at the target's widths):
+    # the int8 cache quantizes K and V and writes five leaves, f32 three
+    H, D = INT8KV_SHAPES[0][0], INT8KV_SHAPES[0][2]
+    k_new = torch.randn((4, 1, H, D), generator=gen, device="cuda")
+    v_new = torch.randn((4, 1, H, D), generator=gen, device="cuda")
+    pos = torch.tensor([[n] for n in lens], dtype=torch.int32, device="cuda")
+    sidx = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    write = {}
+    for name, quantized in (("int8", True), ("float32", False)):
+        c = attn.make_kv_cache(9, MAX_LEN, H, D, dtype=torch.float32,
+                               quantized=quantized, device="cuda")
+        write[name] = _host_us(torch, lambda: attn.set_rows(
+            c, attn.kv_rows(c, k_new, v_new, pos), pos, sidx))
+    print(f"host cost of one KV cache write (kv_rows + set_rows, B4 H{H} "
+          f"D{D}): int8 {write['int8']:.1f} us, f32 {write['float32']:.1f} us",
+          flush=True)
+    return res_rows, pag_rows, write
 
 
 def _host_us(torch, fn, n: int = 200) -> float:
@@ -954,11 +1154,21 @@ class PathCounters:
         from repro_torch.kernels.ssd_scan import ops as sd
         from repro_torch.models import attention as attn
         from repro_torch.models import model as M
+        from repro_torch.models import moe
         from repro_torch.models import quantize
         self.fa, self.pa, self.ig, self.attn, self.M = fa, pa, ig, attn, M
         self.sd = sd
+        self.moe = moe
         self.quantize = quantize
         self.resident, self.paged = {}, {}
+        # reads of int8 K/V (the kernels' int8 form), by form
+        self.resident_int8, self.paged_int8 = {}, {}
+        # MoE layers: in the forwards' params, calls of apply_moe (and
+        # the host seconds spent in them) and group-size reads
+        self.moe_layer_calls = 0
+        self.moe_calls = 0
+        self.moe_host_s = 0.0
+        self.group_size_reads = 0
         self.int8_products = 0
         self.int8_rows = {}
         self.int8_per_forward = {}
@@ -1002,7 +1212,10 @@ class PathCounters:
         orig_int8 = self.ig.int8_gemv
         orig_slots = self.sd.ssd_slots
         orig_sync = self._torch.cuda.synchronize
+        orig_moe = self.moe.apply_moe
+        orig_sizes = self.moe.group_sizes_host
         lock, cuda = self._lock, self._torch.cuda
+        int8_dtype = self._torch.int8
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
@@ -1012,27 +1225,48 @@ class PathCounters:
                     else "prefill" if T > 64 else "commit/verify")
             with lock:
                 self.resident[form] = self.resident.get(form, 0) + 1
+                if k.dtype == int8_dtype:
+                    self.resident_int8[form] = \
+                        self.resident_int8.get(form, 0) + 1
             return orig_attend(q, k, v, q_pos, k_pos, **kw)
 
-        def paged(q, *a, **kw):
+        def paged(q, k, *a, **kw):
             T = q.shape[1]
             form = ("decode" if T == 1 else "prefill" if T > 64
                     else "commit/verify")
             with lock:
                 self.paged[form] = self.paged.get(form, 0) + 1
-            return orig_paged(q, *a, **kw)
+                if k.dtype == int8_dtype:
+                    self.paged_int8[form] = self.paged_int8.get(form, 0) + 1
+            return orig_paged(q, k, *a, **kw)
 
         def apply(params, *a, **kw):
             n_int8 = self._n_int8(params)
             n_ssm = sum("A_log" in layer["mixer"] for layer in params["layers"])
+            n_moe = sum("router" in layer.get("ffn", {})
+                        for layer in params["layers"])
             where = (self._thread().name, cuda.current_stream().cuda_stream)
             with lock:
                 self.int8_products += n_int8
                 self.forwards += 1
                 self.ssm_layer_calls += n_ssm
                 self.attn_layer_calls += len(params["layers"]) - n_ssm
+                self.moe_layer_calls += n_moe
                 self.streams[where] = self.streams.get(where, 0) + 1
             return orig_apply(params, *a, **kw)
+
+        def apply_moe(*a, **kw):
+            t0 = time.perf_counter()
+            out = orig_moe(*a, **kw)
+            with lock:
+                self.moe_calls += 1
+                self.moe_host_s += time.perf_counter() - t0
+            return out
+
+        def group_sizes(*a, **kw):
+            with lock:
+                self.group_size_reads += 1
+            return orig_sizes(*a, **kw)
 
         def gather(cfg, cache, *a, **kw):
             n = sum("slot_pos" in layer["self"] for layer in cache["layers"])
@@ -1077,6 +1311,8 @@ class PathCounters:
         self._patch(self.attn, "take_rows", take)
         self._patch(self.ig, "int8_gemv", int8)
         self._patch(self.sd, "ssd_slots", slots)
+        self._patch(self.moe, "apply_moe", apply_moe)
+        self._patch(self.moe, "group_sizes_host", group_sizes)
         self._patch(cuda, "synchronize", sync)
         for mod, name in ((self.fa, "attend_partial_plain"),
                           (self.pa, "paged_attend_partial_plain"),
@@ -1086,24 +1322,51 @@ class PathCounters:
             self._patch(mod, name, plain(getattr(mod, name)))
         self.fa.LAUNCHES = self.pa.LAUNCHES = self.ig.LAUNCHES = 0
         self.sd.LAUNCHES = 0
+        self.fa.LAUNCHES_INT8_KV = self.pa.LAUNCHES_INT8_KV = 0
         return self
 
     def __exit__(self, *exc):
-        self.launches = dict(flash_attention_partial=self.fa.LAUNCHES,
-                             paged_flash_decode=self.pa.LAUNCHES,
-                             int8_gemv_call=self.ig.LAUNCHES,
-                             ssd_scan_pallas=self.sd.LAUNCHES)
+        self.launches = dict(
+            flash_attention_partial=self.fa.LAUNCHES,
+            paged_flash_decode=self.pa.LAUNCHES,
+            int8_gemv_call=self.ig.LAUNCHES,
+            ssd_scan_pallas=self.sd.LAUNCHES,
+            flash_attention_partial_int8_kv=self.fa.LAUNCHES_INT8_KV,
+            paged_flash_decode_int8_kv=self.pa.LAUNCHES_INT8_KV)
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
 
     def check(self, label, paged_path: bool, int8_path: bool,
-              attention: bool = True, ssm: bool = False):
+              attention: bool = True, ssm: bool = False,
+              int8_kv: bool = False, moe: bool = False):
         """Launch counters against the model's calls; each kernel of the
         phase's path launched at least once, the others never. Every
         forward reads each attention layer's cache once (the resident or
-        the paged kernel); verification adds a segment pass."""
+        the paged kernel); verification adds a segment pass. With
+        `int8_kv` every cache read (snapshots too) is the kernels' int8
+        form and only segment passes read bf16/f32 K/V; with `moe` every
+        MoE layer of every forward ran `apply_moe` with one group-size
+        read."""
         res, pag = sum(self.resident.values()), sum(self.paged.values())
         L = self.launches
+        res8, pag8 = (sum(self.resident_int8.values()),
+                      sum(self.paged_int8.values()))
+        if L["flash_attention_partial_int8_kv"] != res8 \
+                or L["paged_flash_decode_int8_kv"] != pag8:
+            fail(f"{label}: int8 K/V launches {L} for {res8} resident and "
+                 f"{pag8} pool reads of int8 K/V")
+        want8 = (res - self.resident.get("segment", 0), pag) if int8_kv \
+            else (0, 0)
+        if (res8, pag8) != want8:
+            fail(f"{label}: int8 K/V reads resident {self.resident_int8}, "
+                 f"pool {self.paged_int8}; expected {want8}")
+        if self.moe_calls != self.moe_layer_calls \
+                or self.group_size_reads != self.moe_calls \
+                or (self.moe_calls > 0) != moe:
+            fail(f"{label}: {self.moe_calls} MoE calls and "
+                 f"{self.group_size_reads} group-size reads for "
+                 f"{self.moe_layer_calls} MoE layers of {self.forwards} "
+                 "forwards")
         if self.plain_calls:
             fail(f"{label}: {self.plain_calls} plain-version calls")
         if L["flash_attention_partial"] != res or (res > 0) != attention:
@@ -1136,6 +1399,11 @@ class PathCounters:
             fail(f"{label}: {self.take_rows_calls} take_rows copies for "
                  f"{self.snapshots_layers} snapshot layer gathers (a pool "
                  "read went through a gathered copy)")
+
+
+def moe_layers(cfg) -> int:
+    """MoE layers of a config's plan."""
+    return sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
 
 
 def greedy_reference(torch, M, cfg, params, prompt, n):
@@ -1192,14 +1460,59 @@ def teacher_forced_gaps(torch, M, cfg, params, prompt, toks):
     return (rows.max(dim=1).values - picked).tolist()
 
 
+def router_flips(torch, M, cfg, params, prompt, toks):
+    """`path_noise` on a MoE target, recording each MoE layer's top-k
+    expert sets on both paths (one prefill over the whole sequence; a
+    prefill of the prompt, then one-token decodes). Returns (noise,
+    (layer, token) pairs whose sets differ, pairs compared): the routing
+    near-ties that bf16 rounding flips between batched and single-token
+    forwards."""
+    from repro_torch.models import moe as moe_mod
+    records = []
+    orig = moe_mod.route_topk
+
+    def record(logits, k):
+        out = orig(logits, k)
+        records.append(out[1].sort(dim=-1).values.cpu())
+        return out
+
+    moe_mod.route_topk = record
+    try:
+        noise = path_noise(torch, M, cfg, params, prompt, toks)
+    finally:
+        moe_mod.route_topk = orig
+    L, P, n = moe_layers(cfg), len(prompt), len(toks)
+    full, pre, steps = records[:L], records[L: 2 * L], records[2 * L:]
+    if len(steps) != (n - 1) * L:
+        fail(f"router records: {len(records)} for {L} layers, {n} tokens")
+    flips = 0
+    for layer in range(L):
+        f = full[layer]
+        flips += int((f[:P] != pre[layer]).any(-1).sum())
+        flips += sum(int((f[P + i] != steps[i * L + layer][0]).any())
+                     for i in range(n - 1))
+    return noise, flips, L * (P + n - 1)
+
+
 def target_references(torch, M, cfg, params, prompts):
     """Greedy reference, top-1/top-2 gaps and path noise of each prompt
-    (shared by every phase: all serve the same target and prompts)."""
+    (shared by every phase: all serve the same target and prompts); on a
+    MoE target also the router top-k sets that differ between the two
+    paths of `path_noise` on the committed prefix."""
     out = []
     for p in prompts:
         ref, gaps = greedy_reference(torch, M, cfg, params, p, NEW_TOKENS)
-        out.append(dict(ref=ref, gaps=gaps,
-                        noise=path_noise(torch, M, cfg, params, p, ref)))
+        if cfg.moe is None:
+            out.append(dict(ref=ref, gaps=gaps,
+                            noise=path_noise(torch, M, cfg, params, p, ref)))
+            continue
+        noise, flips, pairs = router_flips(torch, M, cfg, params, p, ref)
+        out.append(dict(ref=ref, gaps=gaps, noise=noise, router_flips=flips,
+                        router_pairs=pairs))
+        print(f"{cfg.name} prompt {len(p)}: router top-k sets differ "
+              f"between the full prefill and the one-token decode path at "
+              f"{flips} of {pairs} (MoE layer, token) pairs; path noise "
+              f"{noise:.3g}", flush=True)
     return out
 
 
@@ -1219,7 +1532,8 @@ def make_engine(target, drafters, paged=False, backend=None):
 
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                 paged=False, int8=False, observe=None, attention=True,
-                ssm=False, backend=None, overlap=True):
+                ssm=False, backend=None, overlap=True, int8_kv=False,
+                moe=False):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel). With
     `backend="async"` the run is also held to the wall-clock backend's
@@ -1247,7 +1561,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    calls.check(label, paged, int8, attention=attention, ssm=ssm)
+    calls.check(label, paged, int8, attention=attention, ssm=ssm,
+                int8_kv=int8_kv, moe=moe)
     if backend == "async":
         wallclock = check_async_run(torch, label, eng, stats, calls,
                                     syncs_in_run, overlap)
@@ -1315,11 +1630,31 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
             calls.int8_per_forward.values())),
         snapshot_layer_gathers=calls.snapshots_layers,
         ssd_launches_by_form=calls.ssd_forms,
+        int8_kv_reads=dict(resident=calls.resident_int8,
+                           pool=calls.paged_int8),
+        moe_layer_calls=calls.moe_calls,
+        group_size_reads=calls.group_size_reads,
+        moe_forwards=calls.moe_layer_calls // max(1, moe_layers(target[0])),
+        moe_host_us_per_layer=(calls.moe_host_s / calls.moe_calls * 1e6
+                               if calls.moe_calls else None),
         setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results)
     if extra is not None:
         summary.update(extra())
     if backend == "async":
         summary.update(wallclock)
+    if moe:
+        per_fwd = calls.group_size_reads / summary["moe_forwards"]
+        summary["group_size_reads_per_forward"] = per_fwd
+        print(f"{label}: {calls.moe_calls} MoE layer calls in "
+              f"{summary['moe_forwards']} target forwards, "
+              f"{calls.group_size_reads} host reads of group sizes "
+              f"({per_fwd:.1f} a forward), "
+              f"{summary['moe_host_us_per_layer']:.1f} us of host wall time "
+              "per MoE layer (the device-to-host read waits for the "
+              "layer's inputs)", flush=True)
+    if int8_kv:
+        print(f"{label}: int8 K/V reads resident {calls.resident_int8}, "
+              f"pool {calls.paged_int8}", flush=True)
     print(f"{label}: wall clock {wall:.2f} s for {stats.total_committed} "
           f"tokens ({stats.total_committed / wall:.1f} tokens/s on the "
           f"card); simulated-clock throughput {stats.throughput_tps:.1f} "
@@ -1671,14 +2006,17 @@ def main() -> int:
         return 2
     try:
         from repro_torch.configs import (JAMBA_V0_1_52B, MAMBA2_130M,
-                                         QWEN1_5_4B, QWEN2_0_5B)
+                                         QWEN1_5_4B, QWEN2_0_5B,
+                                         QWEN2_MOE_A2_7B)
         from repro_torch.configs.drafters import int8_variant
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.int8_gemv import ops as ig
         from repro_torch.kernels.paged_attention import ops as pa
         from repro_torch.kernels.ssd_scan import ops as sd
+        from repro_torch.models import attention as attn
         from repro_torch.models import model as M
+        from repro_torch.models import moe as moe_mod
         from repro_torch.models import quantize
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -1707,8 +2045,11 @@ def main() -> int:
 
     fa_rows, fa_host = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
+    fa8_rows, pa8_rows, kv_write_host = int8kv_kernel_phase(torch, fa, pa,
+                                                            attn)
     sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
-    kernel_err = max(r["max_abs_err"] for r in fa_rows + pa_rows)
+    kernel_err = max(r["max_abs_err"]
+                     for r in fa_rows + pa_rows + fa8_rows + pa8_rows)
     ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
     paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
     gc.collect()
@@ -1799,6 +2140,31 @@ def main() -> int:
     wallclock["profile"] = profile_async_window(torch, target, full, prompts)
     gc.collect()
     torch.cuda.empty_cache()
+    # phases K and K-paged: phase A with int8 KV caches for the target and
+    # both drafters, resident and paged: every cache read on the kernels'
+    # int8 form
+    kcfg = QWEN1_5_4B.with_overrides(kv_dtype="int8")
+    kdcfg = QWEN2_0_5B.with_overrides(kv_dtype="int8")
+    kv8 = dict(target=(kcfg, tparams), prompts=prompts,
+               refs=references(kcfg, tparams, prompts), err=kernel_err,
+               drafters=[(kdcfg, dparams[i], f"d{i}") for i in range(2)],
+               int8_kv=True)
+    sum_k, streams_k = run("phase K", **kv8)
+    _, streams_kp = run("phase K-paged", paged=True,
+                        observe=lambda e: observe_pools(e, "phase K-paged"),
+                        **kv8)
+    same = sum(a == b for a, b in zip(streams_k, streams_kp))
+    paged8_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa8_rows)
+    print(f"phase K-paged: {same}/{len(prompts)} committed streams equal "
+          f"phase K's token for token; peak device GB: A "
+          f"{sum_a['peak_mem_gb']:.2f}, K {sum_k['peak_mem_gb']:.2f}",
+          flush=True)
+    if not paged8_exact or same != len(prompts):
+        fail("phase K-paged: the paged int8 pool committed other tokens "
+             "than the resident int8 pool")
+    del kv8
+    gc.collect()
+    torch.cuda.empty_cache()
     del tparams, dparams, full, mixed, target, dense
     gc.collect()
     torch.cuda.empty_cache()
@@ -1881,6 +2247,69 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phase J: qwen2-moe-a2.7b at full width (24 layers, 60 routed
+    # experts top-4 and a shared expert in every layer) with two
+    # qwen2-0.5b drafters, resident pool
+    jcfg = QWEN2_MOE_A2_7B
+    jprompts = make_prompts(jcfg)
+    t0 = time.perf_counter()
+    jparams = M.init_params(jcfg, seed=30, device="cuda")
+    jdraft = [M.init_params(QWEN2_0_5B, seed=31 + i, device="cuda")
+              for i in range(2)]
+    torch.cuda.synchronize()
+    print(f"qwen2-moe-a2.7b weights {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB with the drafters",
+          flush=True)
+    jrefs = references(jcfg, jparams, jprompts)
+    sum_j, _ = run("phase J", target=(jcfg, jparams),
+                   drafters=[(QWEN2_0_5B, jdraft[i], f"d{i}")
+                             for i in range(2)],
+                   prompts=jprompts, refs=jrefs, err=kernel_err, moe=True)
+    # phase J-f32: phase J with f32 activations (the same weights): at
+    # bf16 the routing flips between batched and one-token forwards (see
+    # the router counts above), which widens the tie rule's tolerance;
+    # at f32 the paths agree far more closely and the rule is tight
+    jcfg32 = jcfg.with_overrides(dtype="float32")
+    sum_j32, _ = run("phase J-f32", target=(jcfg32, jparams),
+                     drafters=[(QWEN2_0_5B, jdraft[i], f"d{i}")
+                               for i in range(2)],
+                     prompts=jprompts,
+                     refs=references(jcfg32, jparams, jprompts),
+                     err=kernel_err, moe=True)
+    n_moe = moe_layers(jcfg)
+    for label, sm in (("phase J", sum_j), ("phase J-f32", sum_j32)):
+        if sm["moe_layer_calls"] != n_moe * sm["moe_forwards"]:
+            fail(f"{label}: {sm['moe_layer_calls']} MoE layer calls for "
+                 f"{sm['moe_forwards']} target forwards of {n_moe}")
+    attn_layers = sum_j["attention_layer_calls"]
+    print(f"phase J: kernel 1 read each attention layer's cache once a "
+          f"forward: {attn_layers} cache reads = attention layers x "
+          f"forwards over {sum_j['forwards']} forwards (+ "
+          f"{sum_j['resident_attention_calls'].get('segment', 0)} segment "
+          f"passes) = {sum_j['kernel_launches']['flash_attention_partial']}"
+          " launches; router top-k sets differing between the two paths: "
+          f"{sum(r['router_flips'] for r in jrefs)} of "
+          f"{sum(r['router_pairs'] for r in jrefs)} pairs", flush=True)
+    # host cost of one MoE layer at decode, verification and prefill rows
+    # (wall time: the group-size read waits for the router's result)
+    moe_host = {}
+    lp = jparams["layers"][0]["ffn"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for rows in (4, 40, 512):
+        x = torch.randn((rows, jcfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        moe_host[rows] = _host_us(torch, lambda: moe_mod.apply_moe(
+            lp, x, jcfg, jcfg.moe), n=20)
+    print(f"phase J: wall us per MoE layer call by rows {moe_host}",
+          flush=True)
+    sum_j["moe_layer_wall_us_by_rows"] = moe_host
+    sum_j["router_flips"] = [dict(prompt_len=len(p), flips=r["router_flips"],
+                                  pairs=r["router_pairs"])
+                             for p, r in zip(jprompts, jrefs)]
+    del jparams, jdraft, lp
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print(json.dumps({"serving": summaries}), flush=True)
     print(json.dumps({"wallclock": wallclock}), flush=True)
     kernels = []
@@ -1891,11 +2320,23 @@ def main() -> int:
                                      in_place=sd_in_place,
                                      rec_max_l={"N128": sd.rec_max_l(128),
                                                 "N16": sd.rec_max_l(16)},
-                                     launches_by_form=ssd_forms)}
+                                     launches_by_form=ssd_forms),
+             "flash_attention_partial_int8_kv": dict(
+                 yardstick_ms=sum(r["yardstick_ms"] for r in fa8_rows),
+                 host_kv_write_us=kv_write_host),
+             "paged_flash_decode_int8_kv": dict(
+                 yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows))}
+    # why a kernel has no library call (library_ms null)
+    no_library = {
+        "ssd_scan_pallas": "no PyTorch call computes the scan",
+        "flash_attention_partial_int8_kv": INT8KV_NO_LIBRARY,
+        "paged_flash_decode_int8_kv": INT8KV_NO_LIBRARY}
     for name, rows in (("flash_attention_partial", fa_rows),
                        ("paged_flash_decode", pa_rows),
                        ("int8_gemv_call", ig_rows),
-                       ("ssd_scan_pallas", sd_rows)):
+                       ("ssd_scan_pallas", sd_rows),
+                       ("flash_attention_partial_int8_kv", fa8_rows),
+                       ("paged_flash_decode_int8_kv", pa8_rows)):
         source, replaces = KERNEL_SOURCES[name]
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]
@@ -1914,8 +2355,7 @@ def main() -> int:
             library_ms=None if None in lib else sum(lib),
             **extra.get(name, {}),
             note="times are sums over one call of each shape below"
-                 + ("; no PyTorch call computes the scan" if None in lib
-                    else ""),
+                 + (f"; {no_library[name]}" if None in lib else ""),
             shapes=rows))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",

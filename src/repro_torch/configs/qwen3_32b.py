@@ -1,0 +1,19 @@
+"""qwen3-32b [dense] — qk_norm + GQA.
+
+64L d_model=5120 64H (GQA kv=8) d_ff=25600 vocab=151936 [hf:Qwen/Qwen3-8B].
+"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1000000.0,
+)

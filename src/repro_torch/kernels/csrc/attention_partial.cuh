@@ -38,8 +38,8 @@
 //     resident slot pool, a page pool's view) that hold the same keys
 //     give the same bits. n_split <= 16 (16 is above the portable
 //     cluster size of 8).
-//   * Pipelined tiles. K/V tiles are staged in their stored dtype (f32 or
-//     bf16) with 16-byte `cp.async` copies into a double buffer, so the
+//   * Pipelined tiles. K/V tiles are staged in their stored dtype (f32,
+//     bf16 or int8) with 16-byte `cp.async` copies into a double buffer, so the
 //     copy of tile t + 1 overlaps the arithmetic of tile t; values become
 //     f32 where they are used. A tile's key positions (and, paged, its
 //     rows' page offsets) are read two tiles ahead (the block-table entry
@@ -49,6 +49,20 @@
 //     diagonal or out of the window) is not copied at all
 //     (`__syncthreads_or`): a request reads only the K/V it holds, and
 //     skipping is bit-exact (every p = 0, the correction exp(0) = 1).
+//   * int8 K/V (the `kv_dtype="int8"` caches). Tiles are staged as
+//     int8, D bytes a key row, by the same 16-byte `cp.async` copies (a
+//     quarter of f32's bytes); each key's f32 scale for this head, one
+//     per (row, head), is read with the key's metadata two tiles ahead
+//     and kept beside it in shared memory. Once a tile has landed, the
+//     block dequantizes it in one pass into a bf16 tile in shared memory,
+//     exactly bf16(f32(k8) * scale): the reference's dequantized view
+//     (`dequantize_cache`) element for element, so the int8 form and its
+//     plain version differ only in summation order. The arithmetic then
+//     reads that tile as the bf16 form reads its own. (Dequantizing in
+//     each query row's registers instead repeats the conversion for all
+//     16 rows of a block and was 2-3.7x slower on the H100.) The scale is
+//     not folded into the dot product ((q . k8) * scale), which would be
+//     another function.
 //   * f32 on CUDA cores. 8 threads share a query row; each keeps its strip
 //     of D/8 of q in registers and scores all 32 keys of a tile over that
 //     strip (one shared-memory read per FMA, broadcast to the warp's 4
@@ -71,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "smem_report.cuh"
 
@@ -96,6 +112,8 @@ struct Params {
   const uint8_t* mask;         // optional (B, T, S) bool
   const int32_t* slot_idx;     // resident: pool row of request b (or null)
   const int32_t* block_table;  // paged: (B, n_view) physical page ids
+  const float* k_scale;        // int8 K/V: (pool rows, S, H) f32 scales
+  const float* v_scale;
   float* acc;
   float* m;
   float* l;
@@ -107,6 +125,8 @@ struct Params {
   int64_t q_sb, q_st, q_sh, q_sg;
   int64_t k_sp, k_ss, k_sh;    // pool row (slot or page), key, head
   int64_t v_sp, v_ss, v_sh;
+  int64_t ksc_sp, ksc_ss, ksc_sh;   // int8 K/V: the scales' strides
+  int64_t vsc_sp, vsc_ss, vsc_sh;
   int64_t kpos_sp, qpos_sb;
   int64_t mask_sb, mask_st;
   int64_t bt_sb;
@@ -155,6 +175,37 @@ __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[CV]) {
   }
 }
 
+// An int8 tile (its K rows, then its V rows: 2 x KT x D values) as its
+// bf16 view bf16(f32(x8) * scale), written once by the whole block: the
+// reference's dequantized view bit for bit (the f32 product is exact
+// IEEE, the bf16 conversion rounds to nearest even, as torch and XLA).
+// int8 -> f32 by the exponent trick (bias the byte to unsigned, place
+// it in the mantissa of 2^23, subtract 2^23 + 128), which needs no
+// conversion unit.
+template <int D>
+__device__ __forceinline__ void dequant_tile(const int8_t* src,
+                                             __nv_bfloat16* dst,
+                                             const float* k_sc,
+                                             const float* v_sc, int tid) {
+  constexpr int VALS = KT * D;
+  for (int e = 4 * tid; e < 2 * VALS; e += 4 * THREADS) {
+    const int j = (e % VALS) / D;
+    const float sc = e < VALS ? k_sc[j] : v_sc[j];
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(src + e) ^
+                       0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[b] = (__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + b)) -
+              8388736.f) * sc;
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+    *reinterpret_cast<uint2*>(dst + e) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -162,28 +213,37 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
-// One key's metadata, read by thread `j` (< KT) of the block: position and
-// pool-row offsets of K and V (element offsets from the head's base).
+// One key's metadata, read by thread `j` (< KT) of the block: position,
+// pool-row offsets of K and V (element offsets from the head's base) and,
+// int8, the key's K and V scales for this head.
 struct KeyMeta {
   int32_t pos;
   int64_t koff, voff;
+  float ksc, vsc;
 };
 
 template <int D, typename QT, typename KVT, bool PAGED>
 __global__ void __launch_bounds__(THREADS)
 partial_kernel(const Params p) {
+  constexpr bool Q8 = std::is_same<KVT, int8_t>::value;
+  // the tiles the arithmetic reads: int8 K/V through their bf16 view
+  using CT = typename std::conditional<Q8, __nv_bfloat16, KVT>::type;
   constexpr int DPT = D / TPR;                       // values per thread
-  constexpr int CV = (DPT * int(sizeof(KVT)) > 16) ? 16 / int(sizeof(KVT))
-                                                   : DPT;  // per chunk
+  constexpr int CV = (DPT * int(sizeof(CT)) > 16) ? 16 / int(sizeof(CT))
+                                                  : DPT;  // per chunk
   constexpr int NCH = DPT / CV;                      // chunks per thread
   constexpr int TILE = KT * D;                       // elements per tile
   constexpr int CPK = D * int(sizeof(KVT)) / 16;     // 16 B copies per key
 
   extern __shared__ __align__(16) uint8_t kv_smem[];
   KVT* kv_s = reinterpret_cast<KVT*>(kv_smem);       // [2][K, V][KT][D]
+  // int8: the current tile's bf16 view, [K, V][KT][D], after the staging
+  CT* dq_s = reinterpret_cast<CT*>(kv_smem + 2 * 2 * TILE * sizeof(KVT));
   __shared__ int32_t kpos_s[META][KT];
   __shared__ int64_t koff_s[PAGED ? META : 1][KT];
   __shared__ int64_t voff_s[PAGED ? META : 1][KT];
+  __shared__ float ksc_s[Q8 ? META : 1][KT];         // int8: key scales
+  __shared__ float vsc_s[Q8 ? META : 1][KT];
   __shared__ __align__(16) float p_s[ROWS][KT];
   __shared__ float mrg_m[ROWS], mrg_l[ROWS];
 
@@ -259,16 +319,22 @@ partial_kernel(const Params p) {
     return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
   };
   auto load_meta = [&](int i, int32_t page) -> KeyMeta {
-    KeyMeta km{-1, 0, 0};
+    KeyMeta km{-1, 0, 0, 0.f, 0.f};
     const int s = tile_of(i) * KT + tid;
     if (i < nt && s < p.S) {
+      // the pool row (slot or page) and the row within it
+      const int64_t prow = PAGED ? page : slot;
+      const int64_t rw = PAGED ? s % p.page_size : s;
       if constexpr (PAGED) {
-        const int rw = s % p.page_size;
-        km.pos = kp[static_cast<int64_t>(page) * p.kpos_sp + rw];
-        km.koff = static_cast<int64_t>(page) * p.k_sp + rw * p.k_ss;
-        km.voff = static_cast<int64_t>(page) * p.v_sp + rw * p.v_ss;
+        km.pos = kp[prow * p.kpos_sp + rw];
+        km.koff = prow * p.k_sp + rw * p.k_ss;
+        km.voff = prow * p.v_sp + rw * p.v_ss;
       } else {
         km.pos = kp[s];
+      }
+      if constexpr (Q8) {
+        km.ksc = p.k_scale[prow * p.ksc_sp + rw * p.ksc_ss + h * p.ksc_sh];
+        km.vsc = p.v_scale[prow * p.vsc_sp + rw * p.vsc_ss + h * p.vsc_sh];
       }
     }
     return km;
@@ -278,6 +344,10 @@ partial_kernel(const Params p) {
     if constexpr (PAGED) {
       koff_s[i % META][tid] = km.koff;
       voff_s[i % META][tid] = km.voff;
+    }
+    if constexpr (Q8) {
+      ksc_s[i % META][tid] = km.ksc;
+      vsc_s[i % META][tid] = km.vsc;
     }
   };
   // issue the copies of tile i (its metadata is in slot i % META)
@@ -337,7 +407,7 @@ partial_kernel(const Params p) {
     if (next_live) copy_tile(i + 1);
     asm volatile("cp.async.commit_group;\n" ::);
     // metadata of tile i + 2 (and the page of tile i + 3) in flight
-    KeyMeta ahead{-1, 0, 0};
+    KeyMeta ahead{-1, 0, 0, 0.f, 0.f};
     if (tid < KT) {
       ahead = load_meta(i + 2, page_next);
       if constexpr (PAGED) page_next = block_page(i + 3);
@@ -346,8 +416,16 @@ partial_kernel(const Params p) {
     __syncthreads();
 
     if (cur_live) {
-      const KVT* ks = kv_s + (i & 1) * 2 * TILE;
-      const KVT* vs = ks + TILE;
+      const CT* ks;
+      if constexpr (Q8) {
+        dequant_tile<D>(kv_s + (i & 1) * 2 * TILE, dq_s, ksc_s[i % META],
+                        vsc_s[i % META], tid);
+        __syncthreads();
+        ks = dq_s;
+      } else {
+        ks = kv_s + (i & 1) * 2 * TILE;
+      }
+      const CT* vs = ks + TILE;
       const int32_t* kpos_t = kpos_s[i % META];
       const int s0 = tile_of(i) * KT;
       // partial dots of all 32 keys over this thread's strip
@@ -525,9 +603,11 @@ partial_kernel(const Params p) {
   cluster.sync();   // no block leaves while another reads its partials
 }
 
+// the double-buffered staging tiles and, int8, the bf16 view of one tile
 template <int D, typename KVT>
 constexpr int kv_smem_bytes() {
-  return 2 * 2 * KT * D * int(sizeof(KVT));
+  return 2 * 2 * KT * D * int(sizeof(KVT)) +
+         (std::is_same<KVT, int8_t>::value ? 2 * KT * D * 2 : 0);
 }
 
 template <int D, typename QT, typename KVT, bool PAGED>
@@ -558,54 +638,77 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
 }
 
-template <int D, bool PAGED>
-int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv_bf16,
-                    cudaStream_t stream) {
-  if (q_bf16 && kv_bf16)
-    return launch<D, __nv_bfloat16, __nv_bfloat16, PAGED>(p, B, stream);
-  if (q_bf16) return launch<D, __nv_bfloat16, float, PAGED>(p, B, stream);
-  if (kv_bf16) return launch<D, float, __nv_bfloat16, PAGED>(p, B, stream);
-  return launch<D, float, float, PAGED>(p, B, stream);
-}
+// K/V storage: the `kv` argument of the entry points
+constexpr int KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2;
 
-// Launch on `stream` for head dim D in {16, 32, 64, 128}; returns the
-// launch's error (cudaErrorInvalidValue for another D or n_split).
-template <bool PAGED>
-int dispatch(const Params& p, int B, int D, int q_bf16, int kv_bf16,
-             cudaStream_t stream) {
-  if (p.n_split < 1 || p.n_split > MAX_SPLIT || p.span_tiles < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 16: return dispatch_dtypes<16, PAGED>(p, B, q_bf16, kv_bf16, stream);
-    case 32: return dispatch_dtypes<32, PAGED>(p, B, q_bf16, kv_bf16, stream);
-    case 64: return dispatch_dtypes<64, PAGED>(p, B, q_bf16, kv_bf16, stream);
-    case 128: return dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv_bf16, stream);
+template <int D, typename QT, bool PAGED>
+int dispatch_kv(const Params& p, int B, int kv, cudaStream_t stream) {
+  switch (kv) {
+    case KV_F32: return launch<D, QT, float, PAGED>(p, B, stream);
+    case KV_BF16: return launch<D, QT, __nv_bfloat16, PAGED>(p, B, stream);
+    case KV_INT8:
+      if (p.k_scale == nullptr || p.v_scale == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch<D, QT, int8_t, PAGED>(p, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int D, bool PAGED>
+int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv,
+                    cudaStream_t stream) {
+  return q_bf16 ? dispatch_kv<D, __nv_bfloat16, PAGED>(p, B, kv, stream)
+                : dispatch_kv<D, float, PAGED>(p, B, kv, stream);
+}
+
+// Launch on `stream` for head dim D in {16, 32, 64, 128} and K/V storage
+// `kv` (KV_F32, KV_BF16 or KV_INT8 with scales); returns the launch's
+// error (cudaErrorInvalidValue for another D, kv or n_split).
+template <bool PAGED>
+int dispatch(const Params& p, int B, int D, int q_bf16, int kv,
+             cudaStream_t stream) {
+  if (p.n_split < 1 || p.n_split > MAX_SPLIT || p.span_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return dispatch_dtypes<16, PAGED>(p, B, q_bf16, kv, stream);
+    case 32: return dispatch_dtypes<32, PAGED>(p, B, q_bf16, kv, stream);
+    case 64: return dispatch_dtypes<64, PAGED>(p, B, q_bf16, kv, stream);
+    case 128: return dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int D, typename QT, typename KVT, bool PAGED>
+int smem_kv(int* dynamic, int* static_bytes, int* limit) {
+  return smem_report(partial_kernel<D, QT, KVT, PAGED>,
+                     kv_smem_bytes<D, KVT>(), dynamic, static_bytes, limit);
+}
+
 template <int D, typename QT, bool PAGED>
-int smem_of(int kv_bf16, int* dynamic, int* static_bytes, int* limit) {
-  return kv_bf16
-             ? smem_report(partial_kernel<D, QT, __nv_bfloat16, PAGED>,
-                           kv_smem_bytes<D, __nv_bfloat16>(), dynamic,
-                           static_bytes, limit)
-             : smem_report(partial_kernel<D, QT, float, PAGED>,
-                           kv_smem_bytes<D, float>(), dynamic, static_bytes,
-                           limit);
+int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
+  switch (kv) {
+    case KV_F32:
+      return smem_kv<D, QT, float, PAGED>(dynamic, static_bytes, limit);
+    case KV_BF16:
+      return smem_kv<D, QT, __nv_bfloat16, PAGED>(dynamic, static_bytes,
+                                                  limit);
+    case KV_INT8:
+      return smem_kv<D, QT, int8_t, PAGED>(dynamic, static_bytes, limit);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Shared memory of the instantiation for head dim D and these dtypes (see
 // smem_report.cuh).
 template <bool PAGED>
-int smem(int D, int q_bf16, int kv_bf16, int* dynamic, int* static_bytes,
+int smem(int D, int q_bf16, int kv, int* dynamic, int* static_bytes,
          int* limit) {
 #define D_CASE(D_)                                                         \
   case D_:                                                                 \
-    return q_bf16 ? smem_of<D_, __nv_bfloat16, PAGED>(kv_bf16, dynamic,    \
+    return q_bf16 ? smem_of<D_, __nv_bfloat16, PAGED>(kv, dynamic,         \
                                                      static_bytes, limit) \
-                  : smem_of<D_, float, PAGED>(kv_bf16, dynamic,            \
-                                              static_bytes, limit);
+                  : smem_of<D_, float, PAGED>(kv, dynamic, static_bytes,   \
+                                              limit);
   switch (D) {
     D_CASE(16)
     D_CASE(32)

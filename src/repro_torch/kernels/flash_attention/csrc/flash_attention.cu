@@ -20,9 +20,11 @@
 //
 // What the design does about it: K/V are read in place from the resident
 // slot pool through `slot_idx` (no gathered copy, which would read and
-// write every byte once more), in their stored dtype (f32 or bf16), by
+// write every byte once more), in their stored dtype (f32, bf16, or int8
+// with an f32 scale per (row, head): `kv_dtype="int8"` caches), by
 // 16-byte `cp.async` copies into a double buffer and converted to f32
-// where they are used. The logical keys of each (request, KV head, tile
+// where they are used (int8 through the reference's bf16 view,
+// bf16(f32(k8) * scale)). The logical keys of each (request, KV head, tile
 // of 16 query rows) are split over a thread-block cluster of `n_split`
 // blocks (flash-decoding), whose partials merge in fixed order through
 // distributed shared memory, so decode's few rows still fill the SMs. A
@@ -45,13 +47,15 @@
 
 extern "C" int fa_partial_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* k_pos, const void* mask, const void* slot_idx, void* acc,
+    const void* k_pos, const void* mask, const void* slot_idx,
+    const void* k_scale, const void* v_scale, void* acc,
     void* m, void* l, int B, int T, int G, int H, int S, int D,
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
-    int64_t kpos_sp, int64_t qpos_sb, int64_t mask_sb, int64_t mask_st,
-    float scale, int causal, int window, int q_bf16, int kv_bf16, int n_split,
-    int span_tiles, void* stream) {
+    int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
+    int64_t vsc_ss, int64_t vsc_sh, int64_t kpos_sp, int64_t qpos_sb,
+    int64_t mask_sb, int64_t mask_st, float scale, int causal, int window,
+    int q_bf16, int kv, int n_split, int span_tiles, void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -61,6 +65,8 @@ extern "C" int fa_partial_launch(
   p.mask = static_cast<const uint8_t*>(mask);
   p.slot_idx = static_cast<const int32_t*>(slot_idx);
   p.block_table = nullptr;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
@@ -79,6 +85,12 @@ extern "C" int fa_partial_launch(
   p.v_sp = v_sp;
   p.v_ss = v_ss;
   p.v_sh = v_sh;
+  p.ksc_sp = ksc_sp;
+  p.ksc_ss = ksc_ss;
+  p.ksc_sh = ksc_sh;
+  p.vsc_sp = vsc_sp;
+  p.vsc_ss = vsc_ss;
+  p.vsc_sh = vsc_sh;
   p.kpos_sp = kpos_sp;
   p.qpos_sb = qpos_sb;
   p.mask_sb = mask_sb;
@@ -89,13 +101,13 @@ extern "C" int fa_partial_launch(
   p.scale = scale;
   p.causal = causal;
   p.window = window;
-  return attn_partial::dispatch<false>(p, B, D, q_bf16, kv_bf16,
+  return attn_partial::dispatch<false>(p, B, D, q_bf16, kv,
                                        static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory of the instantiation for head dim D (for the tests).
-extern "C" int fa_smem(int D, int q_bf16, int kv_bf16, int* dynamic,
+extern "C" int fa_smem(int D, int q_bf16, int kv, int* dynamic,
                        int* static_bytes, int* limit) {
-  return attn_partial::smem<false>(D, q_bf16, kv_bf16, dynamic,
+  return attn_partial::smem<false>(D, q_bf16, kv, dynamic,
                                    static_bytes, limit);
 }

@@ -10,7 +10,15 @@ blocked online-softmax attention and returns the unnormalised partials
                              `slot_idx` (B,) without a gathered copy
   q_pos  (B, T) int32; k_pos (P, S) int32, -1 = empty slot
   mask   optional (B, T, S) bool, ANDed in (tree masks)
+  k_scale, v_scale  (P, S, Hkv) f32, with int8 k, v: one symmetric
+         scale per (row, head) (`kv_dtype="int8"` caches)
   -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
+
+An int8 K/V pair is the reference's dequantized bf16 view,
+bf16(f32(k8) * scale) (`dequantize_kv`): the plain version builds that
+view and attends over it; the kernel's int8 form reads the int8 rows and
+scales in place and dequantizes each value to the same bf16 in
+registers.
 
 Rows are token-major (row r = t * G + g), which is the (B, Hkv, R, D)
 contract of the JAX package's Pallas kernel
@@ -43,6 +51,8 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 #: version with the same tile on the CPU
 KEY_TILE = 32
 _KV_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernels' K/V storage argument
+KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: query rows per block of the kernel
 ROW_TILE = 16
 #: the split plan aims at this many blocks (two per SM of 132), and never
@@ -56,16 +66,19 @@ SPLIT_REF_KEYS = 1024
 #: kernel launches made by `attend_partial` (a plain integer; reset it
 #: to 0 before a run whose launches should be counted)
 LAUNCHES = 0
+#: the launches of them that read int8 K/V (the int8 form)
+LAUNCHES_INT8_KV = 0
 
 
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn = lib.fa_partial_launch
-    fn.argtypes = ([vp] * 10            # q k v q_pos k_pos mask slot acc m l
+    fn.argtypes = ([vp] * 12            # q k v q_pos k_pos mask slot
+                                        # k_scale v_scale acc m l
                    + [i32] * 6          # B T G H S D
-                   + [i64] * 14         # strides
+                   + [i64] * 20         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 6          # causal window q_bf16 kv_bf16
+                   + [i32] * 6          # causal window q_bf16 kv
                                         # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
@@ -73,8 +86,8 @@ def _declare(lib):
 
 
 def declare_smem(fn):
-    """Types of a library's shared-memory report: (D, q_bf16, kv_bf16,
-    *dynamic, *static, *limit) -> CUDA error."""
+    """Types of a library's shared-memory report: (D, q_bf16, kv (a
+    `KV_KIND` value), *dynamic, *static, *limit) -> CUDA error."""
     ip = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [ctypes.c_int] * 3 + [ip] * 3
     fn.restype = ctypes.c_int
@@ -92,11 +105,19 @@ LIBRARY = KernelLibrary(
 # plain version
 # =====================================================================
 
+def dequantize_kv(x8, scale):
+    """The reference's dequantized view of an int8 K or V (..., H, D)
+    with its (..., H) scales: bf16(f32(x8) * scale)."""
+    return (x8.float() * scale[..., None]).to(torch.bfloat16)
+
+
 def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
-                         window=0, mask=None, slot_idx=None, block=None):
+                         window=0, mask=None, slot_idx=None, block=None,
+                         k_scale=None, v_scale=None):
     """Plain PyTorch partials, same arguments and results as
     `attend_partial`: the reference's `attend_partial` (a scan over KV
-    blocks) written out with einsum.
+    blocks) written out with einsum; int8 K/V (with `k_scale`,
+    `v_scale`) through their dequantized view (`dequantize_kv`).
 
     `block` is the number of keys per tile (None: one tile of all S
     keys). The last tile is padded with empty keys to the full width, so
@@ -106,7 +127,12 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
     pool's gathered view of another length, give bitwise equal partials
     for every row."""
     if slot_idx is not None:
-        k, v, k_pos = k[slot_idx], v[slot_idx], k_pos[slot_idx]
+        idx = slot_idx.long()
+        k, v, k_pos = k[idx], v[idx], k_pos[idx]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[idx], v_scale[idx]
+    if k_scale is not None:
+        k, v = dequantize_kv(k, k_scale), dequantize_kv(v, v_scale)
     B, T, Hkv, G, Dk = q.shape
     S = k.shape[1]
     Dv = v.shape[-1]
@@ -180,12 +206,14 @@ def plan_splits(B: int, H: int, R: int, S: int):
 
 
 def kernel_smem(D: int, kv_element_size: int) -> int:
-    """Dynamic shared memory of one block: the double-buffered K/V tiles,
-    reused for the merge's (ROW_TILE, D) f32 rows. (Static shared memory
-    is known only from the compiled kernel: the `gpu` tests hold this
-    against the kernels' request and the sum of both against the
-    device's limit.)"""
-    return 2 * 2 * KEY_TILE * D * kv_element_size
+    """Dynamic shared memory of one block: the double-buffered K/V tiles
+    in their stored dtype (4, 2 or 1 bytes a value), reused for the
+    merge's (ROW_TILE, D) f32 rows, and for int8 K/V the bf16 view of
+    one K/V tile. (Static shared memory is known only from the compiled
+    kernel: the `gpu` tests hold this against the kernels' request and
+    the sum of both against the device's limit.)"""
+    view = 2 * KEY_TILE * D * 2 if kv_element_size == 1 else 0
+    return 2 * 2 * KEY_TILE * D * kv_element_size + view
 
 
 def split_ranges(S: int, n_split: int, span_tiles: int):
@@ -217,6 +245,30 @@ def kv_aligned(t, strides) -> bool:
             and strides[1] % per == 0 and strides[2] % per == 0)
 
 
+def check_kv(check, k, v, k_scale, v_scale, lead, Hkv, dev):
+    """The K/V storage a kernel takes: f32 or bf16 K and V alike, or
+    int8 K and V with f32 scales of shape `lead` + (Hkv,) on `dev`.
+    Returns the kernels' `kv` argument and the scales' six strides (zeros
+    without scales)."""
+    check(k.dtype == v.dtype and k.dtype in KV_KIND, lambda: (
+        f"dtypes k={k.dtype} v={v.dtype}; supported float32 / bfloat16 / "
+        "int8, k and v alike"))
+    int8 = k.dtype == torch.int8
+    check(int8 == (k_scale is not None) == (v_scale is not None), lambda: (
+        "int8 k and v need k_scale and v_scale, and only int8 k and v "
+        "take them"))
+    if not int8:
+        return KV_KIND[k.dtype], (0,) * 6
+    shape = tuple(lead) + (Hkv,)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        check(t.dtype == torch.float32 and tuple(t.shape) == shape
+              and t.device == dev, lambda: (
+                  f"{name} must be float32 {shape} on {dev}, got "
+                  f"{t.dtype} {tuple(t.shape)} on {t.device}"))
+    return KV_KIND[torch.int8], tuple(k_scale.stride()) + tuple(
+        v_scale.stride())
+
+
 def empty_partials(shape, Dv, dev):
     """(m, l, acc) outputs as contiguous views of one allocation."""
     n = 1
@@ -239,7 +291,7 @@ _FN = None
 
 
 def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
-            slot_idx):
+            slot_idx, k_scale=None, v_scale=None):
     B, T, Hkv, G, Dk = q.shape
     P, S = k.shape[0], k.shape[1]
     Dv = v.shape[-1]
@@ -248,12 +300,11 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     _check(Dk == Dv and Dk in SUPPORTED_HEAD_DIMS, lambda: (
         f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
         f"{SUPPORTED_HEAD_DIMS}"))
-    _check(q.dtype in _KV_DTYPES and k.dtype in _KV_DTYPES
-           and v.dtype == k.dtype, lambda: (
-               f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}; supported "
-               "float32 / bfloat16, k and v alike"))
+    _check(q.dtype in _KV_DTYPES, lambda: (
+        f"dtype q={q.dtype}; supported float32 / bfloat16"))
     _check(k.shape == (P, S, Hkv, Dk) and v.shape == (P, S, Hkv, Dv),
            "k/v shapes")
+    kv, sc = check_kv(_check, k, v, k_scale, v_scale, (P, S), Hkv, dev)
     qs, ks, vs = q.stride(), k.stride(), v.stride()
     _check(qs[4] == 1 and ks[3] == 1 and vs[3] == 1,
            "q, k and v need a contiguous last (head) dimension")
@@ -283,45 +334,53 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     if B * T * G == 0:
         return m.fill_(NEG_INF), l.zero_(), acc.zero_()
 
-    global _FN, LAUNCHES
+    global _FN, LAUNCHES, LAUNCHES_INT8_KV
     if _FN is None:
         _FN = LIBRARY.load().fa_partial_launch
     n_split, span = plan_splits(B, Hkv, T * G, S)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
              0 if slot_idx is None else slot_idx.data_ptr(),
+             0 if k_scale is None else k_scale.data_ptr(),
+             0 if v_scale is None else v_scale.data_ptr(),
              acc.data_ptr(), m.data_ptr(), l.data_ptr(),
              B, T, G, Hkv, S, Dk,
              qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
-             vs[0], vs[1], vs[2], k_pos.stride(0), q_pos.stride(0),
+             vs[0], vs[1], vs[2], *sc, k_pos.stride(0), q_pos.stride(0),
              0 if mask is None else mask.stride(0),
              0 if mask is None else mask.stride(1),
              float(scale), int(bool(causal)), int(window),
-             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-             n_split, span, cuda_stream(dev))
+             int(q.dtype == torch.bfloat16), kv, n_split, span,
+             cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
     with COUNT_LOCK:
         LAUNCHES += 1
+        if kv == KV_KIND[torch.int8]:
+            LAUNCHES_INT8_KV += 1
     return m, l, acc
 
 
 def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
-                   mask=None, slot_idx=None, block=None):
+                   mask=None, slot_idx=None, block=None, k_scale=None,
+                   v_scale=None):
     """Online-softmax partials (m, l, acc); see the module docstring.
 
     CUDA tensors launch the Hopper kernel (or raise on what it does not
-    take); CPU tensors run `attend_partial_plain`. `block` is the plain
-    version's KV block (the kernel tiles keys itself)."""
+    take: an int8 pair is read in place by its int8 form, never
+    dequantized here); CPU tensors run `attend_partial_plain`. `block` is
+    the plain version's KV block (the kernel tiles keys itself)."""
     if q.device.type == "cuda":
         return _launch(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
-                       window=window, mask=mask, slot_idx=slot_idx)
+                       window=window, mask=mask, slot_idx=slot_idx,
+                       k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cpu":
         raise ValueError(f"flash-attention: unsupported device {q.device}")
     return attend_partial_plain(q, k, v, q_pos, k_pos, scale=scale,
                                 causal=causal, window=window, mask=mask,
-                                slot_idx=slot_idx, block=block)
+                                slot_idx=slot_idx, block=block,
+                                k_scale=k_scale, v_scale=v_scale)
 
 
 # =====================================================================

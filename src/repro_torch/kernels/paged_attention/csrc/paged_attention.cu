@@ -28,8 +28,9 @@
 // resident kernel: the logical keys are split over a cluster and walked
 // in the same 32-key tiles, split the same way, with the same tile
 // skipping and merge order, so the partials are bit for bit those of
-// `flash_attention.cu` on the gathered view. Element offsets are computed
-// in int64.
+// `flash_attention.cu` on the gathered view, for f32, bf16 and int8 pools
+// alike (an int8 pool's scales are read through the same page offsets).
+// Element offsets are computed in int64.
 //
 // The C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError().
@@ -38,12 +39,14 @@
 
 extern "C" int paged_partial_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* page_pos, const void* block_table, void* acc, void* m,
+    const void* page_pos, const void* block_table, const void* k_scale,
+    const void* v_scale, void* acc, void* m,
     void* l, int B, int T, int G, int H, int n_view, int page_size, int D,
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
-    int64_t pos_sp, int64_t qpos_sb, int64_t bt_sb, float scale, int window,
-    int q_bf16, int kv_bf16, int n_split,
+    int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
+    int64_t vsc_ss, int64_t vsc_sh, int64_t pos_sp, int64_t qpos_sb,
+    int64_t bt_sb, float scale, int window, int q_bf16, int kv, int n_split,
     int span_tiles, void* stream) {
   attn_partial::Params p{};
   p.q = q;
@@ -54,6 +57,8 @@ extern "C" int paged_partial_launch(
   p.mask = nullptr;
   p.slot_idx = nullptr;
   p.block_table = static_cast<const int32_t*>(block_table);
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.acc = static_cast<float*>(acc);
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);
@@ -72,6 +77,12 @@ extern "C" int paged_partial_launch(
   p.v_sp = v_sp;
   p.v_ss = v_ss;
   p.v_sh = v_sh;
+  p.ksc_sp = ksc_sp;
+  p.ksc_ss = ksc_ss;
+  p.ksc_sh = ksc_sh;
+  p.vsc_sp = vsc_sp;
+  p.vsc_ss = vsc_ss;
+  p.vsc_sh = vsc_sh;
   p.kpos_sp = pos_sp;
   p.qpos_sb = qpos_sb;
   p.mask_sb = 0;
@@ -82,13 +93,13 @@ extern "C" int paged_partial_launch(
   p.scale = scale;
   p.causal = 1;
   p.window = window;
-  return attn_partial::dispatch<true>(p, B, D, q_bf16, kv_bf16,
+  return attn_partial::dispatch<true>(p, B, D, q_bf16, kv,
                                       static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory of the instantiation for head dim D (for the tests).
-extern "C" int paged_smem(int D, int q_bf16, int kv_bf16, int* dynamic,
+extern "C" int paged_smem(int D, int q_bf16, int kv, int* dynamic,
                           int* static_bytes, int* limit) {
-  return attn_partial::smem<true>(D, q_bf16, kv_bf16, dynamic,
+  return attn_partial::smem<true>(D, q_bf16, kv, dynamic,
                                   static_bytes, limit);
 }

@@ -11,6 +11,8 @@ of a page pool. Its layout is the model's, as for
   page_view  (B, n_view) int32 block table: logical page i of request b
              is physical page page_view[b, i] (unmapped entries point at
              a NULL page whose positions stay -1)
+  k_scale, v_scale  (P, ps, Hkv) f32 with an int8 pool (one scale per
+             row and head), read through the same block table
   -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
 
 The read is causal, with an optional window. T = 1 is the decode form of
@@ -36,16 +38,19 @@ from repro_torch.kernels.flash_attention import ops as fa
 #: kernel launches made by `paged_attend_partial` (a plain integer; reset
 #: it to 0 before a run whose launches should be counted)
 LAUNCHES = 0
+#: the launches of them that read an int8 pool (the int8 form)
+LAUNCHES_INT8_KV = 0
 
 
 def _declare(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     fn = lib.paged_partial_launch
-    fn.argtypes = ([vp] * 9             # q k v q_pos page_pos table acc m l
+    fn.argtypes = ([vp] * 11            # q k v q_pos page_pos table
+                                        # k_scale v_scale acc m l
                    + [i32] * 7          # B T G H n_view page_size D
-                   + [i64] * 13         # strides
+                   + [i64] * 19         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 5          # window q_bf16 kv_bf16
+                   + [i32] * 5          # window q_bf16 kv
                                         # n_split span_tiles
                    + [vp])              # stream
     fn.restype = ctypes.c_int
@@ -73,14 +78,19 @@ def gather_view(pages, page_view):
 
 
 def paged_attend_partial_plain(q, k, v, q_pos, page_pos, page_view, *,
-                               scale, window=0, block=None):
+                               scale, window=0, block=None, k_scale=None,
+                               v_scale=None):
     """Plain PyTorch partials, same arguments and results as
-    `paged_attend_partial`: the gathered view through
-    `attend_partial_plain` (`block` is its tile)."""
+    `paged_attend_partial`: the gathered view (an int8 pool's with its
+    scales) through `attend_partial_plain` (`block` is its tile)."""
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=gather_view(k_scale, page_view),
+                      v_scale=gather_view(v_scale, page_view))
     return fa.attend_partial_plain(
         q, gather_view(k, page_view), gather_view(v, page_view), q_pos,
         gather_view(page_pos, page_view), scale=scale, causal=True,
-        window=window, block=block)
+        window=window, block=block, **scales)
 
 
 # =====================================================================
@@ -98,7 +108,8 @@ def _check(cond, msg):
 _FN = None
 
 
-def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
+def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
+            k_scale=None, v_scale=None):
     B, T, Hkv, G, Dk = q.shape
     P, ps = page_pos.shape
     Dv = v.shape[-1]
@@ -107,12 +118,11 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
     _check(Dk == Dv and Dk in fa.SUPPORTED_HEAD_DIMS, lambda: (
         f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
         f"{fa.SUPPORTED_HEAD_DIMS}"))
-    _check(q.dtype in fa._KV_DTYPES and k.dtype in fa._KV_DTYPES
-           and v.dtype == k.dtype, lambda: (
-               f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}; supported "
-               "float32 / bfloat16, k and v alike"))
+    _check(q.dtype in fa._KV_DTYPES, lambda: (
+        f"dtype q={q.dtype}; supported float32 / bfloat16"))
     _check(k.shape == (P, ps, Hkv, Dk) and v.shape == (P, ps, Hkv, Dv),
            "k/v page shapes")
+    kv, sc = fa.check_kv(_check, k, v, k_scale, v_scale, (P, ps), Hkv, dev)
     _check(ps > 0 and ps & (ps - 1) == 0,
            lambda: f"page size {ps} is not a power of two")
     qs, ks, vs = q.stride(), k.stride(), v.stride()
@@ -136,45 +146,51 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window):
     if B * T * G == 0 or nv == 0:
         return m.fill_(fa.NEG_INF), l.zero_(), acc.zero_()
 
-    global _FN, LAUNCHES
+    global _FN, LAUNCHES, LAUNCHES_INT8_KV
     if _FN is None:
         _FN = LIBRARY.load().paged_partial_launch
     # the split of kernel 1 on the gathered view (S = n_view * ps), so
     # both kernels sum the same tiles in the same order
     n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            page_pos.data_ptr(), page_view.data_ptr(), acc.data_ptr(),
+            page_pos.data_ptr(), page_view.data_ptr(),
+            0 if k_scale is None else k_scale.data_ptr(),
+            0 if v_scale is None else v_scale.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(),
             B, T, G, Hkv, nv, ps, Dk,
             qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
-            vs[0], vs[1], vs[2], page_pos.stride(0), q_pos.stride(0),
+            vs[0], vs[1], vs[2], *sc, page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-            n_split, span, cuda_stream(dev))
+            int(q.dtype == torch.bfloat16), kv, n_split, span,
+            cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
     with COUNT_LOCK:
         LAUNCHES += 1
+        if kv == fa.KV_KIND[torch.int8]:
+            LAUNCHES_INT8_KV += 1
     return m, l, acc
 
 
 def paged_attend_partial(q, k, v, q_pos, page_pos, page_view, *, scale,
-                         window=0, block=None):
+                         window=0, block=None, k_scale=None, v_scale=None):
     """Causal online-softmax partials (m, l, acc) over a page pool read
     through `page_view`; see the module docstring.
 
     CUDA tensors launch the Hopper kernel (or raise on what it does not
-    take); CPU tensors run `paged_attend_partial_plain`, whose tile is
-    `block` (the kernel tiles keys itself)."""
+    take; an int8 pool goes to its int8 form); CPU tensors run
+    `paged_attend_partial_plain`, whose tile is `block` (the kernel tiles
+    keys itself)."""
     if q.device.type == "cuda":
         return _launch(q, k, v, q_pos, page_pos, page_view, scale=scale,
-                       window=window)
+                       window=window, k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cpu":
         raise ValueError(f"paged-attention: unsupported device {q.device}")
     return paged_attend_partial_plain(q, k, v, q_pos, page_pos, page_view,
                                       scale=scale, window=window,
-                                      block=block)
+                                      block=block, k_scale=k_scale,
+                                      v_scale=v_scale)
 
 
 def paged_flash_decode(q, k_pages, v_pages, page_pos, q_pos, block_tables,

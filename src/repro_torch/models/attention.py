@@ -14,6 +14,11 @@ stay correct as long as C >= window + the largest written segment.
 
 Paged pools have the same leaves with a page axis:
   {"k": (P, ps, Hkv, Dk), "v": (P, ps, Hkv, Dv), "slot_pos": (P, ps)}
+An int8 cache (`quantized=True`, `kv_dtype="int8"`) stores int8 K/V and
+adds "k_scale" / "v_scale", f32 of shape (B, C, Hkv) or (P, ps, Hkv):
+one symmetric scale per (row, head), the reference's layout. The kernels
+read the int8 rows and scales in place; the plain versions read the
+reference's dequantized bf16 view (`dequantize_cache`).
 A request owns an ordered list of pages; a `page_view` (B, n_view) int32
 block table names them, logical column c of request b being row c % ps
 of page page_view[b, c // ps]. Unmapped view entries point at a NULL
@@ -26,7 +31,7 @@ snapshots and single-request caches are owned by their caller and never
 reused after a step). Reads of a pool go through `slot_idx` or the block
 table inside the kernel, without a gathered copy.
 
-MLA, cross-attention and int8 KV caches are not ported yet and raise
+MLA and cross-attention are not ported yet and raise
 `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -42,8 +47,6 @@ from repro_torch.models.quantize import qdot
 NEG_INF = -1e30
 RING_MARGIN = 128  # extra ring slots beyond the window (max verify segment)
 
-INT8_KV_ROADMAP = ("kv_dtype='int8' caches are not ported yet "
-                   "(ROADMAP queue 1 item 11)")
 MLA_ROADMAP = "MLA attention is not ported yet (ROADMAP queue 1 item 11)"
 CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
                  "(ROADMAP queue 1 item 11)")
@@ -54,17 +57,20 @@ CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
 # =====================================================================
 
 def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
-                   extra_mask=None, block=None, slot_idx=None):
+                   extra_mask=None, block=None, slot_idx=None, k_scale=None,
+                   v_scale=None):
     """Online-softmax partials (m, l, acc) — the kernel's wrapper.
 
     q: (B, T, Hkv, G, Dk); k: (P, S, Hkv, Dk); v: (P, S, Hkv, Dv);
     q_pos: (B, T); k_pos: (P, S) (-1 empty); extra_mask: (B, T, S) bool;
     slot_idx: (B,) rows of a pool (P > B) read in place, or None (P = B);
-    block: the plain version's key tile (None: one tile).
+    block: the plain version's key tile (None: one tile);
+    k_scale, v_scale: (P, S, Hkv) f32 scales of int8 k, v (or None).
     Returns (B,T,Hkv,G), (B,T,Hkv,G), (B,T,Hkv,G,Dv), all f32."""
     return fa.attend_partial(q, k, v, q_pos, k_pos, scale=scale,
                              causal=causal, window=window, mask=extra_mask,
-                             slot_idx=slot_idx, block=block)
+                             slot_idx=slot_idx, block=block, k_scale=k_scale,
+                             v_scale=v_scale)
 
 
 def finalize_partial(partial, out_dtype):
@@ -85,14 +91,17 @@ def cache_partial(q, cache, q_pos, *, scale, window=0, block=None,
                   slot_idx=None, page_view=None):
     """Causal partials of q over a cache, read in place: a page pool
     through `page_view` by the paged kernel, else a resident cache
-    (through `slot_idx` when given) by the flash-attention kernel."""
+    (through `slot_idx` when given) by the flash-attention kernel; an
+    int8 cache with its scales, by the kernels' int8 K/V form."""
+    scales = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if page_view is not None:
         return pa.paged_attend_partial(
             q, cache["k"], cache["v"], q_pos, cache["slot_pos"], page_view,
-            scale=scale, window=window, block=block)
+            scale=scale, window=window, block=block, **scales)
     return attend_partial(q, cache["k"], cache["v"], q_pos,
                           cache["slot_pos"], scale=scale, causal=True,
-                          window=window, block=block, slot_idx=slot_idx)
+                          window=window, block=block, slot_idx=slot_idx,
+                          **scales)
 
 
 # =====================================================================
@@ -102,18 +111,44 @@ def cache_partial(q, cache, q_pos, *, scale, window=0, block=None,
 def make_kv_cache(batch, capacity, n_kv, dk, dv=None, dtype=torch.bfloat16,
                   quantized=False, device=None):
     """Empty cache: zero K/V (finite, so masked keys add exactly 0) and
-    slot_pos -1."""
-    if quantized:
-        raise NotImplementedError(INT8_KV_ROADMAP)
+    slot_pos -1; `quantized` stores int8 K/V whatever `dtype`, with zero
+    f32 scales per (row, head). A page pool is the same with (n_pages,
+    page_size) leading."""
     dv = dv or dk
-    return {
-        "k": torch.zeros((batch, capacity, n_kv, dk), dtype=dtype,
+    store = torch.int8 if quantized else dtype
+    c = {
+        "k": torch.zeros((batch, capacity, n_kv, dk), dtype=store,
                          device=device),
-        "v": torch.zeros((batch, capacity, n_kv, dv), dtype=dtype,
+        "v": torch.zeros((batch, capacity, n_kv, dv), dtype=store,
                          device=device),
         "slot_pos": torch.full((batch, capacity), -1, dtype=torch.int32,
                                device=device),
     }
+    if quantized:
+        for key in ("k_scale", "v_scale"):
+            c[key] = torch.zeros((batch, capacity, n_kv),
+                                 dtype=torch.float32, device=device)
+    return c
+
+
+def _quantize(x):
+    """Symmetric per-(token, head) int8 quantization of x (B, T, H, D):
+    the reference's arithmetic (scale = max|x| / 127 clamped to 1e-8,
+    round half to even, clip to +-127). Returns (int8, f32 scale)."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_cache(cache):
+    """The (k, v) the plain versions read: an int8 cache's bf16 view
+    bf16(f32(k8) * scale), as the reference builds it; a plain cache's
+    own K/V."""
+    if "k_scale" not in cache:
+        return cache["k"], cache["v"]
+    return (fa.dequantize_kv(cache["k"], cache["k_scale"]),
+            fa.dequantize_kv(cache["v"], cache["v_scale"]))
 
 
 def cache_capacity(cfg: ModelConfig, max_len: int, layer_window: int) -> int:
@@ -123,13 +158,17 @@ def cache_capacity(cfg: ModelConfig, max_len: int, layer_window: int) -> int:
 
 
 def kv_rows(cache, k_new, v_new, positions):
-    """New-token KV rows in storage form: {"k", "v", "slot_pos"} with
-    leading (B, T)."""
+    """New-token KV rows in storage form (quantized or cast as the
+    cache stores them): {"k", "v", "slot_pos"[, "k_scale", "v_scale"]}
+    with leading (B, T)."""
+    rows = {"slot_pos": positions.to(torch.int32)}
     if "k_scale" in cache:
-        raise NotImplementedError(INT8_KV_ROADMAP)
-    return {"slot_pos": positions.to(torch.int32),
-            "k": k_new.to(cache["k"].dtype),
-            "v": v_new.to(cache["v"].dtype)}
+        rows["k"], rows["k_scale"] = _quantize(k_new)
+        rows["v"], rows["v_scale"] = _quantize(v_new)
+    else:
+        rows["k"] = k_new.to(cache["k"].dtype)
+        rows["v"] = v_new.to(cache["v"].dtype)
+    return rows
 
 
 def set_rows(cache, rows, positions, slot_idx=None, page_view=None):

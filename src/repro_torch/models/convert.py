@@ -5,7 +5,9 @@ along a leading `reps` axis (its `lax.scan` layout):
   {"embed", "stages": [tuple(sublayer dict with leading reps)],
    "final_norm", "head"?}
 `params_from_numpy` splits that axis into one dict per layer, in layer
-order, and moves every leaf to a tensor on `device`. Quantized leaves
+order, and moves every leaf to a tensor on `device`; a MoE layer's FFN
+comes across as its dict of `router` (d, E), `w_gate` / `w_up` (E, d, f),
+`w_down` (E, f, d) and the `shared` expert's MLP. Quantized leaves
 (``{"w8": int8, "scale": f32}`` of `repro.models.quantize`, the `reps`
 axis on both) come across as the same dicts of tensors, so quantizing in
 JAX and converting gives the bits of converting and quantizing with

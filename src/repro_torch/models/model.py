@@ -25,8 +25,14 @@ attention KV of every attention layer lives in a pool of pages, read and
 written through a `page_view` block table, while SSM state and `lengths`
 stay slot-indexed.
 
-MoE FFNs, MLA, cross-attention and int8 KV caches are not ported yet and
-raise `NotImplementedError` naming their ROADMAP item.
+A MoE layer's FFN (`models/moe.py`) routes each token to its top-k
+experts; `apply` sums the layers' load-balance losses into its aux
+output, as the reference does. With `cfg.kv_dtype == "int8"` every KV
+cache and page pool stores int8 K/V with an f32 scale per (row, head)
+(`models/attention.py`), read in place by the attention kernels.
+
+MLA and cross-attention are not ported yet and raise
+`NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,12 +43,11 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import quantize
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        mlp_params, norm_params)
-
-MOE_ROADMAP = "MoE layers are not ported yet (ROADMAP queue 1 item 11)"
 
 
 # ====================================================== layer plan
@@ -111,10 +116,6 @@ def layer_specs(cfg: ModelConfig) -> list:
             raise NotImplementedError(attn.MLA_ROADMAP)
         if s.cross:
             raise NotImplementedError(attn.CROSS_ROADMAP)
-        if s.ffn == "moe":
-            raise NotImplementedError(MOE_ROADMAP)
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError(attn.INT8_KV_ROADMAP)
     return specs
 
 
@@ -150,7 +151,9 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
         p = {"ln1": norm_params(cfg, cfg.d_model, dev), "mixer": mixer}
         if spec.ffn != "none":
             p["ln2"] = norm_params(cfg, cfg.d_model, dev)
-            p["ffn"] = mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev)
+            p["ffn"] = (moe_mod.moe_params(gen, cfg, cfg.moe, dev)
+                        if spec.ffn == "moe" else
+                        mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev))
         layers.append(p)
     params["layers"] = layers
     params["final_norm"] = norm_params(cfg, cfg.d_model, dev)
@@ -165,8 +168,9 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Decode/prefill cache: a KV cache per attention layer, an SSM state
-    (float32) per SSM layer, plus `lengths`."""
+    """Decode/prefill cache: a KV cache per attention layer (int8 K/V
+    with f32 scales when cfg.kv_dtype == "int8", whatever `dtype`), an
+    SSM state (float32) per SSM layer, plus `lengths`."""
     dev = resolve_device(device)
     specs = layer_specs(cfg)
     window = effective_window(cfg)
@@ -176,6 +180,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
                if spec.mixer == "ssm" else
                attn.make_kv_cache(batch, cap, cfg.n_kv_heads, hd, hd, dt,
+                                  quantized=cfg.kv_dtype == "int8",
                                   device=dev)}
               for spec in specs]
     return {"layers": layers,
@@ -315,9 +320,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
     cache = init_slot_leaves(cfg, batch, device=dev)
     # a pool is a slot cache of n_pages "slots" of page_size rows each
     cache["layers"] = [
-        layer or {"self": attn.make_kv_cache(n_pages, page_size,
-                                             cfg.n_kv_heads, hd, hd, dt,
-                                             device=dev)}
+        layer or {"self": attn.make_kv_cache(
+            n_pages, page_size, cfg.n_kv_heads, hd, hd, dt,
+            quantized=cfg.kv_dtype == "int8", device=dev)}
         for layer in cache["layers"]]
     return cache
 
@@ -425,10 +430,15 @@ def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
             page_view=page_view)
     # the reference rounds the residual stream to cfg.dtype after a block
     x = (x + out).to(x.dtype)
+    aux = None
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg)
-        x = (x + apply_mlp(p["ffn"], h, cfg)).to(x.dtype)
-    return x
+        if spec.ffn == "moe":
+            out, aux = moe_mod.apply_moe(p["ffn"], h, cfg, cfg.moe)
+        else:
+            out = apply_mlp(p["ffn"], h, cfg)
+        x = (x + out).to(x.dtype)
+    return x, aux
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -477,10 +487,14 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
         x = x + params["pos"][positions.long()].to(dtype)
 
     layer_caches = cache["layers"] if cache is not None else [None] * len(specs)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for spec, lp, lc in zip(specs, params["layers"], layer_caches):
-        x = _apply_layer(spec, lp, lc, x, positions, cfg, seg_mask=seg_mask,
-                         write=write, slot_idx=slot_idx,
-                         token_mask=token_mask, page_view=page_view)
+        x, aux = _apply_layer(spec, lp, lc, x, positions, cfg,
+                              seg_mask=seg_mask, write=write,
+                              slot_idx=slot_idx, token_mask=token_mask,
+                              page_view=page_view)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = apply_norm(params["final_norm"], x, cfg)
     logits = _logits(params, cfg, x)
@@ -500,7 +514,7 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
             idx = slot_idx.long()
             lengths[idx] = torch.maximum(lengths[idx],
                                          (last + 1).to(lengths.dtype))
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, cache, aux_total
 
 
 # ====================================================== convenience wrappers

@@ -15,6 +15,10 @@ Speculative rollback is snapshot-based: drafting gathers a compact copy
 of the slots (`speculative_caches`) and decodes on it; discarding the
 snapshot IS the rollback.
 
+Every operation on a cache (slot reset and growth, page-pool growth,
+snapshots, release) walks all of its leaves, so an int8 KV cache's
+`k_scale` / `v_scale` travel with its int8 rows.
+
 Paged mode (`ModelRunner(..., paged=True)`): the attention KV lives in a
 pool of pages instead of reserved per-slot rows. `PagedSlotCacheManager`
 keeps a host-side block table per request and hands every step a

@@ -193,19 +193,21 @@ def test_int8_smem_matches_compiled_kernels(cuda):
 
 @pytest.mark.gpu
 def test_attention_smem_matches_compiled_kernels(cuda):
-    """Both attention kernels, at every head dim and dtype pair, ask for
-    the dynamic shared memory `kernel_smem` counts, and that with the
-    static shared memory of the compiled kernel fits SMEM_LIMIT, the
-    device's limit per block."""
+    """Both attention kernels, at every head dim, query dtype and K/V
+    storage (f32, bf16 and the int8 form), ask for the dynamic shared
+    memory `kernel_smem` counts, and that with the static shared memory
+    of the compiled kernel fits SMEM_LIMIT, the device's limit per
+    block."""
     for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
         for D in fa.SUPPORTED_HEAD_DIMS:
             for q_bf16 in (0, 1):
-                for kv_bf16 in (0, 1):
-                    dynamic, static, limit = _smem(f, D, q_bf16, kv_bf16)
-                    case = (f.__name__, D, q_bf16, kv_bf16, dynamic, static)
+                for kv_dtype, kv in fa.KV_KIND.items():
+                    dynamic, static, limit = _smem(f, D, q_bf16, kv)
+                    case = (f.__name__, D, q_bf16, kv, dynamic, static)
                     assert limit == SMEM_LIMIT
                     assert dynamic == fa.kernel_smem(
-                        D, 2 if kv_bf16 else 4), case
+                        D, torch.empty((), dtype=kv_dtype).element_size()
+                    ), case
                     assert dynamic + static <= limit, case
 
 
@@ -419,6 +421,129 @@ def test_paged_kernel_matches_plain_and_kernel1(cuda, ps, T, G, D):
             assert torch.equal(a, b)
 
 
+def _int8_kv(gen, shape, cuda):
+    """Random K or V quantized as an int8 cache stores it: (int8, f32
+    scale per row and head)."""
+    from repro_torch.models.attention import _quantize
+    return _quantize(torch.randn(shape, generator=gen, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G,T", [(64, 7, 1), (128, 1, 10), (32, 2, 40),
+                                   (16, 4, 3), (128, 4, 6)])
+def test_int8_kv_kernel1_matches_plain(cuda, D, G, T, qdtype):
+    """Kernel 1's int8 K/V form against its plain version (the
+    reference's dequantized bf16 view through the plain partials): a slot
+    pool read in place with its scales, plain causal, a mask, a window and
+    a fully masked row. Each value is dequantized to the same bf16, so
+    only the summation order differs: rtol = atol = 1e-4. Two runs give
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(D + T)
+    B, H, P, C = 3, 2, 5, 300
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda).to(qdtype)
+    k8, ks = _int8_kv(gen, (P, C, H, D), cuda)
+    v8, vs = _int8_kv(gen, (P, C, H, D), cuda)
+    kpos = torch.arange(C, dtype=torch.int32, device=cuda).repeat(P, 1)
+    kpos[:, 250:] = -1
+    kpos[2] = -1                                   # an empty slot
+    qpos = (240 + torch.arange(T, dtype=torch.int32, device=cuda)).repeat(B, 1)
+    slot_idx = torch.tensor([4, 0, 2], dtype=torch.int32, device=cuda)
+    mask = torch.rand((B, T, C), generator=gen, device=cuda) < 0.7
+    sc = dict(k_scale=ks, v_scale=vs, slot_idx=slot_idx, scale=D ** -0.5)
+    for kw in (dict(), dict(mask=mask), dict(window=50),
+               dict(causal=False)):
+        before = fa.LAUNCHES
+        got = fa.attend_partial(q, k8, v8, qpos, kpos, **sc, **kw)
+        assert fa.LAUNCHES == before + 1
+        want = fa.attend_partial_plain(q, k8, v8, qpos, kpos, **sc, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert float(got[1][2].abs().max()) == 0.0   # empty slot: l = 0
+        for a, b in zip(got, fa.attend_partial(q, k8, v8, qpos, kpos,
+                                               **sc, **kw)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [16, 64])
+@pytest.mark.parametrize("T,G,D", [(1, 7, 64), (10, 1, 128), (6, 4, 128),
+                                   (40, 2, 32)])
+def test_int8_kv_paged_matches_plain_and_kernel1(cuda, ps, T, G, D):
+    """The paged kernel's int8 form against its plain version (1e-4) and
+    bit for bit against kernel 1's int8 form on the gathered view (pool
+    and scales), pages in scrambled order, NULL filler, a window."""
+    gen = torch.Generator(device=cuda).manual_seed(ps * T + D)
+    B, H, nv = 3, 2, 16
+    lens = [5 * ps + 3, ps, 7]
+    P = 2 + sum(-(-n // ps) for n in lens) + 3
+    k8, ks = _int8_kv(gen, (P, ps, H, D), cuda)
+    v8, vs = _int8_kv(gen, (P, ps, H, D), cuda)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    tbl = torch.ones((B, nv), dtype=torch.int32, device=cuda)
+    free = (torch.randperm(P - 2, generator=torch.Generator().manual_seed(2))
+            + 2).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            page = free.pop()
+            cnt = min(ps, n - j * ps)
+            pos[page, :cnt] = j * ps + torch.arange(cnt, dtype=torch.int32,
+                                                    device=cuda)
+            tbl[b, j] = page
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qp = torch.tensor([[max(n - T + t, 0) for t in range(T)] for n in lens],
+                      dtype=torch.int32, device=cuda)
+    for window in (0, 50):
+        kw = dict(scale=D ** -0.5, window=window)
+        before = pa.LAUNCHES
+        got = pa.paged_attend_partial(q, k8, v8, qp, pos, tbl, k_scale=ks,
+                                      v_scale=vs, **kw)
+        assert pa.LAUNCHES == before + 1
+        want = pa.paged_attend_partial_plain(q, k8, v8, qp, pos, tbl,
+                                             k_scale=ks, v_scale=vs, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        g = pa.gather_view
+        k1 = fa.attend_partial(q, g(k8, tbl), g(v8, tbl), qp, g(pos, tbl),
+                               k_scale=g(ks, tbl), v_scale=g(vs, tbl), **kw)
+        for a, b in zip(got, k1):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_int8_kv_wrappers_raise_instead_of_falling_back(cuda):
+    """An int8 pool the kernels cannot take raises ValueError on the card
+    and launches nothing: int8 K/V without scales, scales on f32 K/V, one
+    scale missing, scales of the wrong shape or dtype."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, T, H, G, D, S, ps = 2, 1, 2, 4, 64, 64, 16
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    tbl = torch.arange(B * S // ps, dtype=torch.int32,
+                       device=cuda).reshape(B, S // ps)
+
+    def bad(lead):
+        k8, ks = _int8_kv(gen, lead + (H, D), cuda)
+        v8, vs = _int8_kv(gen, lead + (H, D), cuda)
+        kf = torch.randn(lead + (H, D), generator=gen, device=cuda)
+        return [(k8, v8, {}), (kf, kf, dict(k_scale=ks, v_scale=vs)),
+                (k8, v8, dict(k_scale=ks)),
+                (k8, v8, dict(k_scale=ks[..., :-1], v_scale=vs[..., :-1])),
+                (k8, v8, dict(k_scale=ks.double(), v_scale=vs.double()))]
+
+    before = (fa.LAUNCHES, pa.LAUNCHES)
+    for k, v, kw in bad((B, S)):
+        with pytest.raises(ValueError):
+            fa.attend_partial(q, k, v, qpos, kpos, scale=D ** -0.5, **kw)
+    for k, v, kw in bad((B * S // ps, ps)):
+        with pytest.raises(ValueError):
+            pa.paged_attend_partial(q, k, v, qpos,
+                                    kpos.reshape(B * S // ps, ps), tbl,
+                                    scale=D ** -0.5, **kw)
+    assert (fa.LAUNCHES, pa.LAUNCHES) == before
+
+
 def _tiny_models(cuda):
     tcfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=128,
                        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
@@ -476,6 +601,45 @@ def test_cuda_engine_paged_and_int8_are_greedy_exact(cuda, pool):
     paged kernel) and with an int8 copy of the target as one drafter
     (every quantized product on the int8 kernel)."""
     _engine_is_greedy_exact(cuda, pool)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["moe", "int8 kv", "int8 kv paged"])
+def test_cuda_engine_moe_and_int8_kv_are_greedy_exact(cuda, case):
+    """The cosine engine on the card with a MoE target (routed experts
+    and a shared one, drafters sharing its weights) and with int8 KV
+    caches for target and drafters, resident and on a paged pool that
+    must grow: greedy-exact, every cache read on the kernels' int8 form
+    (no plain call), and the paged pool commits the resident pool's
+    tokens."""
+    from repro_torch.config import MoEConfig
+    tcfg, dcfg, _ = _tiny_models(cuda)
+    if case == "moe":
+        tcfg = tcfg.with_overrides(family="moe", moe=MoEConfig(
+            n_routed=4, top_k=2, d_ff=64, n_shared=1, shared_d_ff=128))
+    else:
+        tcfg = tcfg.with_overrides(kv_dtype="int8")
+        dcfg = dcfg.with_overrides(kv_dtype="int8")
+    tp = M.init_params(tcfg, 0)
+    drafters = [(dcfg, M.init_params(dcfg, 1), "a"), (tcfg, tp, "b")]
+    streams = {}
+    for paged in ((False, True) if case == "int8 kv paged" else (False,)):
+        cos = CoSineConfig(n_drafters=2, paged_pool=paged, page_size=16,
+                           pool_pages=4)
+        eng = SpeculativeEngine((tcfg, tp), drafters, cos, max_len=128,
+                                seed=0)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        fa.LAUNCHES = pa.LAUNCHES = 0
+        stats = eng.run()
+        assert stats.mean_acceptance > 1.0
+        assert (pa.LAUNCHES > 0) == paged and fa.LAUNCHES > 0
+        streams[paged] = [list(map(int, r.generated)) for r in reqs]
+        for got, p in zip(streams[paged], prompts):
+            assert got == _greedy(tcfg, tp, p, 16, cuda)
+    if len(streams) == 2:
+        assert streams[True] == streams[False]
 
 
 # (b, L, H, P, G, N): mamba2-130m prefill chunk, decode at the slot

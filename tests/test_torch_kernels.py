@@ -255,11 +255,12 @@ def test_split_plan_covers_every_key_tile_once(B, H, R, S):
 
 
 def test_attention_kernel_smem_in_budget():
-    """Every instantiation's K/V double buffer fits a block on the H100
-    and holds the merge's (16, D) f32 rows (a `gpu` test holds it, with
-    the static part, against the compiled kernels)."""
+    """Every instantiation's K/V double buffer (int8: with the bf16 view
+    of a tile) fits a block on the H100 and holds the merge's (16, D) f32
+    rows (a `gpu` test holds it, with the static part, against the
+    compiled kernels)."""
     for D in fa.SUPPORTED_HEAD_DIMS:
-        for size in (2, 4):
+        for size in (1, 2, 4):
             dynamic = fa.kernel_smem(D, size)
             assert fa.ROW_TILE * D * 4 <= dynamic <= SMEM_LIMIT
 

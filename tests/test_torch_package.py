@@ -28,7 +28,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 COPIED = ["config", "configs.drafters", "configs.qwen1_5_4b",
           "configs.qwen2_0_5b", "configs.mamba2_130m",
-          "configs.jamba_v0_1_52b", "core.tree", "core.request_pool",
+          "configs.jamba_v0_1_52b", "configs.qwen2_moe_a2_7b",
+          "configs.qwen3_32b", "core.tree", "core.request_pool",
           "core.latency_model", "core.routing", "core.scheduler",
           "core.admission", "obs.metrics", "obs.trace", "obs.export",
           "obs.summarize", "data.synthetic", "serving.events",
@@ -56,7 +57,8 @@ def test_port_imports_neither_jax_nor_reference():
             "kernels/ssd_scan/__init__.py", "configs/mamba2_130m.py",
             "configs/jamba_v0_1_52b.py", "serving/async_loop.py",
             "serving/backend.py", "core/speculative.py", "obs/export.py",
-            "obs/summarize.py", "data/synthetic.py"} <= scanned
+            "obs/summarize.py", "data/synthetic.py", "models/moe.py",
+            "configs/qwen2_moe_a2_7b.py", "configs/qwen3_32b.py"} <= scanned
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "repro", "flax")}
@@ -104,14 +106,19 @@ def test_copied_module_equals_original(name):
                 == [(f.name, str(f.type)) for f in dataclasses.fields(o)]
 
 
-@pytest.mark.parametrize("name", ["mamba2_130m", "jamba_v0_1_52b"])
+@pytest.mark.parametrize("name", ["mamba2_130m", "jamba_v0_1_52b",
+                                  "qwen2_moe_a2_7b", "qwen3_32b"])
 def test_copied_config_fields_equal_original(name):
-    """The SSM and hybrid configs the port serves hold the reference's
-    values, field by field (nested SSM and MoE configs included)."""
+    """The SSM, hybrid, MoE and qwen3 configs the port serves hold the
+    reference's values, field by field (nested SSM and MoE configs
+    included, each of the port's own class)."""
     port = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     orig = importlib.import_module(f"repro.configs.{name}").CONFIG
     assert dataclasses.asdict(port) == dataclasses.asdict(orig)
-    assert type(port.ssm).__name__ == type(orig.ssm).__name__ == "SSMConfig"
+    for sub, cls in (("ssm", "SSMConfig"), ("moe", "MoEConfig")):
+        if getattr(orig, sub) is not None:
+            assert type(getattr(port, sub)).__name__ == cls
+            assert type(getattr(port, sub)).__module__ == "repro_torch.config"
     from repro_torch.configs import ARCHS
     assert ARCHS[orig.name] is port
 
@@ -153,38 +160,27 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 def _refusals():
-    from repro_torch.config import MLAConfig, MoEConfig, SSMConfig
+    from repro_torch.config import MLAConfig, SSMConfig
     from repro_torch.models import model as M
 
     cfg = _tiny()
     return {
-        # SSM and hybrid plans are served; what they may still carry that
-        # is not ported is refused: cross-attention blocks on SSM layers,
-        # and jamba's MoE FFNs
+        # SSM, hybrid and MoE plans and int8 KV caches are served; what
+        # an SSM plan may still carry that is not ported is refused:
+        # cross-attention blocks on SSM layers
         "ssm": (lambda: M.init_params(cfg.with_overrides(
             family="ssm", ssm=SSMConfig(), cross_attn_period=1,
             n_frontend_tokens=4), 0, device="cpu"), "queue 1 item 11"),
-        "hybrid": (lambda: M.init_cache(cfg.with_overrides(
-            family="hybrid", hybrid_attn_period=2, n_layers=2,
-            ssm=SSMConfig(), moe=MoEConfig(n_routed=2, top_k=1, d_ff=8,
-                                           layer_offset=1)), 1, 8,
-            device="cpu"), "queue 1 item 11"),
         "mla": (lambda: M.init_params(cfg.with_overrides(
             attention="mla", mla=MLAConfig()), 0, device="cpu"),
             "queue 1 item 11"),
-        "moe": (lambda: M.init_params(cfg.with_overrides(
-            family="moe", moe=MoEConfig(n_routed=2, top_k=1, d_ff=8)), 0,
-            device="cpu"), "queue 1 item 11"),
         "cross-attention": (lambda: M.init_params(cfg.with_overrides(
             cross_attn_period=1, n_frontend_tokens=4), 0, device="cpu"),
             "queue 1 item 11"),
-        "int8 kv": (lambda: M.init_cache(cfg.with_overrides(kv_dtype="int8"),
-                                         1, 8, device="cpu"),
-                    "queue 1 item 11"),
     }
 
 
-BRANCHES = ["ssm", "hybrid", "mla", "moe", "cross-attention", "int8 kv"]
+BRANCHES = ["ssm", "mla", "cross-attention"]
 
 
 @pytest.mark.parametrize("branch", BRANCHES)
