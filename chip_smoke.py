@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's four hand-written Hopper kernels (kernels 1 and 2 with
-their f32, bf16 and int8 K/V forms) from the sources
+their f32, bf16 and int8 K/V forms and their latent form for MLA) from
+the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
@@ -66,7 +67,7 @@ wrappers), then serves the CoSine path end to end through
   phase K-paged  phase K on the paged pool: every pool read through the
            paged kernel's int8 form, and the committed streams equal
            phase K's;
-  phase J  (last) a qwen2-moe-a2.7b target at full width (24 layers, d_model
+  phase J  a qwen2-moe-a2.7b target at full width (24 layers, d_model
            2048, MHA 16 x 128 with QKV bias, 60 routed experts top-4 of
            width 1408 and a shared expert of 5632 in every layer, vocab
            151936; ~57 GB of random f32 weights) with two qwen2-0.5b
@@ -75,14 +76,32 @@ wrappers), then serves the CoSine path end to end through
            layer, and the router top-k sets that differ between a
            one-token decode and a batched prefill on the committed prefix;
   phase J-f32  phase J with f32 activations (the same weights), where the
-           two paths agree closely enough for a tight tie rule.
+           two paths agree closely enough for a tight tie rule;
+  phase L  (last, after J's weights are released) a deepseek-v3-671b
+           target at full width (d_model 7168, 128 MLA heads, q_lora
+           1536, kv_lora 512, nope 128, rope 64, v 128, vocab 129280)
+           cut to its own first 4 of 61 layers (dense FFN of 18432 in
+           layers 0-2, 256 routed experts top-8 of 2048 and a shared
+           expert in layer 3; the MTP subtree in the params; ~63 GB of
+           random f32 weights), two drafters sharing its weights, phase
+           A's requests: every attention call on the kernels' latent form
+           (launches = MLA layers x cache reads + segment passes);
+  phase L-paged  phase L on the paged pool (as phase C): every pool read
+           on the paged kernel's latent form, streams equal phase L's;
+  phase L-f32  phase L with f32 activations: the greedy streams committed
+           exactly.
 
 Before the serving phases the int8 K/V forms of kernels 1 and 2 are held
 against their plain versions (the reference's dequantized bf16 view) at
 phases K and K-paged's shapes and timed beside their bytes bound (int8
 K/V and 4 bytes of scale per row and head) and a dequantize + SDPA
 yardstick; the paged int8 form must equal kernel 1's int8 form on the
-gathered view bit for bit.
+gathered view bit for bit. The latent form of both kernels (MLA's one KV
+head: Dk 576, Dv 512, G 128) is held the same way at phase L's shapes
+(decode, the tree's cache pass and segment, a T = 6 commit, a T = 512
+prefill; f32 and bf16 K/V) beside SDPA over K/V expanded to 128 heads
+(the backend it takes is printed), and its compiled shared memory
+against `kernel_smem`.
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
@@ -157,6 +176,14 @@ KERNEL_SOURCES = {
     "paged_flash_decode_int8_kv": (
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:127"),
+    # the latent form of kernels 1 and 2 (MLA: Dk 576, Dv 512, one KV
+    # head; the same sources, launches also counted above)
+    "flash_attention_partial_mla": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
+    "paged_flash_decode_mla": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:127"),
 }
 
 
@@ -204,8 +231,10 @@ def _graph_ms(torch, fn, reps: int = 20, rounds: int = 3) -> float:
 
 def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
     """Bytes that the function must move and operations it must do on
-    these inputs: valid (row, key) pairs only, K/V rows that hold a key."""
-    B, T, H, G, D = q.shape
+    these inputs: valid (row, key) pairs only, K/V rows that hold a key
+    (Dk + Dv values each; the latent form's K and V are separate)."""
+    B, T, H, G, Dk = q.shape
+    Dv = v.shape[-1]
     kp = k_pos if slot_idx is None else k_pos[slot_idx.long()]   # (B, S)
     valid = (kp >= 0)[:, None, :].expand(B, T, kp.shape[1])
     if causal:
@@ -214,11 +243,11 @@ def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
         valid = valid & mask
     pairs = int(valid.sum()) * H * G
     rows_read = int((kp >= 0).sum())
-    kv_bytes = rows_read * H * D * k.element_size() * 2
+    kv_bytes = rows_read * H * (Dk + Dv) * k.element_size()
     other = (q.numel() * q.element_size() + kp.numel() * 4
              + q_pos.numel() * 4 + (0 if mask is None else mask.numel())
-             + B * T * H * G * (D + 2) * 4)
-    flops = 4 * pairs * D
+             + B * T * H * G * (Dv + 2) * 4)
+    flops = 2 * pairs * (Dk + Dv)
     return kv_bytes + other, flops
 
 
@@ -422,10 +451,10 @@ def _check_partials(torch, fa, name, got, want):
     return err
 
 
-def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
+def _sdpa_call(torch, q, k, v, q_pos, k_pos, slot_idx, mask, scale=None):
     """One scaled_dot_product_attention call computing the normalised
-    output on the same inputs (gathered, GQA-expanded K/V and a boolean
-    mask prepared outside the timed call). A yardstick only."""
+    output on the same inputs, as a callable: gathered K/V expanded over
+    the query heads and a boolean mask, all prepared outside the call."""
     import torch.nn.functional as F
     B, T, H, G, D = q.shape
     kp = k_pos
@@ -439,19 +468,27 @@ def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
     ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     am = valid[:, None].expand(B, H * G, T, kp.shape[1]).contiguous()
-    return _graph_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=am, scale=D ** -0.5))
+    scale = D ** -0.5 if scale is None else scale
+    return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
+                                                  scale=scale)
 
 
-def _paged_pool(torch, gen, perm, H, D, held):
+def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
+    """The time of `_sdpa_call`: a yardstick only."""
+    return _graph_ms(torch, _sdpa_call(torch, q, k, v, q_pos, k_pos,
+                                       slot_idx, mask))
+
+
+def _paged_pool(torch, gen, perm, H, D, held, Dv=None):
     """A page pool holding positions [0, held[b]) of request b on pages
     handed out in a scrambled order (`perm`), with the view of those
     columns per request (power of two pages, NULL filler), as the runner
-    builds it. Returns k, v (f32), positions and the block table."""
+    builds it. Returns k, v (f32; v `Dv` wide, default D), positions and
+    the block table."""
     n_req_pages = [-(-n // PAGE_SIZE) for n in held]
     P = 2 + sum(n_req_pages) + 8
     k = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
-    v = torch.randn((P, PAGE_SIZE, H, D), generator=gen, device="cuda")
+    v = torch.randn((P, PAGE_SIZE, H, Dv or D), generator=gen, device="cuda")
     pos = torch.full((P, PAGE_SIZE), -1, dtype=torch.int32, device="cuda")
     nv = 1 << (max(n_req_pages) - 1).bit_length()
     tbl = torch.ones((len(held), nv), dtype=torch.int32, device="cuda")
@@ -736,6 +773,197 @@ def int8kv_kernel_phase(torch, fa, pa, attn):
           f"D{D}): int8 {write['int8']:.1f} us, f32 {write['float32']:.1f} us",
           flush=True)
     return res_rows, pag_rows, write
+
+
+# the latent form of kernels 1 and 2 at phase L's shapes: deepseek-v3's
+# absorbed MLA, one KV head of c_kv ++ k_pe (Dk 576) and c_kv (Dv 512)
+# with all 128 query heads folded into G; the model's scale
+MLA_G, MLA_DK, MLA_DV = 128, 576, 512
+MLA_SCALE = (128 + 64) ** -0.5
+# the pool slots of the latent kernel phase's requests, out of order
+MLA_SLOTS = (6, 2, 8, 3)
+
+
+MLA_NO_LIBRARY = ("scaled_dot_product_attention refused some of these "
+                  "shapes (each shape's sdpa_error says why)")
+
+
+def _sdpa_latent(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
+    """The yardstick of the latent form: `_sdpa_call` with K/V expanded
+    over the 128 heads (Dk 576, Dv 512) and the model's scale. Returns (ms
+    or None, the backend SDPA's dispatch takes — the first of its
+    priority order that accepts the call — or "none", SDPA's errors, its
+    normalised output (B, T, 1, G, Dv) f32 or None)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, T, H, G, _ = q.shape
+    call = _sdpa_call(torch, q, k, v, q_pos, k_pos, slot_idx, mask,
+                      scale=MLA_SCALE)
+    members = {int(b): b for b in SDPBackend.__members__.values()}
+    errors, backend = [], "none"
+    for i in torch._C._get_sdp_priority_order():
+        b = members.get(int(i))
+        if b is None or b.name in ("ERROR", "OVERRIDEABLE"):
+            continue
+        try:
+            with sdpa_kernel([b]):
+                call()
+            torch.cuda.synchronize()
+            backend = b.name
+            break
+        except RuntimeError as e:
+            errors.append(f"{b.name}: {str(e).strip().splitlines()[0][:200]}")
+    if backend == "none":
+        return None, backend, "; ".join(errors), None
+    out = call().float().transpose(1, 2).reshape(B, T, H, G, -1)
+    return _graph_ms(torch, call), backend, "; ".join(errors) or None, out
+
+
+def mla_kernel_phase(torch, fa, pa):
+    """Kernel 1's and the paged kernel's latent form at phase L's shapes
+    (decode, the tree's cache pass and its masked segment, a T = 6
+    commit, a T = 512 prefill; S up to 1024), f32 and bf16 K/V: each
+    within KERNEL_TOL of its plain version on a slot pool of 9 rows read
+    through scrambled slot indices (`MLA_SLOTS`), the
+    paged form bit for bit kernel 1's on the gathered view; CUDA-graph
+    times beside the bound (latent K/V bytes, 576 + 512 values a key held,
+    read once, and q over 3.35 TB/s against the operations at the unit's
+    peak) and SDPA over K/V expanded to 128 heads; shared memory of the
+    compiled latent kernels against `kernel_smem`. Returns (resident
+    rows, paged rows, shared-memory report)."""
+    import ctypes
+    from repro_torch.kernels.build import SMEM_LIMIT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1808)
+    perm = torch.Generator().manual_seed(13)
+    lens = [80, 230, 380, 630]
+    G, Dk, Dv = MLA_G, MLA_DK, MLA_DV
+    kt = fa.key_tile(Dk, Dv)
+    cur = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    depth = torch.tensor(TREE_DEPTH, dtype=torch.int32, device="cuda")
+    seg_pos = (cur[:, None] + depth[None]).to(torch.int32).contiguous()
+    res_rows, pag_rows = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        kv_type = "float32" if dtype == torch.float32 else "bfloat16"
+        k = torch.randn((9, MAX_LEN, 1, Dk), generator=gen,
+                        device="cuda").to(dtype)
+        v = torch.randn((9, MAX_LEN, 1, Dv), generator=gen,
+                        device="cuda").to(dtype)
+        cases = []
+        for form, B, T, q_pos, held in _int8kv_forms(torch, lens):
+            # request b in pool slot MLA_SLOTS[b] (a scrambled slot pool)
+            kp = torch.full((9, MAX_LEN), -1, dtype=torch.int32,
+                            device="cuda")
+            for slot, n in zip(MLA_SLOTS, held):
+                kp[slot, :n] = torch.arange(n, dtype=torch.int32,
+                                            device="cuda")
+            sidx = torch.tensor(MLA_SLOTS[:B], dtype=torch.int32,
+                                device="cuda")
+            cases.append((form, B, T, q_pos.to(torch.int32).contiguous(),
+                          held, k, v, kp, sidx, None))
+        # the tree's fresh segment (its own 10 keys under the tree mask)
+        cases.insert(2, ("verify_segment_T10", 4, 10, seg_pos, None,
+                         torch.randn((4, 10, 1, Dk), generator=gen,
+                                     device="cuda").to(dtype),
+                         torch.randn((4, 10, 1, Dv), generator=gen,
+                                     device="cuda").to(dtype),
+                         seg_pos.clone(), None,
+                         _tree_mask(torch).expand(4, 10, 10).contiguous()))
+        for form, B, T, q_pos, held, kk, vv, kp, sidx, mask in cases:
+            name = f"{form}_B{B}_H1_G{G}_Dk{Dk}_Dv{Dv}_{dn}"
+            q = torch.randn((B, T, 1, G, Dk), generator=gen, device="cuda")
+            args = (q, kk, vv, q_pos, kp)
+            kw = dict(scale=MLA_SCALE, slot_idx=sidx, mask=mask)
+            got = fa.attend_partial(*args, **kw)
+            want = fa.attend_partial_plain(*args, block=kt, **kw)
+            torch.cuda.synchronize()
+            err = _check_partials(torch, fa, f"latent {name}", got, want)
+            ms = _graph_ms(torch, lambda: fa.attend_partial(*args, **kw))
+            plain_ms = _graph_ms(torch, lambda: fa.attend_partial_plain(
+                *args, block=kt, **kw), reps=3)
+            lib_ms, backend, sdpa_err, sdpa_out = _sdpa_latent(
+                torch, q, kk, vv, q_pos, kp, sidx, mask)
+            sdpa_diff = (None if sdpa_out is None else float(
+                (sdpa_out - fa.finalize(got)).abs().max()))
+            del sdpa_out
+            nbytes, flops = _work(torch, *args, sidx, mask, True)
+            bound, by = _bound(nbytes, flops, kv_type)
+            res_rows.append(dict(
+                name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                sdpa_backend=backend, sdpa_error=sdpa_err,
+                sdpa_max_abs_diff=sdpa_diff, bytes=nbytes, flops=flops,
+                dtype=kv_type,
+                splits=fa.plan_splits(B, 1, T * G, kk.shape[1], True)))
+            print(f"kernel latent {name}: splits {res_rows[-1]['splits']}  "
+                  f"max|err| {err:.2e}  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
+                  f"({backend}) "
+                  + (f"{lib_ms:.4f} ms, |sdpa - kernel| {sdpa_diff:.2e}"
+                     if lib_ms is not None else f"refused: {sdpa_err}"),
+                  flush=True)
+            if held is None:
+                continue
+            # paged: the same held keys on scrambled pages of 64
+            pk, pv, ppos, tbl = _paged_pool(torch, gen, perm, 1, Dk, held,
+                                            Dv=Dv)
+            pk, pv = pk.to(dtype), pv.to(dtype)
+            pargs = (q, pk, pv, q_pos, ppos, tbl)
+            pkw = dict(scale=MLA_SCALE)
+            pgot = pa.paged_attend_partial(*pargs, **pkw)
+            pwant = pa.paged_attend_partial_plain(*pargs, block=kt, **pkw)
+            g = pa.gather_view
+            k1_args = (q, g(pk, tbl), g(pv, tbl), q_pos, g(ppos, tbl))
+            k1 = fa.attend_partial(*k1_args, **pkw)
+            torch.cuda.synchronize()
+            perr = _check_partials(torch, fa, f"latent paged {name}", pgot,
+                                   pwant)
+            vs_k1 = max(float((a - b).abs().max()) for a, b in zip(pgot, k1))
+            pms = _graph_ms(torch, lambda: pa.paged_attend_partial(
+                *pargs, **pkw))
+            pplain = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
+                *pargs, block=kt, **pkw), reps=3)
+            plib, pbackend, perr_sdpa, pout = _sdpa_latent(
+                torch, q, k1_args[1], k1_args[2], q_pos, k1_args[4], None,
+                None)
+            del pout
+            nb, fl = _work(torch, *k1_args, None, None, True)
+            nb += tbl.numel() * 4
+            pbound, pby = _bound(nb, fl, kv_type)
+            pag_rows.append(dict(
+                name=name, max_abs_err=perr, max_abs_diff_vs_kernel1=vs_k1,
+                ms=pms, plain_ms=pplain, bound_ms=pbound, bound_by=pby,
+                library_ms=plib, sdpa_backend=pbackend,
+                sdpa_error=perr_sdpa, bytes=nb, flops=fl, dtype=kv_type))
+            print(f"kernel latent paged {name}: max|err| {perr:.2e}  "
+                  f"|paged - kernel 1 on the gathered view| {vs_k1:.3g}  "
+                  f"kernel {pms:.4f} ms  plain {pplain:.4f} ms  bound "
+                  f"{pbound:.4f} ms ({pby})  sdpa ({pbackend}) "
+                  + (f"{plib:.4f} ms" if plib is not None else "refused"),
+                  flush=True)
+            if vs_k1 != 0.0:
+                fail(f"latent paged {name}: not bitwise kernel 1's latent "
+                     "form on the gathered view")
+        del k, v, cases
+    # shared memory of the compiled latent kernels against kernel_smem
+    smem = {}
+    for lib, fn in ((fa.LIBRARY, "fa_smem"), (pa.LIBRARY, "paged_smem")):
+        f = getattr(lib.load(), fn)
+        for q_bf16 in (0, 1):
+            for kv_name, kv in (("float32", 0), ("bfloat16", 1)):
+                out = [ctypes.c_int() for _ in range(3)]
+                rc = f(Dk, Dv, q_bf16, kv, *(ctypes.byref(o) for o in out))
+                dyn, sta, lim = (o.value for o in out)
+                size = 4 if kv == 0 else 2
+                key = f"{fn}_q{'bf16' if q_bf16 else 'f32'}_kv_{kv_name}"
+                smem[key] = dict(dynamic=dyn, static=sta, limit=lim)
+                if rc != 0 or dyn != fa.kernel_smem(Dk, Dv, size) \
+                        or dyn + sta > lim or lim != SMEM_LIMIT:
+                    fail(f"latent shared memory {key}: rc {rc}, dynamic "
+                         f"{dyn} (kernel_smem {fa.kernel_smem(Dk, Dv, size)})"
+                         f", static {sta}, limit {lim}")
+    print(f"latent-form shared memory (bytes): {smem}", flush=True)
+    return res_rows, pag_rows, smem
 
 
 def _host_us(torch, fn, n: int = 200) -> float:
@@ -1163,6 +1391,8 @@ class PathCounters:
         self.resident, self.paged = {}, {}
         # reads of int8 K/V (the kernels' int8 form), by form
         self.resident_int8, self.paged_int8 = {}, {}
+        # reads of a latent K/V pair (Dk != Dv: MLA, the latent form)
+        self.resident_latent, self.paged_latent = {}, {}
         # MoE layers: in the forwards' params, calls of apply_moe (and
         # the host seconds spent in them) and group-size reads
         self.moe_layer_calls = 0
@@ -1228,9 +1458,12 @@ class PathCounters:
                 if k.dtype == int8_dtype:
                     self.resident_int8[form] = \
                         self.resident_int8.get(form, 0) + 1
+                if k.shape[-1] != v.shape[-1]:
+                    self.resident_latent[form] = \
+                        self.resident_latent.get(form, 0) + 1
             return orig_attend(q, k, v, q_pos, k_pos, **kw)
 
-        def paged(q, k, *a, **kw):
+        def paged(q, k, v, *a, **kw):
             T = q.shape[1]
             form = ("decode" if T == 1 else "prefill" if T > 64
                     else "commit/verify")
@@ -1238,7 +1471,10 @@ class PathCounters:
                 self.paged[form] = self.paged.get(form, 0) + 1
                 if k.dtype == int8_dtype:
                     self.paged_int8[form] = self.paged_int8.get(form, 0) + 1
-            return orig_paged(q, k, *a, **kw)
+                if k.shape[-1] != v.shape[-1]:
+                    self.paged_latent[form] = \
+                        self.paged_latent.get(form, 0) + 1
+            return orig_paged(q, k, v, *a, **kw)
 
         def apply(params, *a, **kw):
             n_int8 = self._n_int8(params)
@@ -1323,6 +1559,7 @@ class PathCounters:
         self.fa.LAUNCHES = self.pa.LAUNCHES = self.ig.LAUNCHES = 0
         self.sd.LAUNCHES = 0
         self.fa.LAUNCHES_INT8_KV = self.pa.LAUNCHES_INT8_KV = 0
+        self.fa.LAUNCHES_LATENT = self.pa.LAUNCHES_LATENT = 0
         return self
 
     def __exit__(self, *exc):
@@ -1332,13 +1569,15 @@ class PathCounters:
             int8_gemv_call=self.ig.LAUNCHES,
             ssd_scan_pallas=self.sd.LAUNCHES,
             flash_attention_partial_int8_kv=self.fa.LAUNCHES_INT8_KV,
-            paged_flash_decode_int8_kv=self.pa.LAUNCHES_INT8_KV)
+            paged_flash_decode_int8_kv=self.pa.LAUNCHES_INT8_KV,
+            flash_attention_partial_mla=self.fa.LAUNCHES_LATENT,
+            paged_flash_decode_mla=self.pa.LAUNCHES_LATENT)
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
 
     def check(self, label, paged_path: bool, int8_path: bool,
               attention: bool = True, ssm: bool = False,
-              int8_kv: bool = False, moe: bool = False):
+              int8_kv: bool = False, moe: bool = False, mla: bool = False):
         """Launch counters against the model's calls; each kernel of the
         phase's path launched at least once, the others never. Every
         forward reads each attention layer's cache once (the resident or
@@ -1346,9 +1585,20 @@ class PathCounters:
         `int8_kv` every cache read (snapshots too) is the kernels' int8
         form and only segment passes read bf16/f32 K/V; with `moe` every
         MoE layer of every forward ran `apply_moe` with one group-size
-        read."""
+        read; with `mla` every attention call (cache reads and segment
+        passes) is the kernels' latent form, and without it none is."""
         res, pag = sum(self.resident.values()), sum(self.paged.values())
         L = self.launches
+        res_l, pag_l = (sum(self.resident_latent.values()),
+                        sum(self.paged_latent.values()))
+        if L["flash_attention_partial_mla"] != res_l \
+                or L["paged_flash_decode_mla"] != pag_l:
+            fail(f"{label}: latent-form launches {L} for {res_l} resident "
+                 f"and {pag_l} pool reads of latent K/V")
+        if (res_l, pag_l) != ((res, pag) if mla else (0, 0)):
+            fail(f"{label}: latent reads resident {self.resident_latent}, "
+                 f"pool {self.paged_latent} of {res} resident and {pag} "
+                 "pool attention calls")
         res8, pag8 = (sum(self.resident_int8.values()),
                       sum(self.paged_int8.values()))
         if L["flash_attention_partial_int8_kv"] != res8 \
@@ -1533,7 +1783,7 @@ def make_engine(target, drafters, paged=False, backend=None):
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                 paged=False, int8=False, observe=None, attention=True,
                 ssm=False, backend=None, overlap=True, int8_kv=False,
-                moe=False):
+                moe=False, mla=False):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel). With
     `backend="async"` the run is also held to the wall-clock backend's
@@ -1562,7 +1812,7 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     calls.check(label, paged, int8, attention=attention, ssm=ssm,
-                int8_kv=int8_kv, moe=moe)
+                int8_kv=int8_kv, moe=moe, mla=mla)
     if backend == "async":
         wallclock = check_async_run(torch, label, eng, stats, calls,
                                     syncs_in_run, overlap)
@@ -1632,6 +1882,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         ssd_launches_by_form=calls.ssd_forms,
         int8_kv_reads=dict(resident=calls.resident_int8,
                            pool=calls.paged_int8),
+        latent_reads=dict(resident=calls.resident_latent,
+                          pool=calls.paged_latent),
         moe_layer_calls=calls.moe_calls,
         group_size_reads=calls.group_size_reads,
         moe_forwards=calls.moe_layer_calls // max(1, moe_layers(target[0])),
@@ -1997,6 +2249,118 @@ def compare_wallclock(async_sum, serial_sum, sim_sum):
     return out
 
 
+def deepseek_phases(torch, M, attn, cfg, run, references, make_prompts, err,
+                    paged_latent_exact, a_tps):
+    """Phases L, L-paged and L-f32: `cfg` (deepseek-v3-671b) at full
+    width, cut to its own first 4 of 61 layers (dense FFN in layers 0-2,
+    the MoE of 256 routed experts top-8 and a shared expert in layer 3;
+    MLA in every layer; the MTP subtree in the params), two drafters
+    sharing its weights, phase A's requests; `run` and `references` are
+    `main`'s. Fails unless the device memory of earlier phases is gone
+    first. Returns the summaries of L and L-f32."""
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"device memory held before phase L: {held_gb:.2f} GB", flush=True)
+    if held_gb > 4.0:
+        fail(f"phase L: {held_gb:.2f} GB still allocated after phase J")
+    lcfg = cfg.with_overrides(n_layers=4)
+    specs = M.layer_specs(lcfg)
+    if [(s_.mixer, s_.ffn) for s_ in specs] != [("mla", "dense")] * 3 + [
+            ("mla", "moe")]:
+        fail(f"phase L: the cut plan is {specs}")
+    lprompts = make_prompts(lcfg)
+    t0 = time.perf_counter()
+    lparams = M.init_params(lcfg, seed=40, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"deepseek-v3-671b weights (4 layers + MTP, f32) "
+          f"{time.perf_counter() - t0:.1f} s, {weights_gb:.2f} GB", flush=True)
+    lrefs = references(lcfg, lparams, lprompts)
+    mla_kw = dict(prompts=lprompts, err=err, moe=True, mla=True)
+    sum_l, streams_l = run("phase L", target=(lcfg, lparams),
+                           drafters=[(lcfg, lparams, f"l{i}")
+                                     for i in range(2)],
+                           refs=lrefs, **mla_kw)
+    _, streams_lp = run("phase L-paged", target=(lcfg, lparams),
+                        drafters=[(lcfg, lparams, f"l{i}") for i in range(2)],
+                        refs=lrefs, paged=True,
+                        observe=lambda e: observe_pools(e, "phase L-paged"),
+                        **mla_kw)
+    same = sum(a == b for a, b in zip(streams_l, streams_lp))
+    print(f"phase L-paged: {same}/{len(lprompts)} committed streams equal "
+          f"phase L's token for token (paged latent form bitwise kernel 1's "
+          f"on the gathered view: {paged_latent_exact})", flush=True)
+    if not paged_latent_exact or same != len(lprompts):
+        fail("phase L-paged: the paged latent pool committed other tokens "
+             "than the resident pool")
+    # phase L-f32: phase L with f32 activations (the same weights): the
+    # layer-3 router's bf16 near-ties loosen L's tie rule, as in phase J;
+    # here the greedy stream must be committed exactly
+    lcfg32 = lcfg.with_overrides(dtype="float32")
+    sum_l32, _ = run("phase L-f32", target=(lcfg32, lparams),
+                     drafters=[(lcfg32, lparams, f"l{i}") for i in range(2)],
+                     refs=references(lcfg32, lparams, lprompts), **mla_kw)
+    exact = [r["matched"] for r in sum_l32["requests_detail"]]
+    if exact != [NEW_TOKENS] * len(lprompts):
+        fail(f"phase L-f32: committed {exact} of {NEW_TOKENS} tokens of the "
+             "greedy streams")
+    for label, sm in (("phase L", sum_l), ("phase L-f32", sum_l32)):
+        if sm["moe_layer_calls"] != sm["moe_forwards"]:
+            fail(f"{label}: {sm['moe_layer_calls']} MoE layer calls for "
+                 f"{sm['moe_forwards']} forwards of one MoE layer")
+        reads = (sum(sm["resident_attention_calls"].values())
+                 - sm["resident_attention_calls"].get("segment", 0))
+        if reads != lcfg.n_layers * sm["forwards"]:
+            fail(f"{label}: {reads} latent cache reads for "
+                 f"{sm['forwards']} forwards of {lcfg.n_layers} MLA layers")
+        if not sm["mean_acceptance"] > 1.0:
+            fail(f"{label} mean acceptance {sm['mean_acceptance']:.3f} <= 1")
+    print(f"phase L: kernel 1's latent form read each MLA layer's cache "
+          f"once a forward: {lcfg.n_layers} layers x {sum_l['forwards']} "
+          f"forwards = {lcfg.n_layers * sum_l['forwards']} cache reads (+ "
+          f"{sum_l['resident_attention_calls'].get('segment', 0)} segment "
+          f"passes) = {sum_l['kernel_launches']['flash_attention_partial_mla']}"
+          f" latent launches; wall tokens/s L {sum_l['wall_tokens_per_s']:.2f}"
+          f", L-f32 {sum_l32['wall_tokens_per_s']:.2f}, A "
+          f"{a_tps:.2f} (same run); forwards L "
+          f"{sum_l['forwards']}, L-f32 {sum_l32['forwards']}; peak device GB "
+          f"L {sum_l['peak_mem_gb']:.2f}, L-f32 {sum_l32['peak_mem_gb']:.2f}; "
+          f"router top-k sets differing between the two paths: "
+          f"{sum(r['router_flips'] for r in lrefs)} of "
+          f"{sum(r['router_pairs'] for r in lrefs)} pairs", flush=True)
+    # host cost of one mla_attention call (layer 0, f32 latent cache in
+    # the slot pool) at decode (4 rows), a tree verification (4 x 10) and
+    # a prefill chunk (512 rows), enqueue time over 20 calls
+    mla_host = {}
+    lp = lparams["layers"][0]["mixer"]
+    cache = attn.make_mla_cache(9, MAX_LEN, lcfg, torch.float32,
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tree = _tree_mask(torch).expand(4, 10, 10).contiguous()
+    for rows, B, T in ((4, 4, 1), (40, 4, 10), (512, 1, 512)):
+        x = torch.randn((B, T, lcfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        pos = (torch.tensor(PROMPT_LENS[:B], device="cuda")[:, None]
+               + torch.arange(T, device="cuda")).to(torch.int32)
+        if T == 512:
+            pos = torch.arange(T, device="cuda", dtype=torch.int32)[None]
+        sidx = torch.arange(1, B + 1, dtype=torch.int32, device="cuda")
+        kw = dict(cache=cache, slot_idx=sidx, write=T != 10,
+                  seg_mask=tree if T == 10 else None)
+        mla_host[rows] = _host_us(torch, lambda: attn.mla_attention(
+            lp, lcfg, x, pos, **kw), n=20)
+    print(f"phase L: host us per mla_attention call by rows {mla_host}",
+          flush=True)
+    sum_l["mla_attention_host_us_by_rows"] = mla_host
+    sum_l["router_flips"] = [dict(prompt_len=len(p), flips=r["router_flips"],
+                                  pairs=r["router_pairs"])
+                             for p, r in zip(lprompts, lrefs)]
+    sum_l["weights_gb"] = weights_gb
+    del lparams, lp, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum_l, sum_l32
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2005,8 +2369,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from repro_torch.configs import (JAMBA_V0_1_52B, MAMBA2_130M,
-                                         QWEN1_5_4B, QWEN2_0_5B,
+        from repro_torch.configs import (DEEPSEEK_V3_671B, JAMBA_V0_1_52B,
+                                         MAMBA2_130M, QWEN1_5_4B, QWEN2_0_5B,
                                          QWEN2_MOE_A2_7B)
         from repro_torch.configs.drafters import int8_variant
         from repro_torch.kernels import build
@@ -2047,9 +2411,11 @@ def main() -> int:
     pa_rows = paged_kernel_phase(torch, fa, pa)
     fa8_rows, pa8_rows, kv_write_host = int8kv_kernel_phase(torch, fa, pa,
                                                             attn)
+    fam_rows, pam_rows, mla_smem = mla_kernel_phase(torch, fa, pa)
     sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
     kernel_err = max(r["max_abs_err"]
                      for r in fa_rows + pa_rows + fa8_rows + pa8_rows)
+    mla_kernel_err = max(r["max_abs_err"] for r in fam_rows + pam_rows)
     ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
     paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
     gc.collect()
@@ -2310,6 +2676,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- phases L, L-paged and L-f32: deepseek-v3-671b at full width
+    # (cut to 4 layers), J's weights released first
+    deepseek_phases(torch, M, attn, DEEPSEEK_V3_671B, run, references,
+                    make_prompts, max(kernel_err, mla_kernel_err),
+                    all(r["max_abs_diff_vs_kernel1"] == 0.0
+                        for r in pam_rows), sum_a["wall_tokens_per_s"])
+
     print(json.dumps({"serving": summaries}), flush=True)
     print(json.dumps({"wallclock": wallclock}), flush=True)
     kernels = []
@@ -2325,18 +2698,27 @@ def main() -> int:
                  yardstick_ms=sum(r["yardstick_ms"] for r in fa8_rows),
                  host_kv_write_us=kv_write_host),
              "paged_flash_decode_int8_kv": dict(
-                 yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows))}
+                 yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows)),
+             "flash_attention_partial_mla": dict(
+                 smem=mla_smem, sdpa_backends=sorted(
+                     {r["sdpa_backend"] for r in fam_rows})),
+             "paged_flash_decode_mla": dict(sdpa_backends=sorted(
+                 {r["sdpa_backend"] for r in pam_rows}))}
     # why a kernel has no library call (library_ms null)
     no_library = {
         "ssd_scan_pallas": "no PyTorch call computes the scan",
         "flash_attention_partial_int8_kv": INT8KV_NO_LIBRARY,
-        "paged_flash_decode_int8_kv": INT8KV_NO_LIBRARY}
+        "paged_flash_decode_int8_kv": INT8KV_NO_LIBRARY,
+        "flash_attention_partial_mla": MLA_NO_LIBRARY,
+        "paged_flash_decode_mla": MLA_NO_LIBRARY}
     for name, rows in (("flash_attention_partial", fa_rows),
                        ("paged_flash_decode", pa_rows),
                        ("int8_gemv_call", ig_rows),
                        ("ssd_scan_pallas", sd_rows),
                        ("flash_attention_partial_int8_kv", fa8_rows),
-                       ("paged_flash_decode_int8_kv", pa8_rows)):
+                       ("paged_flash_decode_int8_kv", pa8_rows),
+                       ("flash_attention_partial_mla", fam_rows),
+                       ("paged_flash_decode_mla", pam_rows)):
         source, replaces = KERNEL_SOURCES[name]
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]

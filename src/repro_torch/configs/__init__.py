@@ -1,7 +1,9 @@
 """Model configurations the port serves: the CoSine tiny pair, the
 qwen1.5-4b target / qwen2-0.5b drafter pair, the SSM (mamba2-130m) and
 hybrid (jamba-v0.1-52b) targets, the attention-MoE target
-(qwen2-moe-a2.7b) and qwen3-32b (qk-norm, GQA)."""
+(qwen2-moe-a2.7b), qwen3-32b (qk-norm, GQA) and the MLA + MoE target
+deepseek-v3-671b."""
+from repro_torch.configs.deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
 from repro_torch.configs.jamba_v0_1_52b import CONFIG as JAMBA_V0_1_52B
 from repro_torch.configs.mamba2_130m import CONFIG as MAMBA2_130M
 from repro_torch.configs.qwen1_5_4b import CONFIG as QWEN1_5_4B
@@ -10,4 +12,5 @@ from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.qwen3_32b import CONFIG as QWEN3_32B
 
 ARCHS = {c.name: c for c in (QWEN1_5_4B, QWEN2_0_5B, MAMBA2_130M,
-                             JAMBA_V0_1_52B, QWEN2_MOE_A2_7B, QWEN3_32B)}
+                             JAMBA_V0_1_52B, QWEN2_MOE_A2_7B, QWEN3_32B,
+                             DEEPSEEK_V3_671B)}

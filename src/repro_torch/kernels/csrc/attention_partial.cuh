@@ -12,18 +12,36 @@
 // window) and by an optional bool mask; a masked key scores NEG_INF =
 // -1e30 and contributes p = 0, so a fully masked row leaves l = 0.
 //
+// Two forms share the body, fixed by the head widths (Dk, Dv):
+//   * Dk == Dv in {16, 32, 64, 128}: GQA heads (f32, bf16 or int8 K/V).
+//   * Dk != Dv, the latent form: MLA's absorbed attention (DeepSeek-V3:
+//     one KV head holding c_kv ++ k_pe, Dk = 512 + 64 = 576, Dv = 512,
+//     all 128 query heads folded onto it as G = 128 rows a token), and a
+//     tiny pair (40, 32) for tests; f32 or bf16 K/V. Its tiles are 16
+//     keys (a double-buffered f32 tile of 576 + 512 values a key is
+//     136 KB; 32 keys would be 272 KB, above a block's 227 KB), 16
+//     threads share a query row at Dk > 128 (each keeps a 36-value q
+//     strip and a 32-value acc strip in registers), and a cluster splits
+//     keys over at most 8 blocks (a portable cluster: one such block
+//     fills an SM's shared memory). K and V are staged separately: the
+//     kernel reads `v` as given, although MLA writes V as the first 512
+//     columns of K.
+//
 // What bounds it on the H100: at decode, verification's cache pass and
 // commit (a handful of query rows per KV head) it reads each K/V byte of
 // the keys a request holds once for a few rows: bound by those bytes over
 // 3.35 TB/s, a few microseconds, so latency decides — how many blocks
 // share the keys and how many round trips to HBM each block waits for.
 // Only the 512-row prefill has enough rows per key to approach the f32
-// FMA rate.
+// FMA rate. The latent form has 128 rows a token on its one KV head: at
+// decode each of a token's 8 row tiles reads the request's whole latent
+// cache (about 8x the bytes bound; sharing a tile over all 128 heads is
+// ROADMAP queue 2's latent-form entry).
 //
 // What the design does about it:
 //   * Split-K (flash-decoding). A cluster of `n_split` blocks owns
 //     (request, KV head, tile of 16 query rows). The LOGICAL keys are cut
-//     into spans of `span_tiles` whole 32-key tiles and block `i` walks
+//     into spans of `span_tiles` whole key tiles and block `i` walks
 //     spans i, i + n_split, ... in order: one contiguous range whenever S
 //     fits n_split spans, as at the serving shapes. The wrapper
 //     (`ops.py::plan_splits`) fixes the span from the grid alone (B, Hkv,
@@ -63,12 +81,13 @@
 //     16 rows of a block and was 2-3.7x slower on the H100.) The scale is
 //     not folded into the dot product ((q . k8) * scale), which would be
 //     another function.
-//   * f32 on CUDA cores. 8 threads share a query row; each keeps its strip
-//     of D/8 of q in registers and scores all 32 keys of a tile over that
-//     strip (one shared-memory read per FMA, broadcast to the warp's 4
-//     rows), then a fixed butterfly over the 8 lanes hands each lane the
-//     full dot products of 4 keys. Strips are interleaved in 16-byte
-//     chunks (lane + 8 c), so a row's reads cover contiguous bytes.
+//   * f32 on CUDA cores. TPR threads (8, or 16 at Dk > 128) share a query
+//     row; each keeps its strip of Dk/TPR of q in registers and scores
+//     every key of a tile over that strip (one shared-memory read per
+//     FMA, broadcast to the warp's rows), then a fixed butterfly over the
+//     row's lanes hands each lane the full dot products of KT/TPR keys.
+//     Strips are interleaved in chunks of up to 16 bytes (lane + TPR c),
+//     so a row's reads cover contiguous bytes.
 //
 // Key addressing is the one difference between the two instantiations:
 // logical key s of request b lives in pool row (page, row) =
@@ -95,13 +114,29 @@ namespace attn_partial {
 namespace cg = cooperative_groups;
 
 constexpr int ROWS = 16;            // query rows per block
-constexpr int KT = 32;              // keys per tile
-constexpr int TPR = 8;              // threads per query row
-constexpr int THREADS = ROWS * TPR; // 128
-constexpr int KPT = KT / TPR;       // keys per thread after the butterfly
-constexpr int MAX_SPLIT = 16;
 constexpr int META = 3;             // tiles of key metadata in flight
 constexpr float NEG_INF = -1e30f;
+
+// The tiling of the form for head widths (DK, DV): see the top of the
+// file. `ops.py::tiling` mirrors KT and MAX_SPLIT.
+template <int DK, int DV>
+struct Form {
+  static constexpr bool LATENT = DK != DV;
+  static constexpr int KT = LATENT ? 16 : 32;        // keys per tile
+  static constexpr int TPR = DK > 128 ? 16 : 8;      // threads per row
+  static constexpr int THREADS = ROWS * TPR;
+  static constexpr int KPT = KT / TPR;               // keys per lane
+  static constexpr int MAX_SPLIT = LATENT ? 8 : 16;  // blocks a cluster
+  static_assert(KT % TPR == 0 && KT % 4 == 0 && 32 % TPR == 0, "tiling");
+};
+
+// Values per chunk of a thread's strip: the largest power of two of at
+// most 16 bytes that divides the strip (dpt values).
+__host__ __device__ constexpr int chunk_vals(int dpt, int max_vals) {
+  int c = max_vals;
+  while (dpt % c != 0) c /= 2;
+  return c;
+}
 
 struct Params {
   const void* q;
@@ -120,7 +155,7 @@ struct Params {
   int T, G, H, S;              // S = logical keys per request
   int page_size;               // paged: keys per page
   int n_split;                 // blocks per (b, h, row tile): a cluster
-  int span_tiles;              // 32-key tiles per span of the key split
+  int span_tiles;              // key tiles per span of the key split
   // element strides
   int64_t q_sb, q_st, q_sh, q_sg;
   int64_t k_sp, k_ss, k_sh;    // pool row (slot or page), key, head
@@ -157,21 +192,24 @@ __device__ __forceinline__ void lds(const float* p, float (&o)[CV]) {
 }
 template <int CV>
 __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[CV]) {
-  static_assert(CV % 2 == 0, "bf16 chunks hold pairs");
-  uint32_t u[CV / 2];
-  if constexpr (CV == 8) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    u[0] = t.x; u[1] = t.y; u[2] = t.z; u[3] = t.w;
-  } else if constexpr (CV == 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    u[0] = t.x; u[1] = t.y;
+  if constexpr (CV == 1) {
+    o[0] = __bfloat162float(*p);
   } else {
-    u[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
+    uint32_t u[CV / 2];
+    if constexpr (CV == 8) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p);
+      u[0] = t.x; u[1] = t.y; u[2] = t.z; u[3] = t.w;
+    } else if constexpr (CV == 4) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p);
+      u[0] = t.x; u[1] = t.y;
+    } else {
+      u[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
 #pragma unroll
-  for (int i = 0; i < CV / 2; ++i) {
-    o[2 * i] = __uint_as_float(u[i] << 16);
-    o[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    for (int i = 0; i < CV / 2; ++i) {
+      o[2 * i] = __uint_as_float(u[i] << 16);
+      o[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    }
   }
 }
 
@@ -182,7 +220,7 @@ __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[CV]) {
 // int8 -> f32 by the exponent trick (bias the byte to unsigned, place
 // it in the mantissa of 2^23, subtract 2^23 + 128), which needs no
 // conversion unit.
-template <int D>
+template <int D, int KT, int THREADS>
 __device__ __forceinline__ void dequant_tile(const int8_t* src,
                                              __nv_bfloat16* dst,
                                              const float* k_sc,
@@ -206,6 +244,24 @@ __device__ __forceinline__ void dequant_tile(const int8_t* src,
   }
 }
 
+// One level of the butterfly that sums a row's partial dots over its
+// lanes, then the next: lanes with bit OFF keep the upper HALF of their
+// keys and add their partner's, so each level halves the keys a lane
+// holds (all indices fixed at compile time: `part` stays in registers).
+template <int HALF, int OFF, int N>
+__device__ __forceinline__ void butterfly(float (&part)[N], int lane) {
+  if constexpr (OFF > 0) {
+    const bool up = lane & OFF;
+#pragma unroll
+    for (int i2 = 0; i2 < HALF; ++i2) {
+      const float send = up ? part[i2] : part[i2 + HALF];
+      const float keep = up ? part[i2 + HALF] : part[i2];
+      part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    butterfly<HALF / 2, OFF / 2>(part, lane);
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -222,23 +278,30 @@ struct KeyMeta {
   float ksc, vsc;
 };
 
-template <int D, typename QT, typename KVT, bool PAGED>
-__global__ void __launch_bounds__(THREADS)
+template <int DK, int DV, typename QT, typename KVT, bool PAGED>
+__global__ void __launch_bounds__(Form<DK, DV>::THREADS)
 partial_kernel(const Params p) {
+  using F = Form<DK, DV>;
+  constexpr int KT = F::KT, TPR = F::TPR, THREADS = F::THREADS;
+  constexpr int KPT = F::KPT, MAX_SPLIT = F::MAX_SPLIT;
   constexpr bool Q8 = std::is_same<KVT, int8_t>::value;
+  static_assert(!Q8 || DK == DV, "int8 K/V only in the Dk == Dv form");
   // the tiles the arithmetic reads: int8 K/V through their bf16 view
   using CT = typename std::conditional<Q8, __nv_bfloat16, KVT>::type;
-  constexpr int DPT = D / TPR;                       // values per thread
-  constexpr int CV = (DPT * int(sizeof(CT)) > 16) ? 16 / int(sizeof(CT))
-                                                  : DPT;  // per chunk
-  constexpr int NCH = DPT / CV;                      // chunks per thread
-  constexpr int TILE = KT * D;                       // elements per tile
-  constexpr int CPK = D * int(sizeof(KVT)) / 16;     // 16 B copies per key
+  constexpr int CVK = chunk_vals(DK / TPR, 16 / int(sizeof(CT)));
+  constexpr int NCHK = DK / TPR / CVK;               // q chunks per thread
+  constexpr int CVV = chunk_vals(DV / TPR, 16 / int(sizeof(CT)));
+  constexpr int NCHV = DV / TPR / CVV;               // acc chunks
+  constexpr int TILE_K = KT * DK;                    // elements per tile
+  constexpr int TILE_V = KT * DV;
+  constexpr int CPK = DK * int(sizeof(KVT)) / 16;    // 16 B copies a key
+  constexpr int CPV = DV * int(sizeof(KVT)) / 16;
 
   extern __shared__ __align__(16) uint8_t kv_smem[];
   KVT* kv_s = reinterpret_cast<KVT*>(kv_smem);       // [2][K, V][KT][D]
   // int8: the current tile's bf16 view, [K, V][KT][D], after the staging
-  CT* dq_s = reinterpret_cast<CT*>(kv_smem + 2 * 2 * TILE * sizeof(KVT));
+  CT* dq_s = reinterpret_cast<CT*>(kv_smem +
+                                   2 * (TILE_K + TILE_V) * sizeof(KVT));
   __shared__ int32_t kpos_s[META][KT];
   __shared__ int64_t koff_s[PAGED ? META : 1][KT];
   __shared__ int64_t voff_s[PAGED ? META : 1][KT];
@@ -277,16 +340,16 @@ partial_kernel(const Params p) {
     return (rank + p.n_split * (i / span)) * span + i % span;
   };
 
-  // this thread's strip of q: chunk c covers d = (lane + TPR c) * CV + e
-  float qr[NCH][CV];
+  // this thread's strip of q: chunk c covers d = (lane + TPR c) * CVK + e
+  float qr[NCHK][CVK];
   {
     const QT* qrow = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh +
                      (row_ok ? t * p.q_st + (r % p.G) * p.q_sg : 0);
 #pragma unroll
-    for (int c = 0; c < NCH; ++c)
+    for (int c = 0; c < NCHK; ++c)
 #pragma unroll
-      for (int e = 0; e < CV; ++e)
-        qr[c][e] = row_ok ? to_f32(qrow[(lane + TPR * c) * CV + e]) : 0.f;
+      for (int e = 0; e < CVK; ++e)
+        qr[c][e] = row_ok ? to_f32(qrow[(lane + TPR * c) * CVK + e]) : 0.f;
   }
   const int qpos = row_ok ? p.q_pos[b * p.qpos_sb + t] : 0;
   const uint8_t* mrow =
@@ -295,7 +358,7 @@ partial_kernel(const Params p) {
 
   // warp 0 tests tiles for live keys: the block's query-position range
   int qmin = 2147483647, qmax = -2147483647 - 1;
-  if (tid < KT) {
+  if (tid < 32) {
     if (tid < ROWS && r0 + tid < R) {
       const int qp = p.q_pos[b * p.qpos_sb + (r0 + tid) / p.G];
       qmin = qp;
@@ -350,15 +413,18 @@ partial_kernel(const Params p) {
       vsc_s[i % META][tid] = km.vsc;
     }
   };
-  // issue the copies of tile i (its metadata is in slot i % META)
+  // issue the copies of tile i (its metadata is in slot i % META): a key's
+  // K and V rows side by side, CPM 16-byte parts each (the shorter row
+  // skips its missing parts)
   auto copy_tile = [&](int i) {
-    KVT* ks = kv_s + (i & 1) * 2 * TILE;
-    KVT* vs = ks + TILE;
+    KVT* ks = kv_s + (i & 1) * (TILE_K + TILE_V);
+    KVT* vs = ks + TILE_K;
     const int s0 = tile_of(i) * KT;
-    for (int c = tid; c < KT * CPK; c += THREADS) {
-      const int j = c / CPK, part = c % CPK;
+    constexpr int EPC = 16 / int(sizeof(KVT));     // elements per copy
+    constexpr int CPM = CPK > CPV ? CPK : CPV;
+    for (int c = tid; c < KT * CPM; c += THREADS) {
+      const int j = c / CPM, part = c % CPM, e0 = part * EPC;
       const int s = s0 + j;
-      const int e0 = part * (16 / int(sizeof(KVT)));
       const bool in = s < p.S;
       int64_t ko, vo;
       if constexpr (PAGED) {
@@ -368,16 +434,18 @@ partial_kernel(const Params p) {
         ko = static_cast<int64_t>(s) * p.k_ss;
         vo = static_cast<int64_t>(s) * p.v_ss;
       }
-      cp_async16(ks + j * D + e0, in ? kb + ko + e0 : kb, in ? 16 : 0);
-      cp_async16(vs + j * D + e0, in ? vb + vo + e0 : vb, in ? 16 : 0);
+      if (part < CPK)
+        cp_async16(ks + j * DK + e0, in ? kb + ko + e0 : kb, in ? 16 : 0);
+      if (part < CPV)
+        cp_async16(vs + j * DV + e0, in ? vb + vo + e0 : vb, in ? 16 : 0);
     }
   };
 
-  float acc[NCH][CV];
+  float acc[NCHV][CVV];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c)
+  for (int c = 0; c < NCHV; ++c)
 #pragma unroll
-    for (int e = 0; e < CV; ++e) acc[c][e] = 0.f;
+    for (int e = 0; e < CVV; ++e) acc[c][e] = 0.f;
   float m_run = NEG_INF;
   float l_run = 0.f;
 
@@ -418,52 +486,33 @@ partial_kernel(const Params p) {
     if (cur_live) {
       const CT* ks;
       if constexpr (Q8) {
-        dequant_tile<D>(kv_s + (i & 1) * 2 * TILE, dq_s, ksc_s[i % META],
-                        vsc_s[i % META], tid);
+        dequant_tile<DK, KT, THREADS>(kv_s + (i & 1) * (TILE_K + TILE_V),
+                                      dq_s, ksc_s[i % META],
+                                      vsc_s[i % META], tid);
         __syncthreads();
         ks = dq_s;
       } else {
-        ks = kv_s + (i & 1) * 2 * TILE;
+        ks = kv_s + (i & 1) * (TILE_K + TILE_V);
       }
-      const CT* vs = ks + TILE;
+      const CT* vs = ks + TILE_K;
       const int32_t* kpos_t = kpos_s[i % META];
       const int s0 = tile_of(i) * KT;
-      // partial dots of all 32 keys over this thread's strip
+      // partial dots of all KT keys over this thread's strip
       float part[KT];
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
         float dot = 0.f;
 #pragma unroll
-        for (int c = 0; c < NCH; ++c) {
-          float kf[CV];
-          lds<CV>(ks + j * D + (lane + TPR * c) * CV, kf);
+        for (int c = 0; c < NCHK; ++c) {
+          float kf[CVK];
+          lds<CVK>(ks + j * DK + (lane + TPR * c) * CVK, kf);
 #pragma unroll
-          for (int e = 0; e < CV; ++e) dot += qr[c][e] * kf[e];
+          for (int e = 0; e < CVK; ++e) dot += qr[c][e] * kf[e];
         }
         part[j] = dot;
       }
-      // butterfly over the row's 8 lanes: lane keeps keys 4 * lane + i
-#pragma unroll
-      for (int i2 = 0; i2 < 16; ++i2) {
-        const bool up = lane & 4;
-        const float send = up ? part[i2] : part[i2 + 16];
-        const float keep = up ? part[i2 + 16] : part[i2];
-        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-      }
-#pragma unroll
-      for (int i2 = 0; i2 < 8; ++i2) {
-        const bool up = lane & 2;
-        const float send = up ? part[i2] : part[i2 + 8];
-        const float keep = up ? part[i2 + 8] : part[i2];
-        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
-      }
-#pragma unroll
-      for (int i2 = 0; i2 < 4; ++i2) {
-        const bool up = lane & 1;
-        const float send = up ? part[i2] : part[i2 + 4];
-        const float keep = up ? part[i2 + 4] : part[i2];
-        part[i2] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
-      }
+      // butterfly over the row's TPR lanes: lane keeps keys KPT * lane + i
+      butterfly<KT / 2, TPR / 2>(part, lane);
       float sc[KPT];
       bool ok[KPT];
       float tmax = NEG_INF;
@@ -491,8 +540,13 @@ partial_kernel(const Params p) {
         pv[i2] = ok[i2] ? expf(sc[i2] - m_new) : 0.f;
         psum += pv[i2];
       }
-      *reinterpret_cast<float4*>(&p_s[row][KPT * lane]) =
-          make_float4(pv[0], pv[1], pv[2], pv[3]);
+      if constexpr (KPT == 4) {
+        *reinterpret_cast<float4*>(&p_s[row][KPT * lane]) =
+            make_float4(pv[0], pv[1], pv[2], pv[3]);
+      } else {
+#pragma unroll
+        for (int i2 = 0; i2 < KPT; ++i2) p_s[row][KPT * lane + i2] = pv[i2];
+      }
 #pragma unroll
       for (int off = TPR / 2; off > 0; off >>= 1)
         psum += __shfl_xor_sync(0xffffffffu, psum, off);
@@ -502,9 +556,9 @@ partial_kernel(const Params p) {
       __syncwarp();  // p_s of this row is written by lanes of this warp
 
 #pragma unroll
-      for (int c = 0; c < NCH; ++c)
+      for (int c = 0; c < NCHV; ++c)
 #pragma unroll
-        for (int e = 0; e < CV; ++e) acc[c][e] *= corr;
+        for (int e = 0; e < CVV; ++e) acc[c][e] *= corr;
 #pragma unroll 4
       for (int j4 = 0; j4 < KT; j4 += 4) {
         const float4 p4 = *reinterpret_cast<const float4*>(&p_s[row][j4]);
@@ -512,11 +566,11 @@ partial_kernel(const Params p) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-          for (int c = 0; c < NCH; ++c) {
-            float vf[CV];
-            lds<CV>(vs + (j4 + jj) * D + (lane + TPR * c) * CV, vf);
+          for (int c = 0; c < NCHV; ++c) {
+            float vf[CVV];
+            lds<CVV>(vs + (j4 + jj) * DV + (lane + TPR * c) * CVV, vf);
 #pragma unroll
-            for (int e = 0; e < CV; ++e) acc[c][e] += pj[jj] * vf[e];
+            for (int e = 0; e < CVV; ++e) acc[c][e] += pj[jj] * vf[e];
           }
         }
       }
@@ -540,10 +594,10 @@ partial_kernel(const Params p) {
   if (p.n_split == 1) {
     if (row_ok) {
 #pragma unroll
-      for (int c = 0; c < NCH; ++c)
+      for (int c = 0; c < NCHV; ++c)
 #pragma unroll
-        for (int e = 0; e < CV; ++e)
-          p.acc[o * D + (lane + TPR * c) * CV + e] = acc[c][e];
+        for (int e = 0; e < CVV; ++e)
+          p.acc[o * DV + (lane + TPR * c) * CVV + e] = acc[c][e];
       if (lane == 0) {
         p.m[o] = m_run;
         p.l[o] = l_run;
@@ -555,20 +609,20 @@ partial_kernel(const Params p) {
   // merge the cluster's n_split partials in rank order (merge_partials'
   // arithmetic); the K/V buffer is free now and holds this block's acc
   __syncthreads();
-  float* mrg_acc = reinterpret_cast<float*>(kv_smem);   // [ROWS][D]
+  float* mrg_acc = reinterpret_cast<float*>(kv_smem);   // [ROWS][DV]
 #pragma unroll
-  for (int c = 0; c < NCH; ++c)
+  for (int c = 0; c < NCHV; ++c)
 #pragma unroll
-    for (int e = 0; e < CV; ++e)
-      mrg_acc[row * D + (lane + TPR * c) * CV + e] = acc[c][e];
+    for (int e = 0; e < CVV; ++e)
+      mrg_acc[row * DV + (lane + TPR * c) * CVV + e] = acc[c][e];
   if (lane == 0) {
     mrg_m[row] = m_run;
     mrg_l[row] = l_run;
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  for (int e = rank * THREADS + tid; e < ROWS * D; e += p.n_split * THREADS) {
-    const int rr = e / D, d = e % D;
+  for (int e = rank * THREADS + tid; e < ROWS * DV; e += p.n_split * THREADS) {
+    const int rr = e / DV, d = e % DV;
     const int ri = r0 + rr;
     if (ri >= R) continue;
     // every remote load in flight before the fold
@@ -578,7 +632,7 @@ partial_kernel(const Params p) {
       const bool in = q < p.n_split;
       mq[q] = in ? cluster.map_shared_rank(mrg_m, q)[rr] : NEG_INF;
       lq[q] = in ? cluster.map_shared_rank(mrg_l, q)[rr] : 0.f;
-      aq[q] = in ? cluster.map_shared_rank(mrg_acc, q)[rr * D + d] : 0.f;
+      aq[q] = in ? cluster.map_shared_rank(mrg_acc, q)[rr * DV + d] : 0.f;
     }
     float m_a = mq[0], l_a = lq[0], a_a = aq[0];
 #pragma unroll
@@ -594,7 +648,7 @@ partial_kernel(const Params p) {
     const int ti = ri / p.G;
     const int64_t oi =
         ((static_cast<int64_t>(b) * p.T + ti) * p.H + h) * p.G + ri % p.G;
-    p.acc[oi * D + d] = a_a;
+    p.acc[oi * DV + d] = a_a;
     if (d == 0) {
       p.m[oi] = m_a;
       p.l[oi] = l_a;
@@ -604,16 +658,20 @@ partial_kernel(const Params p) {
 }
 
 // the double-buffered staging tiles and, int8, the bf16 view of one tile
-template <int D, typename KVT>
+template <int DK, int DV, typename KVT>
 constexpr int kv_smem_bytes() {
-  return 2 * 2 * KT * D * int(sizeof(KVT)) +
-         (std::is_same<KVT, int8_t>::value ? 2 * KT * D * 2 : 0);
+  constexpr int KT = Form<DK, DV>::KT;
+  return 2 * KT * (DK + DV) * int(sizeof(KVT)) +
+         (std::is_same<KVT, int8_t>::value ? KT * (DK + DV) * 2 : 0);
 }
 
-template <int D, typename QT, typename KVT, bool PAGED>
+template <int DK, int DV, typename QT, typename KVT, bool PAGED>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  auto kernel = partial_kernel<D, QT, KVT, PAGED>;
-  constexpr int smem = kv_smem_bytes<D, KVT>();
+  using F = Form<DK, DV>;
+  if (p.n_split > F::MAX_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = partial_kernel<DK, DV, QT, KVT, PAGED>;
+  constexpr int smem = kv_smem_bytes<DK, DV, KVT>();
   static bool attr = false;   // one flag per instantiation
   if (!attr) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -625,7 +683,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   const int R = p.T * p.G;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((R + ROWS - 1) / ROWS) * p.n_split, p.H, B);
-  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.blockDim = dim3(F::THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attrs[1];
@@ -641,82 +699,89 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 // K/V storage: the `kv` argument of the entry points
 constexpr int KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2;
 
-template <int D, typename QT, bool PAGED>
+template <int DK, int DV, typename QT, bool PAGED>
 int dispatch_kv(const Params& p, int B, int kv, cudaStream_t stream) {
   switch (kv) {
-    case KV_F32: return launch<D, QT, float, PAGED>(p, B, stream);
-    case KV_BF16: return launch<D, QT, __nv_bfloat16, PAGED>(p, B, stream);
+    case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
+    case KV_BF16:
+      return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
     case KV_INT8:
-      if (p.k_scale == nullptr || p.v_scale == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-      return launch<D, QT, int8_t, PAGED>(p, B, stream);
+      if constexpr (DK == DV) {
+        if (p.k_scale == nullptr || p.v_scale == nullptr)
+          return static_cast<int>(cudaErrorInvalidValue);
+        return launch<DK, DV, QT, int8_t, PAGED>(p, B, stream);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <int D, bool PAGED>
+template <int DK, int DV, bool PAGED>
 int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv,
                     cudaStream_t stream) {
-  return q_bf16 ? dispatch_kv<D, __nv_bfloat16, PAGED>(p, B, kv, stream)
-                : dispatch_kv<D, float, PAGED>(p, B, kv, stream);
+  return q_bf16 ? dispatch_kv<DK, DV, __nv_bfloat16, PAGED>(p, B, kv, stream)
+                : dispatch_kv<DK, DV, float, PAGED>(p, B, kv, stream);
 }
 
-// Launch on `stream` for head dim D in {16, 32, 64, 128} and K/V storage
-// `kv` (KV_F32, KV_BF16 or KV_INT8 with scales); returns the launch's
-// error (cudaErrorInvalidValue for another D, kv or n_split).
+// The instantiated head widths (Dk, Dv): `ops.py::SUPPORTED_PAIRS`.
+#define ATTN_PARTIAL_PAIRS(X) \
+  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(40, 32) X(576, 512)
+
+// Launch on `stream` for head widths (Dk, Dv) of ATTN_PARTIAL_PAIRS and
+// K/V storage `kv` (KV_F32, KV_BF16, or KV_INT8 with scales where Dk ==
+// Dv); returns the launch's error (cudaErrorInvalidValue for another
+// pair, kv or n_split).
 template <bool PAGED>
-int dispatch(const Params& p, int B, int D, int q_bf16, int kv,
+int dispatch(const Params& p, int B, int DK, int DV, int q_bf16, int kv,
              cudaStream_t stream) {
-  if (p.n_split < 1 || p.n_split > MAX_SPLIT || p.span_tiles < 1)
+  if (p.n_split < 1 || p.span_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 16: return dispatch_dtypes<16, PAGED>(p, B, q_bf16, kv, stream);
-    case 32: return dispatch_dtypes<32, PAGED>(p, B, q_bf16, kv, stream);
-    case 64: return dispatch_dtypes<64, PAGED>(p, B, q_bf16, kv, stream);
-    case 128: return dispatch_dtypes<128, PAGED>(p, B, q_bf16, kv, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define PAIR_CASE(DK_, DV_)                                           \
+  if (DK == DK_ && DV == DV_)                                         \
+    return dispatch_dtypes<DK_, DV_, PAGED>(p, B, q_bf16, kv, stream);
+  ATTN_PARTIAL_PAIRS(PAIR_CASE)
+#undef PAIR_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D, typename QT, typename KVT, bool PAGED>
+template <int DK, int DV, typename QT, typename KVT, bool PAGED>
 int smem_kv(int* dynamic, int* static_bytes, int* limit) {
-  return smem_report(partial_kernel<D, QT, KVT, PAGED>,
-                     kv_smem_bytes<D, KVT>(), dynamic, static_bytes, limit);
+  return smem_report(partial_kernel<DK, DV, QT, KVT, PAGED>,
+                     kv_smem_bytes<DK, DV, KVT>(), dynamic, static_bytes,
+                     limit);
 }
 
-template <int D, typename QT, bool PAGED>
+template <int DK, int DV, typename QT, bool PAGED>
 int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
   switch (kv) {
     case KV_F32:
-      return smem_kv<D, QT, float, PAGED>(dynamic, static_bytes, limit);
+      return smem_kv<DK, DV, QT, float, PAGED>(dynamic, static_bytes, limit);
     case KV_BF16:
-      return smem_kv<D, QT, __nv_bfloat16, PAGED>(dynamic, static_bytes,
-                                                  limit);
+      return smem_kv<DK, DV, QT, __nv_bfloat16, PAGED>(dynamic, static_bytes,
+                                                      limit);
     case KV_INT8:
-      return smem_kv<D, QT, int8_t, PAGED>(dynamic, static_bytes, limit);
+      if constexpr (DK == DV)
+        return smem_kv<DK, DV, QT, int8_t, PAGED>(dynamic, static_bytes,
+                                                  limit);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Shared memory of the instantiation for head dim D and these dtypes (see
-// smem_report.cuh).
+// Shared memory of the instantiation for head widths (Dk, Dv) and these
+// dtypes (see smem_report.cuh).
 template <bool PAGED>
-int smem(int D, int q_bf16, int kv, int* dynamic, int* static_bytes,
-         int* limit) {
-#define D_CASE(D_)                                                         \
-  case D_:                                                                 \
-    return q_bf16 ? smem_of<D_, __nv_bfloat16, PAGED>(kv, dynamic,         \
-                                                     static_bytes, limit) \
-                  : smem_of<D_, float, PAGED>(kv, dynamic, static_bytes,   \
-                                              limit);
-  switch (D) {
-    D_CASE(16)
-    D_CASE(32)
-    D_CASE(64)
-    D_CASE(128)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef D_CASE
+int smem(int DK, int DV, int q_bf16, int kv, int* dynamic,
+         int* static_bytes, int* limit) {
+#define PAIR_CASE(DK_, DV_)                                                \
+  if (DK == DK_ && DV == DV_)                                              \
+    return q_bf16 ? smem_of<DK_, DV_, __nv_bfloat16, PAGED>(               \
+                        kv, dynamic, static_bytes, limit)                  \
+                  : smem_of<DK_, DV_, float, PAGED>(kv, dynamic,           \
+                                                    static_bytes, limit);
+  ATTN_PARTIAL_PAIRS(PAIR_CASE)
+#undef PAIR_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace attn_partial

@@ -38,8 +38,10 @@
 // arithmetic is f32 on CUDA cores, not wgmma (bf16 tensor cores would
 // need P in bf16, outside the 1e-4 tolerance: ROADMAP queue 2 item 2c).
 //
-// The kernel body is `../../csrc/attention_partial.cuh`, shared with the
-// paged-pool kernel; this file instantiates it for the resident slot pool
+// MLA targets run its latent form (Dk = 576 != Dv = 512: the absorbed
+// query over one KV head of c_kv ++ k_pe, G = 128 rows a token; 16-key
+// tiles, see the header). The kernel body is
+// `../../csrc/attention_partial.cuh`, shared with the paged-pool kernel; this file instantiates it for the resident slot pool
 // and is its C entry point, which launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 
@@ -49,7 +51,8 @@ extern "C" int fa_partial_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* k_pos, const void* mask, const void* slot_idx,
     const void* k_scale, const void* v_scale, void* acc,
-    void* m, void* l, int B, int T, int G, int H, int S, int D,
+    void* m, void* l, int B, int T, int G, int H, int S, int Dk,
+    int Dv,
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
     int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
@@ -101,13 +104,14 @@ extern "C" int fa_partial_launch(
   p.scale = scale;
   p.causal = causal;
   p.window = window;
-  return attn_partial::dispatch<false>(p, B, D, q_bf16, kv,
+  return attn_partial::dispatch<false>(p, B, Dk, Dv, q_bf16, kv,
                                        static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of the instantiation for head dim D (for the tests).
-extern "C" int fa_smem(int D, int q_bf16, int kv, int* dynamic,
+// Shared memory of the instantiation for head widths (Dk, Dv) (for the
+// tests).
+extern "C" int fa_smem(int Dk, int Dv, int q_bf16, int kv, int* dynamic,
                        int* static_bytes, int* limit) {
-  return attn_partial::smem<false>(D, q_bf16, kv, dynamic,
+  return attn_partial::smem<false>(Dk, Dv, q_bf16, kv, dynamic,
                                    static_bytes, limit);
 }

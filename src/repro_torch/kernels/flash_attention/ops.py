@@ -14,6 +14,13 @@ blocked online-softmax attention and returns the unnormalised partials
          scale per (row, head) (`kv_dtype="int8"` caches)
   -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
 
+Dk == Dv is a GQA head (16, 32, 64 or 128 wide). Dk != Dv is the latent
+form: MLA's absorbed attention, one KV head of c_kv ++ k_pe (Dk = 576,
+Dv = 512 at DeepSeek-V3's widths; (40, 32) for tests) with every query
+head folded into G. Its key tile is 16 (`tiling`): the plain version,
+`plan_splits` and `split_ranges` take the same tile as the kernel, so a
+slot pool and a page pool holding the same keys stay bitwise equal.
+
 An int8 K/V pair is the reference's dequantized bf16 view,
 bf16(f32(k8) * scale) (`dequantize_kv`): the plain version builds that
 view and attends over it; the kernel's int8 form reads the int8 rows and
@@ -46,10 +53,16 @@ from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
                                       cuda_stream)
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+#: the (Dk, Dv) head widths the kernels are instantiated for: GQA heads,
+#: then the latent form's tiny pair (tests) and DeepSeek-V3's
+SUPPORTED_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (40, 32),
+                   (576, 512))
 #: keys per tile of the kernel; the model's cache reads run the plain
 #: version with the same tile on the CPU
 KEY_TILE = 32
+#: the latent form's key tile: a double-buffered f32 tile of 16 keys of
+#: 576 + 512 values fills 136 KB of a block's 227 KB (32 keys would not fit)
+LATENT_KEY_TILE = 16
 _KV_DTYPES = (torch.float32, torch.bfloat16)
 #: the kernels' K/V storage argument
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -60,6 +73,9 @@ ROW_TILE = 16
 #: non-portable cluster limit of the H100)
 SPLIT_TARGET_BLOCKS = 256
 MAX_SPLIT = 16
+#: the latent form's cluster limit: the portable 8 (one of its f32 blocks
+#: fills an SM's shared memory)
+LATENT_MAX_SPLIT = 8
 #: the pool capacity the span is sized for (the serving phases' max_len)
 SPLIT_REF_KEYS = 1024
 
@@ -68,6 +84,8 @@ SPLIT_REF_KEYS = 1024
 LAUNCHES = 0
 #: the launches of them that read int8 K/V (the int8 form)
 LAUNCHES_INT8_KV = 0
+#: the launches of them in the latent form (Dk != Dv: MLA)
+LAUNCHES_LATENT = 0
 
 
 def _declare(lib):
@@ -75,7 +93,7 @@ def _declare(lib):
     fn = lib.fa_partial_launch
     fn.argtypes = ([vp] * 12            # q k v q_pos k_pos mask slot
                                         # k_scale v_scale acc m l
-                   + [i32] * 6          # B T G H S D
+                   + [i32] * 7          # B T G H S Dk Dv
                    + [i64] * 20         # strides
                    + [ctypes.c_float]   # scale
                    + [i32] * 6          # causal window q_bf16 kv
@@ -86,10 +104,10 @@ def _declare(lib):
 
 
 def declare_smem(fn):
-    """Types of a library's shared-memory report: (D, q_bf16, kv (a
+    """Types of a library's shared-memory report: (Dk, Dv, q_bf16, kv (a
     `KV_KIND` value), *dynamic, *static, *limit) -> CUDA error."""
     ip = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.c_int] * 3 + [ip] * 3
+    fn.argtypes = [ctypes.c_int] * 4 + [ip] * 3
     fn.restype = ctypes.c_int
 
 
@@ -181,46 +199,62 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
 # split planning (plain Python, tested on the CPU)
 # =====================================================================
 
+def tiling(latent: bool):
+    """(keys per tile, most blocks a cluster splits keys over) of the
+    form: `latent` for Dk != Dv (`attention_partial.cuh::Form`)."""
+    return ((LATENT_KEY_TILE, LATENT_MAX_SPLIT) if latent
+            else (KEY_TILE, MAX_SPLIT))
+
+
+def key_tile(Dk: int, Dv: int) -> int:
+    """The kernel's key tile for heads (Dk, Dv): the plain version's tile
+    for cache reads."""
+    return tiling(Dk != Dv)[0]
+
+
 @functools.lru_cache(maxsize=1024)
-def plan_splits(B: int, H: int, R: int, S: int):
+def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False):
     """(n_split, span_tiles) for B requests x H KV heads x R query rows
-    over S logical keys. The span (32-key tiles a block walks in one go)
-    comes from the grid alone: the fewest power-of-two blocks per
-    (request, head, row tile), at most MAX_SPLIT, that give
-    SPLIT_TARGET_BLOCKS blocks over a pool of SPLIT_REF_KEYS keys. The
-    cluster then covers S with ceil(tiles / span) blocks rounded up to a
-    power of two, at most MAX_SPLIT; past MAX_SPLIT spans a block walks
-    every n_split-th span. So the plan never reads the live lengths, and
-    two capacities holding the same keys (a slot pool, a page pool's
-    view) sum the same spans in the same order."""
+    over S logical keys (`latent`: the Dk != Dv form's tiling). The span
+    (key tiles a block walks in one go) comes from the grid alone: the
+    fewest power-of-two blocks per (request, head, row tile), at most the
+    cluster limit, that give SPLIT_TARGET_BLOCKS blocks over a pool of
+    SPLIT_REF_KEYS keys. The cluster then covers S with ceil(tiles / span)
+    blocks rounded up to a power of two, at most the limit; past it a
+    block walks every n_split-th span. So the plan never reads the live
+    lengths, and two capacities holding the same keys (a slot pool, a
+    page pool's view) sum the same spans in the same order."""
+    kt, max_split = tiling(latent)
     base = B * H * -(-R // ROW_TILE)
     n0 = 1
-    while n0 < MAX_SPLIT and base * n0 < SPLIT_TARGET_BLOCKS:
+    while n0 < max_split and base * n0 < SPLIT_TARGET_BLOCKS:
         n0 *= 2
-    span = max(1, SPLIT_REF_KEYS // KEY_TILE // n0)
-    spans = -(-max(1, -(-S // KEY_TILE)) // span)
+    span = max(1, SPLIT_REF_KEYS // kt // n0)
+    spans = -(-max(1, -(-S // kt)) // span)
     n = 1
-    while n < min(spans, MAX_SPLIT):
+    while n < min(spans, max_split):
         n *= 2
     return n, span
 
 
-def kernel_smem(D: int, kv_element_size: int) -> int:
+def kernel_smem(Dk: int, Dv: int, kv_element_size: int) -> int:
     """Dynamic shared memory of one block: the double-buffered K/V tiles
     in their stored dtype (4, 2 or 1 bytes a value), reused for the
-    merge's (ROW_TILE, D) f32 rows, and for int8 K/V the bf16 view of
+    merge's (ROW_TILE, Dv) f32 rows, and for int8 K/V the bf16 view of
     one K/V tile. (Static shared memory is known only from the compiled
     kernel: the `gpu` tests hold this against the kernels' request and
     the sum of both against the device's limit.)"""
-    view = 2 * KEY_TILE * D * 2 if kv_element_size == 1 else 0
-    return 2 * 2 * KEY_TILE * D * kv_element_size + view
+    kt = key_tile(Dk, Dv)
+    view = kt * (Dk + Dv) * 2 if kv_element_size == 1 else 0
+    return 2 * kt * (Dk + Dv) * kv_element_size + view
 
 
-def split_ranges(S: int, n_split: int, span_tiles: int):
+def split_ranges(S: int, n_split: int, span_tiles: int,
+                 latent: bool = False):
     """The logical keys each block of a cluster walks, in rank order: a
     list of [lo, hi) ranges per block (spans rank, rank + n_split, ...;
     empty for a block past the last key)."""
-    span = span_tiles * KEY_TILE
+    span = span_tiles * tiling(latent)[0]
     return [[(lo, min(S, lo + span))
              for lo in range(r * span, S, n_split * span)]
             for r in range(n_split)]
@@ -243,6 +277,17 @@ def kv_aligned(t, strides) -> bool:
     per = 16 // t.element_size()
     return (t.data_ptr() % 16 == 0 and strides[0] % per == 0
             and strides[1] % per == 0 and strides[2] % per == 0)
+
+
+def check_pair(check, Dk, Dv, kv_dtype):
+    """The head widths a kernel is instantiated for (`SUPPORTED_PAIRS`);
+    the latent form (Dk != Dv) reads f32 or bf16 K/V only."""
+    check((Dk, Dv) in SUPPORTED_PAIRS, lambda: (
+        f"head widths (Dk, Dv) = ({Dk}, {Dv}); supported pairs "
+        f"{SUPPORTED_PAIRS}"))
+    check(Dk == Dv or kv_dtype in _KV_DTYPES, lambda: (
+        f"the latent form (Dk != Dv) reads float32 / bfloat16 K/V, got "
+        f"{kv_dtype}"))
 
 
 def check_kv(check, k, v, k_scale, v_scale, lead, Hkv, dev):
@@ -297,9 +342,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     Dv = v.shape[-1]
     dev = q.device
     # (messages are built only when a check fails: this runs per call)
-    _check(Dk == Dv and Dk in SUPPORTED_HEAD_DIMS, lambda: (
-        f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
-        f"{SUPPORTED_HEAD_DIMS}"))
+    check_pair(_check, Dk, Dv, k.dtype)
     _check(q.dtype in _KV_DTYPES, lambda: (
         f"dtype q={q.dtype}; supported float32 / bfloat16"))
     _check(k.shape == (P, S, Hkv, Dk) and v.shape == (P, S, Hkv, Dv),
@@ -334,17 +377,17 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     if B * T * G == 0:
         return m.fill_(NEG_INF), l.zero_(), acc.zero_()
 
-    global _FN, LAUNCHES, LAUNCHES_INT8_KV
+    global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
     if _FN is None:
         _FN = LIBRARY.load().fa_partial_launch
-    n_split, span = plan_splits(B, Hkv, T * G, S)
+    n_split, span = plan_splits(B, Hkv, T * G, S, Dk != Dv)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
              0 if slot_idx is None else slot_idx.data_ptr(),
              0 if k_scale is None else k_scale.data_ptr(),
              0 if v_scale is None else v_scale.data_ptr(),
              acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-             B, T, G, Hkv, S, Dk,
+             B, T, G, Hkv, S, Dk, Dv,
              qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
              vs[0], vs[1], vs[2], *sc, k_pos.stride(0), q_pos.stride(0),
              0 if mask is None else mask.stride(0),
@@ -359,6 +402,8 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
         LAUNCHES += 1
         if kv == KV_KIND[torch.int8]:
             LAUNCHES_INT8_KV += 1
+        if Dk != Dv:
+            LAUNCHES_LATENT += 1
     return m, l, acc
 
 

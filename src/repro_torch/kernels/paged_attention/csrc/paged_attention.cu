@@ -19,17 +19,18 @@
 // for 512-row prefill chunks.
 //
 // What the design does about it: the block table is read inside the
-// kernel, one entry per key of a 32-key tile (three tiles ahead of its
+// kernel, one entry per key of a key tile (three tiles ahead of its
 // use), and K/V rows are copied from their physical page in place by
 // 16-byte `cp.async` once their offsets are known, so HBM carries only
 // the pages held (the reference's XLA path gathers the view into a
 // resident copy first, which reads and writes every byte once more). The
 // kernel body is `../../csrc/attention_partial.cuh`, shared with the
 // resident kernel: the logical keys are split over a cluster and walked
-// in the same 32-key tiles, split the same way, with the same tile
+// in the same key tiles, split the same way, with the same tile
 // skipping and merge order, so the partials are bit for bit those of
 // `flash_attention.cu` on the gathered view, for f32, bf16 and int8 pools
-// alike (an int8 pool's scales are read through the same page offsets).
+// alike (an int8 pool's scales are read through the same page offsets),
+// and for MLA's latent pools (Dk = 576, Dv = 512) as well.
 // Element offsets are computed in int64.
 //
 // The C entry point launches on the caller's stream, allocates nothing
@@ -41,7 +42,8 @@ extern "C" int paged_partial_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* page_pos, const void* block_table, const void* k_scale,
     const void* v_scale, void* acc, void* m,
-    void* l, int B, int T, int G, int H, int n_view, int page_size, int D,
+    void* l, int B, int T, int G, int H, int n_view, int page_size, int Dk,
+    int Dv,
     int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t q_sg, int64_t k_sp,
     int64_t k_ss, int64_t k_sh, int64_t v_sp, int64_t v_ss, int64_t v_sh,
     int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
@@ -93,13 +95,14 @@ extern "C" int paged_partial_launch(
   p.scale = scale;
   p.causal = 1;
   p.window = window;
-  return attn_partial::dispatch<true>(p, B, D, q_bf16, kv,
+  return attn_partial::dispatch<true>(p, B, Dk, Dv, q_bf16, kv,
                                       static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of the instantiation for head dim D (for the tests).
-extern "C" int paged_smem(int D, int q_bf16, int kv, int* dynamic,
+// Shared memory of the instantiation for head widths (Dk, Dv) (for the
+// tests).
+extern "C" int paged_smem(int Dk, int Dv, int q_bf16, int kv, int* dynamic,
                           int* static_bytes, int* limit) {
-  return attn_partial::smem<true>(D, q_bf16, kv, dynamic,
+  return attn_partial::smem<true>(Dk, Dv, q_bf16, kv, dynamic,
                                   static_bytes, limit);
 }

@@ -40,6 +40,8 @@ from repro_torch.kernels.flash_attention import ops as fa
 LAUNCHES = 0
 #: the launches of them that read an int8 pool (the int8 form)
 LAUNCHES_INT8_KV = 0
+#: the launches of them in the latent form (Dk != Dv: MLA's latent pools)
+LAUNCHES_LATENT = 0
 
 
 def _declare(lib):
@@ -47,7 +49,8 @@ def _declare(lib):
     fn = lib.paged_partial_launch
     fn.argtypes = ([vp] * 11            # q k v q_pos page_pos table
                                         # k_scale v_scale acc m l
-                   + [i32] * 7          # B T G H n_view page_size D
+                   + [i32] * 8          # B T G H n_view page_size
+                                        # Dk Dv
                    + [i64] * 19         # strides
                    + [ctypes.c_float]   # scale
                    + [i32] * 5          # window q_bf16 kv
@@ -115,9 +118,7 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
     Dv = v.shape[-1]
     dev = q.device
     # (messages are built only when a check fails: this runs per call)
-    _check(Dk == Dv and Dk in fa.SUPPORTED_HEAD_DIMS, lambda: (
-        f"head dims Dk={Dk}, Dv={Dv}; supported Dk == Dv in "
-        f"{fa.SUPPORTED_HEAD_DIMS}"))
+    fa.check_pair(_check, Dk, Dv, k.dtype)
     _check(q.dtype in fa._KV_DTYPES, lambda: (
         f"dtype q={q.dtype}; supported float32 / bfloat16"))
     _check(k.shape == (P, ps, Hkv, Dk) and v.shape == (P, ps, Hkv, Dv),
@@ -146,18 +147,18 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
     if B * T * G == 0 or nv == 0:
         return m.fill_(fa.NEG_INF), l.zero_(), acc.zero_()
 
-    global _FN, LAUNCHES, LAUNCHES_INT8_KV
+    global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
     if _FN is None:
         _FN = LIBRARY.load().paged_partial_launch
     # the split of kernel 1 on the gathered view (S = n_view * ps), so
     # both kernels sum the same tiles in the same order
-    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps)
+    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps, Dk != Dv)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             page_pos.data_ptr(), page_view.data_ptr(),
             0 if k_scale is None else k_scale.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(),
-            B, T, G, Hkv, nv, ps, Dk,
+            B, T, G, Hkv, nv, ps, Dk, Dv,
             qs[0], qs[1], qs[2], qs[3], ks[0], ks[1], ks[2],
             vs[0], vs[1], vs[2], *sc, page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
@@ -170,6 +171,8 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
         LAUNCHES += 1
         if kv == fa.KV_KIND[torch.int8]:
             LAUNCHES_INT8_KV += 1
+        if Dk != Dv:
+            LAUNCHES_LATENT += 1
     return m, l, acc
 
 

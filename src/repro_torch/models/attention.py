@@ -1,5 +1,5 @@
-"""GQA attention over slot caches and page pools (port of
-`repro.models.attention`, GQA path only).
+"""GQA and MLA attention over slot caches and page pools (port of
+`repro.models.attention`; cross-attention is not ported).
 
 Reads of a resident cache go through
 `kernels.flash_attention.ops.attend_partial`, reads of a page pool through
@@ -31,23 +31,27 @@ snapshots and single-request caches are owned by their caller and never
 reused after a step). Reads of a pool go through `slot_idx` or the block
 table inside the kernel, without a gathered copy.
 
-MLA and cross-attention are not ported yet and raise
-`NotImplementedError` naming their ROADMAP item.
+MLA (`mla_attention`, DeepSeek-V3's absorbed form) caches only
+c_kv ++ k_pe per token, as the reference: "k" is (B, C, 1, kv_lora +
+rope) and "v" (B, C, 1, kv_lora), one KV head that every query head
+reads, so its reads go to the kernels' latent form (Dk != Dv).
+
+Cross-attention is not ported yet and raises `NotImplementedError`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm_headwise
-from repro_torch.models.quantize import qdot
+from repro_torch.models.quantize import _promote, qdot
 
 NEG_INF = -1e30
 RING_MARGIN = 128  # extra ring slots beyond the window (max verify segment)
 
-MLA_ROADMAP = "MLA attention is not ported yet (ROADMAP queue 1 item 11)"
 CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
                  "(ROADMAP queue 1 item 11)")
 
@@ -320,8 +324,6 @@ def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
            to the kernel's tile, so a slot pool and a page pool holding
            the same keys give bitwise equal results).
     Returns (out, cache | None)."""
-    if cfg.attention == "mla":
-        raise NotImplementedError(MLA_ROADMAP)
     B, T, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = hq // hkv
@@ -343,3 +345,86 @@ def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
             token_mask=token_mask, page_view=page_view)
     out = out.reshape(B, T, hq * hd)
     return qdot(out, p["wo"]), new_cache
+
+
+# =====================================================================
+# MLA (DeepSeek-V3 multi-head latent attention), absorbed formulation
+# =====================================================================
+
+def mla_params(gen, cfg: ModelConfig, device):
+    m: MLAConfig = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    return {
+        "wdq": dense_init(gen, (d, m.q_lora_rank), device),
+        "q_norm": torch.ones(m.q_lora_rank, device=device),
+        "wuq": dense_init(gen, (m.q_lora_rank, H * m.qk_head_dim), device),
+        "wdkv": dense_init(gen, (d, m.kv_lora_rank), device),
+        "kv_norm": torch.ones(m.kv_lora_rank, device=device),
+        "wkr": dense_init(gen, (d, m.qk_rope_head_dim), device),
+        "wuk": dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_head_dim),
+                          device),
+        "wuv": dense_init(gen, (m.kv_lora_rank, H * m.v_head_dim), device),
+        "wo": dense_init(gen, (H * m.v_head_dim, d), device),
+    }
+
+
+def make_mla_cache(batch, capacity, cfg: ModelConfig, dtype=torch.bfloat16,
+                   device=None):
+    """Latent cache: "k" holds c_kv ++ k_pe (kv_lora + rope values), "v"
+    c_kv (kv_lora values), one KV head, as the reference's layout. A page
+    pool is the same with (n_pages, page_size) leading (the reference's
+    `make_paged_mla_cache`)."""
+    m = cfg.mla
+    return make_kv_cache(batch, capacity, 1,
+                         m.kv_lora_rank + m.qk_rope_head_dim,
+                         m.kv_lora_rank, dtype, device=device)
+
+
+def mla_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
+                  seg_mask=None, window=0, block=None, slot_idx=None,
+                  write=True, token_mask=None, page_view=None):
+    """Absorbed MLA: the cache holds only (c_kv ++ k_pe) per token; W_UK is
+    absorbed into the query and W_UV applied to the attention output. This
+    is single-latent-head attention (Hkv = 1, G = H, Dk = kv_lora + rope,
+    Dv = kv_lora): the kernels' latent form. Arguments and modes as
+    `gqa_attention`; products promote as the reference's (bf16
+    activations times f32 weights give f32 latents and queries)."""
+    m: MLAConfig = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    R, nope = m.kv_lora_rank, m.qk_nope_head_dim
+    Dk = R + m.qk_rope_head_dim
+    scale = m.qk_head_dim ** -0.5
+
+    # the reference's `_rms` is `rms_norm_headwise`'s arithmetic
+    cq = rms_norm_headwise(p["q_norm"], qdot(x, p["wdq"]), cfg.norm_eps)
+    q = qdot(cq, p["wuq"]).reshape(B, T, H, m.qk_head_dim)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    # absorb W_UK: (B,T,H,nope) @ (R,H,nope) -> (B,T,H,R)
+    wuk = p["wuk"].reshape(R, H, nope)
+    q_abs = torch.einsum("bthn,rhn->bthr", *_promote(q_nope, wuk))
+    q_eff = torch.cat([q_abs, q_pe.to(q_abs.dtype)], dim=-1)   # (B,T,H,Dk)
+    qg = q_eff.reshape(B, T, 1, H, Dk)
+
+    ckv = rms_norm_headwise(p["kv_norm"], qdot(x, p["wdkv"]),
+                            cfg.norm_eps)                       # (B,T,R)
+    kpe = apply_rope(qdot(x, p["wkr"]), positions, cfg.rope_theta)
+    k_eff = torch.cat([ckv, kpe.to(ckv.dtype)], dim=-1)[:, :, None, :]
+    v_eff = ckv[:, :, None, :]                                  # (B,T,1,R)
+
+    if cache is None:
+        out_lat = blocked_attention(qg, k_eff, v_eff, positions, positions,
+                                    scale=scale, causal=True, window=window,
+                                    extra_mask=seg_mask, block=block)
+        new_cache = None
+    else:
+        block = block or cfg.decode_block or fa.key_tile(Dk, R)
+        out_lat, new_cache = _attend_cached(
+            qg, k_eff, v_eff, cache, positions, scale=scale, window=window,
+            block=block, seg_mask=seg_mask, slot_idx=slot_idx, write=write,
+            token_mask=token_mask, page_view=page_view)
+    out_lat = out_lat.reshape(B, T, H, R)
+    wuv = p["wuv"].reshape(R, H, m.v_head_dim)
+    out = torch.einsum("bthr,rhv->bthv", *_promote(out_lat, wuv))
+    return qdot(out.reshape(B, T, H * m.v_head_dim), p["wo"]), new_cache

@@ -7,7 +7,9 @@ along a leading `reps` axis (its `lax.scan` layout):
 `params_from_numpy` splits that axis into one dict per layer, in layer
 order, and moves every leaf to a tensor on `device`; a MoE layer's FFN
 comes across as its dict of `router` (d, E), `w_gate` / `w_up` (E, d, f),
-`w_down` (E, f, d) and the `shared` expert's MLP. Quantized leaves
+`w_down` (E, f, d) and the `shared` expert's MLP; DeepSeek-V3's `mtp`
+subtree (not stacked: {"proj", "norm_h", "norm_e", "layer"}) comes across
+as it is. Quantized leaves
 (``{"w8": int8, "scale": f32}`` of `repro.models.quantize`, the `reps`
 axis on both) come across as the same dicts of tensors, so quantizing in
 JAX and converting gives the bits of converting and quantizing with
@@ -55,7 +57,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
         return _to_tensor(a, dev)
 
     out = {"embed": _tree(tree["embed"], conv), "layers": layers}
-    for key in ("final_norm", "head", "pos"):
+    for key in ("final_norm", "head", "pos", "mtp"):
         if key in tree:
             out[key] = _tree(tree[key], conv)
     return out

@@ -15,13 +15,14 @@ def dense_init(gen: torch.Generator, shape, device, scale=None):
     """Normal(0, scale) f32 weight, drawn from `gen`; scale defaults to
     1/sqrt(fan_in)."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return w * (1.0 / math.sqrt(shape[0]) if scale is None else scale)
+    # scaled in place: no second copy of a large (expert-stacked) weight
+    return w.mul_(1.0 / math.sqrt(shape[0]) if scale is None else scale)
 
 
 def embed_init(gen: torch.Generator, shape, device):
     """Normal(0, 0.02) f32 embedding table, drawn from `gen`."""
     w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return w * 0.02
+    return w.mul_(0.02)
 
 
 # ---------------- norms ----------------

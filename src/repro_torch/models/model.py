@@ -1,5 +1,5 @@
-"""Model assembly (port of `repro.models.model`): dense attention, SSM
-and hybrid (SSM + attention) layer plans.
+"""Model assembly (port of `repro.models.model`): dense attention, MLA,
+SSM and hybrid (SSM + attention) layer plans.
 
 Parameters and caches are plain dicts of tensors, one entry per layer
 (the reference's `lax.scan` over stacked stages is a Python loop here):
@@ -10,8 +10,12 @@ Parameters and caches are plain dicts of tensors, one entry per layer
             "lengths": (B,) int32}
 
 An attention layer's "self" cache is a KV cache ({"k", "v", "slot_pos"});
-an SSM layer's is its recurrent state ({"ssm", "conv", "pos"}, float32
-whatever the cache dtype, see `models/ssm.py`).
+an MLA layer's the same leaves holding its latent c_kv ++ k_pe and c_kv
+(one KV head, `attention.make_mla_cache`); an SSM layer's is its
+recurrent state ({"ssm", "conv", "pos"}, float32 whatever the cache
+dtype, see `models/ssm.py`). With `cfg.mtp` (DeepSeek-V3) the params
+also hold the reference's multi-token-prediction subtree under "mtp"
+({"proj", "norm_h", "norm_e", "layer"}); serving does not run it.
 
 One `apply()` serves scoring, prefill, decode and speculative
 verification (chain or tree), as in the reference; the mode follows from
@@ -31,8 +35,9 @@ output, as the reference does. With `cfg.kv_dtype == "int8"` every KV
 cache and page pool stores int8 K/V with an f32 scale per (row, head)
 (`models/attention.py`), read in place by the attention kernels.
 
-MLA and cross-attention are not ported yet and raise
-`NotImplementedError` naming their ROADMAP item.
+Cross-attention is not ported yet and raises `NotImplementedError`
+naming its ROADMAP item. MLA has no int8 KV layout: `kv_dtype="int8"`
+with MLA raises ValueError where a cache is made, as the reference.
 """
 from __future__ import annotations
 
@@ -112,8 +117,6 @@ def layer_specs(cfg: ModelConfig) -> list:
     """Per-layer specs; raises on the layer kinds not ported yet."""
     specs = [_spec_for(cfg, i) for i in range(cfg.n_layers)]
     for s in specs:
-        if s.mixer == "mla":
-            raise NotImplementedError(attn.MLA_ROADMAP)
         if s.cross:
             raise NotImplementedError(attn.CROSS_ROADMAP)
     return specs
@@ -137,6 +140,22 @@ def _generator(seed_or_gen, device) -> torch.Generator:
     return gen
 
 
+def _layer_params(gen, spec: LayerSpec, cfg: ModelConfig, dev):
+    if spec.mixer == "ssm":
+        mixer = ssm_mod.ssm_params(gen, cfg, dev)
+    elif spec.mixer == "mla":
+        mixer = attn.mla_params(gen, cfg, dev)
+    else:
+        mixer = attn.gqa_params(gen, cfg, dev)
+    p = {"ln1": norm_params(cfg, cfg.d_model, dev), "mixer": mixer}
+    if spec.ffn != "none":
+        p["ln2"] = norm_params(cfg, cfg.d_model, dev)
+        p["ffn"] = (moe_mod.moe_params(gen, cfg, cfg.moe, dev)
+                    if spec.ffn == "moe" else
+                    mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev))
+    return p
+
+
 def init_params(cfg: ModelConfig, seed=0, device=None):
     """Random parameters (f32) drawn from `seed` (an int or a
     torch.Generator on `device`). Runs on CUDA unless device="cpu"."""
@@ -144,44 +163,65 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
     specs = layer_specs(cfg)
     gen = _generator(seed, dev)
     params = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dev)}
-    layers = []
-    for spec in specs:
-        mixer = (ssm_mod.ssm_params(gen, cfg, dev) if spec.mixer == "ssm"
-                 else attn.gqa_params(gen, cfg, dev))
-        p = {"ln1": norm_params(cfg, cfg.d_model, dev), "mixer": mixer}
-        if spec.ffn != "none":
-            p["ln2"] = norm_params(cfg, cfg.d_model, dev)
-            p["ffn"] = (moe_mod.moe_params(gen, cfg, cfg.moe, dev)
-                        if spec.ffn == "moe" else
-                        mlp_params(gen, cfg, cfg.d_model, cfg.d_ff, dev))
-        layers.append(p)
-    params["layers"] = layers
+    params["layers"] = [_layer_params(gen, spec, cfg, dev) for spec in specs]
     params["final_norm"] = norm_params(cfg, cfg.d_model, dev)
     if not cfg.tie_embeddings:
         params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab), dev)
     if cfg.pos_embed == "learned":
         params["pos"] = embed_init(gen, (cfg.max_position, cfg.d_model), dev)
+    if cfg.mtp:
+        # DeepSeek-V3's depth-1 multi-token-prediction module, built as
+        # the reference builds it (trained, never served)
+        spec = LayerSpec(mixer="mla" if cfg.attention == "mla" else "attn",
+                         cross=False, ffn="dense")
+        params["mtp"] = {
+            "proj": embed_init(gen, (2 * cfg.d_model, cfg.d_model), dev),
+            "norm_h": norm_params(cfg, cfg.d_model, dev),
+            "norm_e": norm_params(cfg, cfg.d_model, dev),
+            "layer": _layer_params(gen, spec, cfg, dev),
+        }
     return params
 
 
 # ====================================================== caches
 
+def _reject_mla_int8(cfg: ModelConfig):
+    """MLA caches store the *latent* KV (compressed projections consumed
+    by einsum up-projections), which has no per-head int8 layout yet —
+    fail at construction rather than silently keeping a bf16 pool."""
+    if cfg.kv_dtype == "int8":
+        raise ValueError(
+            "kv_dtype='int8' is not supported with attention='mla': the "
+            "latent KV cache has no quantized layout (use GQA, or "
+            "kv_dtype='bf16' for MLA models)")
+
+
+def _kv_pool(spec: LayerSpec, cfg: ModelConfig, rows: int, cols: int, dt,
+             dev):
+    """An attention or MLA layer's KV cache of `rows` x `cols` (slots x
+    capacity, or pages x page size)."""
+    if spec.mixer == "mla":
+        _reject_mla_int8(cfg)
+        return attn.make_mla_cache(rows, cols, cfg, dt, device=dev)
+    hd = cfg.resolved_head_dim
+    return attn.make_kv_cache(rows, cols, cfg.n_kv_heads, hd, hd, dt,
+                              quantized=cfg.kv_dtype == "int8", device=dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Decode/prefill cache: a KV cache per attention layer (int8 K/V
-    with f32 scales when cfg.kv_dtype == "int8", whatever `dtype`), an
-    SSM state (float32) per SSM layer, plus `lengths`."""
+    with f32 scales when cfg.kv_dtype == "int8", whatever `dtype`), a
+    latent cache per MLA layer, an SSM state (float32) per SSM layer,
+    plus `lengths`."""
     dev = resolve_device(device)
     specs = layer_specs(cfg)
     window = effective_window(cfg)
     cap = attn.cache_capacity(cfg, max_len, window)
-    hd = cfg.resolved_head_dim
     dt = torch_dtype(dtype)
     layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
                if spec.mixer == "ssm" else
-               attn.make_kv_cache(batch, cap, cfg.n_kv_heads, hd, hd, dt,
-                                  quantized=cfg.kv_dtype == "int8",
-                                  device=dev)}
+               _kv_pool(spec, cfg, batch, cap, dt, dev)}
               for spec in specs]
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
@@ -315,15 +355,12 @@ def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
     `lengths` for `batch` slots. There is no per-slot max_len: the
     attention capacity of a request is whatever its block table maps."""
     dev = resolve_device(device)
-    hd = cfg.resolved_head_dim
     dt = torch_dtype(dtype)
     cache = init_slot_leaves(cfg, batch, device=dev)
     # a pool is a slot cache of n_pages "slots" of page_size rows each
     cache["layers"] = [
-        layer or {"self": attn.make_kv_cache(
-            n_pages, page_size, cfg.n_kv_heads, hd, hd, dt,
-            quantized=cfg.kv_dtype == "int8", device=dev)}
-        for layer in cache["layers"]]
+        layer or {"self": _kv_pool(spec, cfg, n_pages, page_size, dt, dev)}
+        for spec, layer in zip(layer_specs(cfg), cache["layers"])]
     return cache
 
 
@@ -423,7 +460,9 @@ def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
                                    slot_idx=slot_idx, write=write,
                                    token_mask=token_mask)
     else:
-        out, _ = attn.gqa_attention(
+        mixer = (attn.mla_attention if spec.mixer == "mla"
+                 else attn.gqa_attention)
+        out, _ = mixer(
             p["mixer"], cfg, h, positions, cache=self_cache,
             seg_mask=seg_mask, window=effective_window(cfg),
             slot_idx=slot_idx, write=write, token_mask=token_mask,

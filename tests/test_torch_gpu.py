@@ -193,20 +193,23 @@ def test_int8_smem_matches_compiled_kernels(cuda):
 
 @pytest.mark.gpu
 def test_attention_smem_matches_compiled_kernels(cuda):
-    """Both attention kernels, at every head dim, query dtype and K/V
-    storage (f32, bf16 and the int8 form), ask for the dynamic shared
+    """Both attention kernels, at every head-width pair (the latent form
+    (Dk != Dv) included), query dtype and K/V storage (f32, bf16 and, for
+    Dk == Dv, the int8 form), ask for the dynamic shared
     memory `kernel_smem` counts, and that with the static shared memory
     of the compiled kernel fits SMEM_LIMIT, the device's limit per
     block."""
     for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
-        for D in fa.SUPPORTED_HEAD_DIMS:
+        for Dk, Dv in fa.SUPPORTED_PAIRS:
             for q_bf16 in (0, 1):
                 for kv_dtype, kv in fa.KV_KIND.items():
-                    dynamic, static, limit = _smem(f, D, q_bf16, kv)
-                    case = (f.__name__, D, q_bf16, kv, dynamic, static)
+                    if Dk != Dv and kv_dtype == torch.int8:
+                        continue          # the latent form has no int8 K/V
+                    dynamic, static, limit = _smem(f, Dk, Dv, q_bf16, kv)
+                    case = (f.__name__, Dk, Dv, q_bf16, kv, dynamic, static)
                     assert limit == SMEM_LIMIT
                     assert dynamic == fa.kernel_smem(
-                        D, torch.empty((), dtype=kv_dtype).element_size()
+                        Dk, Dv, torch.empty((), dtype=kv_dtype).element_size()
                     ), case
                     assert dynamic + static <= limit, case
 
@@ -544,6 +547,126 @@ def test_int8_kv_wrappers_raise_instead_of_falling_back(cuda):
     assert (fa.LAUNCHES, pa.LAUNCHES) == before
 
 
+def _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens):
+    """A latent slot pool (one KV head) whose slot i holds positions
+    [0, lens[i]), and its k/v of (P, S, 1, Dk/Dv) in `dtype`."""
+    k = torch.randn((P, S, 1, Dk), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((P, S, 1, Dv), generator=gen, device=cuda).to(dtype)
+    kpos = torch.full((P, S), -1, dtype=torch.int32, device=cuda)
+    for slot, n in enumerate(lens):
+        kpos[slot, :n] = torch.arange(n, dtype=torch.int32, device=cuda)
+    return k, v, kpos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dk,Dv,G", [(40, 32, 4), (576, 512, 128)])
+@pytest.mark.parametrize("T", [1, 6])
+def test_latent_kernel1_matches_plain(cuda, Dk, Dv, G, T, dtype):
+    """Kernel 1's latent form (Dk != Dv, one KV head, every query head
+    folded into G) against its plain version at the tiny pair and at
+    DeepSeek-V3's (576, 512): a scrambled slot pool read in place, plain
+    causal, a tree mask, a window, f32 and bf16 q. The same f32
+    arithmetic in another summation order, so rtol = atol = 1e-4; a
+    second run gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(Dk + T)
+    B, P, S = 3, 6, 512
+    lens = [0, 300, 0, 57, 511, 200]
+    k, v, kpos = _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens)
+    slot_idx = torch.tensor([4, 1, 3], dtype=torch.int32, device=cuda)
+    cur = torch.tensor([lens[4], lens[1], lens[3]], device=cuda)
+    qpos = (cur[:, None] - T + torch.arange(T, device=cuda)).to(torch.int32)
+    mask = torch.rand((B, T, S), generator=gen, device=cuda) < 0.6
+    for qdtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, T, 1, G, Dk), generator=gen,
+                        device=cuda).to(qdtype)
+        for kw in (dict(), dict(mask=mask), dict(window=64)):
+            got = fa.attend_partial(q, k, v, qpos, kpos, scale=Dk ** -0.5,
+                                    slot_idx=slot_idx, **kw)
+            want = fa.attend_partial_plain(
+                q, k, v, qpos, kpos, scale=Dk ** -0.5, slot_idx=slot_idx,
+                block=fa.key_tile(Dk, Dv), **kw)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            again = fa.attend_partial(q, k, v, qpos, kpos, scale=Dk ** -0.5,
+                                      slot_idx=slot_idx, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dk,Dv,G", [(40, 32, 4), (576, 512, 128)])
+@pytest.mark.parametrize("T", [1, 10, 64])
+def test_latent_paged_bitwise_kernel1(cuda, Dk, Dv, G, T):
+    """The paged kernel's latent form on a scrambled page pool (page_size
+    64, NULL filler entries) equals kernel 1's latent form on the
+    gathered view bit for bit, and its plain version within 1e-4."""
+    gen = torch.Generator(device=cuda).manual_seed(Dk * T)
+    B, ps, nv = 3, 64, 8
+    lens = [5 * ps + 3, ps, T + 2]
+    P = 2 + sum(-(-n // ps) for n in lens) + 3
+    k = torch.randn((P, ps, 1, Dk), generator=gen, device=cuda)
+    v = torch.randn((P, ps, 1, Dv), generator=gen, device=cuda)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    tbl = torch.ones((B, nv), dtype=torch.int32, device=cuda)
+    free = (torch.randperm(P - 2, generator=torch.Generator().manual_seed(2))
+            + 2).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            page = free.pop()
+            cnt = min(ps, n - j * ps)
+            pos[page, :cnt] = j * ps + torch.arange(cnt, dtype=torch.int32,
+                                                    device=cuda)
+            tbl[b, j] = page
+    q = torch.randn((B, T, 1, G, Dk), generator=gen, device=cuda)
+    qp = torch.tensor([[max(n - T + t, 0) for t in range(T)] for n in lens],
+                      dtype=torch.int32, device=cuda)
+    before = (fa.LAUNCHES_LATENT, pa.LAUNCHES_LATENT)
+    got = pa.paged_attend_partial(q, k, v, qp, pos, tbl, scale=Dk ** -0.5)
+    k1 = fa.attend_partial(q, pa.gather_view(k, tbl), pa.gather_view(v, tbl),
+                           qp, pa.gather_view(pos, tbl), scale=Dk ** -0.5)
+    assert (fa.LAUNCHES_LATENT, pa.LAUNCHES_LATENT) == (before[0] + 1,
+                                                        before[1] + 1)
+    for a, b in zip(got, k1):
+        assert torch.equal(a, b)
+    want = pa.paged_attend_partial_plain(q, k, v, qp, pos, tbl,
+                                         scale=Dk ** -0.5,
+                                         block=fa.key_tile(Dk, Dv))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_latent_wrappers_refuse_other_pairs(cuda):
+    """On the card a (Dk, Dv) pair without an instantiation, and int8 K/V
+    in the latent form, raise ValueError naming what is supported, and
+    launch nothing: no plain or library fallback."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, T, G, S, ps = 2, 1, 4, 64, 16
+    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    tbl = torch.arange(B * S // ps, dtype=torch.int32,
+                       device=cuda).reshape(B, S // ps)
+    before = (fa.LAUNCHES, pa.LAUNCHES)
+    for Dk, Dv, kvd in ((64, 32, torch.float32), (576, 256, torch.float32),
+                        (128, 64, torch.bfloat16), (40, 32, torch.int8)):
+        q = torch.randn((B, T, 1, G, Dk), generator=gen, device=cuda)
+        k = torch.zeros((B, S, 1, Dk), dtype=kvd, device=cuda)
+        v = torch.zeros((B, S, 1, Dv), dtype=kvd, device=cuda)
+        sc = {}
+        if kvd == torch.int8:
+            sc = dict(k_scale=torch.ones((B, S, 1), device=cuda),
+                      v_scale=torch.ones((B, S, 1), device=cuda))
+        with pytest.raises(ValueError, match="supported pairs|latent form"):
+            fa.attend_partial(q, k, v, qpos, kpos, scale=0.1, **sc)
+        pk, pv = (t.reshape(B * S // ps, ps, 1, -1) for t in (k, v))
+        psc = {n: t.reshape(B * S // ps, ps, 1) for n, t in sc.items()}
+        with pytest.raises(ValueError, match="supported pairs|latent form"):
+            pa.paged_attend_partial(q, pk, pv, qpos,
+                                    kpos.reshape(B * S // ps, ps), tbl,
+                                    scale=0.1, **psc)
+    assert (fa.LAUNCHES, pa.LAUNCHES) == before
+
+
 def _tiny_models(cuda):
     tcfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=128,
                        n_heads=4, n_kv_heads=2, head_dim=32, d_ff=256,
@@ -582,6 +705,45 @@ def _engine_is_greedy_exact(cuda, pool):
         assert pa.LAUNCHES > 0 and eng.target.slots.n_page_growths > 0
     if pool == "mixed int8":
         assert ig.LAUNCHES > 0
+    for r, p in zip(reqs, prompts):
+        assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_engine_mla_is_greedy_exact(cuda, paged):
+    """A tiny MLA target (the latent form's (40, 32) pair: kv_lora 32,
+    rope 8, 4 heads) with a random MLA drafter and a drafter sharing its
+    weights, on the card, resident and on a paged pool that must grow:
+    the greedy stream committed, every attention call (cache reads and
+    segment passes) on the kernels' latent form."""
+    from repro_torch.config import MLAConfig
+    tcfg = ModelConfig(name="t-mla", family="dense", attention="mla",
+                       mla=MLAConfig(q_lora_rank=32, kv_lora_rank=32,
+                                     qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                     v_head_dim=16),
+                       n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                       head_dim=16, d_ff=128, vocab=300, tie_embeddings=True,
+                       dtype="float32")
+    dcfg = tcfg.with_overrides(name="d-mla", n_layers=1)
+    tp = M.init_params(tcfg, 0)
+    cos = CoSineConfig(n_drafters=2, paged_pool=paged, page_size=16,
+                       pool_pages=4)
+    eng = SpeculativeEngine((tcfg, tp), [(dcfg, M.init_params(dcfg, 1), "a"),
+                                         (tcfg, tp, "b")],
+                            cos, max_len=128, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    fa.LAUNCHES = pa.LAUNCHES = 0
+    fa.LAUNCHES_LATENT = pa.LAUNCHES_LATENT = 0
+    stats = eng.run()
+    assert stats.mean_acceptance > 1.0
+    assert (fa.LAUNCHES_LATENT, pa.LAUNCHES_LATENT) == (fa.LAUNCHES,
+                                                        pa.LAUNCHES)
+    assert fa.LAUNCHES > 0 and (pa.LAUNCHES > 0) == paged
+    if paged:
+        assert eng.target.slots.n_page_growths > 0
     for r, p in zip(reqs, prompts):
         assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
 

@@ -29,7 +29,7 @@ PORT = ROOT / "src" / "repro_torch"
 COPIED = ["config", "configs.drafters", "configs.qwen1_5_4b",
           "configs.qwen2_0_5b", "configs.mamba2_130m",
           "configs.jamba_v0_1_52b", "configs.qwen2_moe_a2_7b",
-          "configs.qwen3_32b", "core.tree", "core.request_pool",
+          "configs.qwen3_32b", "configs.deepseek_v3_671b", "core.tree", "core.request_pool",
           "core.latency_model", "core.routing", "core.scheduler",
           "core.admission", "obs.metrics", "obs.trace", "obs.export",
           "obs.summarize", "data.synthetic", "serving.events",
@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_reference():
             "configs/jamba_v0_1_52b.py", "serving/async_loop.py",
             "serving/backend.py", "core/speculative.py", "obs/export.py",
             "obs/summarize.py", "data/synthetic.py", "models/moe.py",
-            "configs/qwen2_moe_a2_7b.py", "configs/qwen3_32b.py"} <= scanned
+            "configs/qwen2_moe_a2_7b.py", "configs/qwen3_32b.py",
+            "configs/deepseek_v3_671b.py"} <= scanned
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "repro", "flax")}
@@ -107,15 +108,17 @@ def test_copied_module_equals_original(name):
 
 
 @pytest.mark.parametrize("name", ["mamba2_130m", "jamba_v0_1_52b",
-                                  "qwen2_moe_a2_7b", "qwen3_32b"])
+                                  "qwen2_moe_a2_7b", "qwen3_32b",
+                                  "deepseek_v3_671b"])
 def test_copied_config_fields_equal_original(name):
-    """The SSM, hybrid, MoE and qwen3 configs the port serves hold the
-    reference's values, field by field (nested SSM and MoE configs
-    included, each of the port's own class)."""
+    """The SSM, hybrid, MoE, qwen3 and DeepSeek-V3 configs the port serves
+    hold the reference's values, field by field (nested SSM, MoE and MLA
+    configs included, each of the port's own class)."""
     port = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     orig = importlib.import_module(f"repro.configs.{name}").CONFIG
     assert dataclasses.asdict(port) == dataclasses.asdict(orig)
-    for sub, cls in (("ssm", "SSMConfig"), ("moe", "MoEConfig")):
+    for sub, cls in (("ssm", "SSMConfig"), ("moe", "MoEConfig"),
+                     ("mla", "MLAConfig")):
         if getattr(orig, sub) is not None:
             assert type(getattr(port, sub)).__name__ == cls
             assert type(getattr(port, sub)).__module__ == "repro_torch.config"
@@ -160,27 +163,24 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 
 def _refusals():
-    from repro_torch.config import MLAConfig, SSMConfig
+    from repro_torch.config import SSMConfig
     from repro_torch.models import model as M
 
     cfg = _tiny()
     return {
-        # SSM, hybrid and MoE plans and int8 KV caches are served; what
-        # an SSM plan may still carry that is not ported is refused:
+        # SSM, hybrid, MoE and MLA plans and int8 KV caches are served;
+        # what an SSM plan may still carry that is not ported is refused:
         # cross-attention blocks on SSM layers
         "ssm": (lambda: M.init_params(cfg.with_overrides(
             family="ssm", ssm=SSMConfig(), cross_attn_period=1,
             n_frontend_tokens=4), 0, device="cpu"), "queue 1 item 11"),
-        "mla": (lambda: M.init_params(cfg.with_overrides(
-            attention="mla", mla=MLAConfig()), 0, device="cpu"),
-            "queue 1 item 11"),
         "cross-attention": (lambda: M.init_params(cfg.with_overrides(
             cross_attn_period=1, n_frontend_tokens=4), 0, device="cpu"),
             "queue 1 item 11"),
     }
 
 
-BRANCHES = ["ssm", "mla", "cross-attention"]
+BRANCHES = ["ssm", "cross-attention"]
 
 
 @pytest.mark.parametrize("branch", BRANCHES)

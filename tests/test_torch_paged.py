@@ -371,6 +371,30 @@ def test_views_are_memoised_on_the_device():
     assert b.shape == (2, 4) and int(b[0, 2]) == mgr.tables[0][2]
 
 
+def test_swa_prompt_past_ring_capacity_resident_and_paged():
+    """A 300-token prompt past the sliding-window ring (window 16, ring
+    capacity 144 at max_len 512), then three decodes: the resident and
+    the paged runner (fixed page rings) within 1e-4 of the JAX resident
+    runner at every step, the paged one bitwise the resident one (the
+    reference's `test_padded_chunk_prefill_swa_prompt_past_ring_capacity`
+    and `test_paged_swa_prompt_past_ring_capacity`)."""
+    cfg = _swa()
+    tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(2),
+                                                   cfg))
+    tcfg, tp = _tcfg(cfg), params_from_numpy(tree, _tcfg(cfg), "cpu")
+    res = ModelRunner(tcfg, tp, 512, device="cpu")
+    pag = ModelRunner(tcfg, tp, 512, paged=True, page_size=16, device="cpu")
+    jres = JaxRunner(cfg, jax.tree.map(jnp.asarray, tree), 512)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, 300)
+    _same(*(r.prefill_request(0, toks)[0] for r in (res, pag, jres)))
+    assert res.slots.cache["layers"][0]["self"]["k"].shape[1] == 144
+    for t in rng.integers(0, cfg.vocab, 3):
+        _same(*(r.decode([0], np.asarray([int(t)]))[0]
+                for r in (res, pag, jres)))
+    assert res.length(0) == pag.length(0) == 303
+
+
 # ------------------------------------------------------------- the engine
 
 @pytest.mark.parametrize("strategy", ["cosine", "specinfer"])
