@@ -89,7 +89,9 @@ wrappers), then serves the CoSine path end to end through
   phase L-paged  phase L on the paged pool (as phase C): every pool read
            on the paged kernel's latent form, streams equal phase L's;
   phase L-f32  phase L with f32 activations: the greedy streams committed
-           exactly.
+           exactly; then a `torch.profiler` window over a few of phase
+           L's iterations (the latent kernels' and the MoE layer's share
+           of the device's busy time).
 
 Before the serving phases the int8 K/V forms of kernels 1 and 2 are held
 against their plain versions (the reference's dequantized bf16 view) at
@@ -100,7 +102,9 @@ gathered view bit for bit. The latent form of both kernels (MLA's one KV
 head: Dk 576, Dv 512, G 128) is held the same way at phase L's shapes
 (decode, the tree's cache pass and segment, a T = 6 commit, a T = 512
 prefill; f32 and bf16 K/V) beside SDPA over K/V expanded to 128 heads
-(the backend it takes is printed), and its compiled shared memory
+(the backend it takes is printed), with a V of its own and with V = K's
+first 512 columns (the served case, read out of K's tile: bitwise equal
+to a clone of those columns, both timed), and its compiled shared memory
 against `kernel_smem`.
 
 Each committed stream is held against the port's own greedy reference
@@ -131,9 +135,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # f32 CUDA cores; bf16 dense; int8 dense (TOP/s), the rate of an int8
 # K/V form's bound
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
-# the SSD chunk path's products on the tensor cores: 3xTF32, each product
-# three TF32 passes at 495 TFLOP/s
+# the SSD chunk path's and the f32 latent form's products on the tensor
+# cores: 3xTF32, each product three TF32 passes at 495 TFLOP/s
 TF32X3_FLOPS = 495e12 / 3
+# the latent form's operations bound, by K/V dtype: f32 at the 3xTF32 rate
+# of the unit its products run on, bf16 at the bf16 rate
+LATENT_FLOPS = {"float32": TF32X3_FLOPS, "bfloat16": PEAK_FLOPS["bfloat16"]}
 # kernel vs plain version on the same inputs: the kernel sums keys in
 # tiles of 32 and the plain version in one block, both in f32 with K/V
 # converted exactly from their stored dtype, so the only difference is
@@ -229,10 +236,13 @@ def _graph_ms(torch, fn, reps: int = 20, rounds: int = 3) -> float:
     return t0.elapsed_time(t1) / (reps * rounds)
 
 
-def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
+def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal,
+          v_in_k=False):
     """Bytes that the function must move and operations it must do on
-    these inputs: valid (row, key) pairs only, K/V rows that hold a key
-    (Dk + Dv values each; the latent form's K and V are separate)."""
+    these inputs: valid (row, key) pairs only, K/V rows that hold a key:
+    Dk + Dv values each where V is its own tensor (GQA heads, and the
+    latent form's general case), Dk values where `v_in_k` (V is K's first
+    Dv columns, as MLA passes it)."""
     B, T, H, G, Dk = q.shape
     Dv = v.shape[-1]
     kp = k_pos if slot_idx is None else k_pos[slot_idx.long()]   # (B, S)
@@ -243,7 +253,7 @@ def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
         valid = valid & mask
     pairs = int(valid.sum()) * H * G
     rows_read = int((kp >= 0).sum())
-    kv_bytes = rows_read * H * (Dk + Dv) * k.element_size()
+    kv_bytes = rows_read * H * (Dk + (0 if v_in_k else Dv)) * k.element_size()
     other = (q.numel() * q.element_size() + kp.numel() * 4
              + q_pos.numel() * 4 + (0 if mask is None else mask.numel())
              + B * T * H * G * (Dv + 2) * 4)
@@ -251,9 +261,9 @@ def _work(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal):
     return kv_bytes + other, flops
 
 
-def _bound(nbytes, flops, dtype_name):
+def _bound(nbytes, flops, dtype_name, rate=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = flops / (rate or PEAK_FLOPS[dtype_name]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -818,18 +828,41 @@ def _sdpa_latent(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
     return _graph_ms(torch, call), backend, "; ".join(errors) or None, out
 
 
+def _latent_sums(rows):
+    """The latent rows' served case (V read out of K's tile), summed over
+    the shapes as the `kernels` line sums the general case, and the
+    general case's bound with the operations at the K/V dtype's peak
+    (67 TFLOP/s for f32 on the CUDA cores: the basis of the bound before
+    the form's products moved to the tensor cores)."""
+    t_bytes = sum(r["v_in_k_bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(r["ops_ms"] for r in rows)
+    return dict(v_in_k_ms=sum(r["v_in_k_ms"] for r in rows),
+                v_in_k_cloned_ms=sum(r["v_in_k_cloned_ms"] for r in rows),
+                v_in_k_bound_ms=max(t_bytes, t_ops),
+                v_in_k_bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms_dtype_peak=max(
+                    sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3,
+                    sum(r["ops_ms_dtype_peak"] for r in rows)))
+
+
 def mla_kernel_phase(torch, fa, pa):
     """Kernel 1's and the paged kernel's latent form at phase L's shapes
     (decode, the tree's cache pass and its masked segment, a T = 6
-    commit, a T = 512 prefill; S up to 1024), f32 and bf16 K/V: each
-    within KERNEL_TOL of its plain version on a slot pool of 9 rows read
-    through scrambled slot indices (`MLA_SLOTS`), the
-    paged form bit for bit kernel 1's on the gathered view; CUDA-graph
-    times beside the bound (latent K/V bytes, 576 + 512 values a key held,
-    read once, and q over 3.35 TB/s against the operations at the unit's
-    peak) and SDPA over K/V expanded to 128 heads; shared memory of the
-    compiled latent kernels against `kernel_smem`. Returns (resident
-    rows, paged rows, shared-memory report)."""
+    commit, a T = 512 prefill; S up to 1024), f32 and bf16 K/V, each
+    twice: with a `v` of its own (the general case) and with
+    `v = k[..., :Dv]`, the served case, which the kernel reads
+    out of K's tile and which must give the bits of a clone of those
+    columns (staged as a V tile of its own). Each within KERNEL_TOL of
+    its plain version on a slot pool of 9 rows read through scrambled
+    slot indices (`MLA_SLOTS`), the paged form bit for bit kernel 1's on
+    the gathered view; CUDA-graph times beside the bound (latent K/V
+    bytes — 576 + 512 values a held key, or 576 where V is read out of
+    K — read once, and q over 3.35 TB/s against the operations at the
+    peak of the unit they run on, `LATENT_FLOPS`; the K/V dtype's peak
+    beside it, `ops_ms_dtype_peak`) and SDPA over K/V expanded to 128
+    heads; shared memory of the compiled latent kernels against
+    `kernel_smem`. Returns (resident rows, paged rows, shared-memory
+    report)."""
     import ctypes
     from repro_torch.kernels.build import SMEM_LIMIT
     gen = torch.Generator(device="cuda")
@@ -842,6 +875,30 @@ def mla_kernel_phase(torch, fa, pa):
     depth = torch.tensor(TREE_DEPTH, dtype=torch.int32, device="cuda")
     seg_pos = (cur[:, None] + depth[None]).to(torch.int32).contiguous()
     res_rows, pag_rows = [], []
+
+    def served(name, call, plain, args, kw):
+        """The served case of one shape: `call` with v = K's first Dv
+        columns against its plain version and, bit for bit, against a
+        clone of those columns; returns (max |err|, partials, ms, cloned
+        ms)."""
+        k = args[1]
+        va = k[..., :Dv]
+        if not fa.v_in_k(k, va):
+            fail(f"latent {name}: k[..., :Dv] is not seen as V in K")
+        aargs = args[:2] + (va,) + args[3:]
+        cargs = args[:2] + (va.clone(),) + args[3:]
+        got = call(*aargs, **kw)
+        cloned = call(*cargs, **kw)
+        want = plain(*aargs, block=kt, **kw)
+        torch.cuda.synchronize()
+        err = _check_partials(torch, fa, f"latent v_in_k {name}", got, want)
+        if not all(torch.equal(a, b) for a, b in zip(got, cloned)):
+            fail(f"latent {name}: V read out of K's tile is not bitwise V "
+                 "staged from a clone of the same columns")
+        ms = _graph_ms(torch, lambda: call(*aargs, **kw))
+        cms = _graph_ms(torch, lambda: call(*cargs, **kw))
+        return err, got, ms, cms
+
     for dtype in (torch.float32, torch.bfloat16):
         dn = "f32" if dtype == torch.float32 else "bf16"
         kv_type = "float32" if dtype == torch.float32 else "bfloat16"
@@ -887,18 +944,29 @@ def mla_kernel_phase(torch, fa, pa):
                 (sdpa_out - fa.finalize(got)).abs().max()))
             del sdpa_out
             nbytes, flops = _work(torch, *args, sidx, mask, True)
-            bound, by = _bound(nbytes, flops, kv_type)
+            rate = LATENT_FLOPS[kv_type]
+            bound, by = _bound(nbytes, flops, kv_type, rate)
+            aerr, _, ams, cms = served(name, fa.attend_partial,
+                                       fa.attend_partial_plain, args, kw)
+            anb, _ = _work(torch, *args, sidx, mask, True, v_in_k=True)
+            abound, aby = _bound(anb, flops, kv_type, rate)
             res_rows.append(dict(
-                name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                sdpa_backend=backend, sdpa_error=sdpa_err,
+                name=name, max_abs_err=max(err, aerr), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, sdpa_backend=backend, sdpa_error=sdpa_err,
                 sdpa_max_abs_diff=sdpa_diff, bytes=nbytes, flops=flops,
-                dtype=kv_type,
+                dtype=kv_type, ops_ms=flops / rate * 1e3,
+                ops_ms_dtype_peak=flops / PEAK_FLOPS[kv_type] * 1e3,
+                v_in_k_ms=ams, v_in_k_cloned_ms=cms, v_in_k_bound_ms=abound,
+                v_in_k_bound_by=aby, v_in_k_bytes=anb,
                 splits=fa.plan_splits(B, 1, T * G, kk.shape[1], True)))
             print(f"kernel latent {name}: splits {res_rows[-1]['splits']}  "
-                  f"max|err| {err:.2e}  kernel {ms:.4f} ms  plain "
-                  f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
-                  f"({backend}) "
+                  f"max|err| {err:.2e} (v in k {aerr:.2e})  kernel "
+                  f"{ms:.4f} ms, v in k {ams:.4f} (cloned {cms:.4f})  plain "
+                  f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by}), v in k "
+                  f"{abound:.4f} ({aby}), ops at the K/V dtype's peak "
+                  f"{res_rows[-1]['ops_ms_dtype_peak']:.4f}  "
+                  f"sdpa ({backend}) "
                   + (f"{lib_ms:.4f} ms, |sdpa - kernel| {sdpa_diff:.2e}"
                      if lib_ms is not None else f"refused: {sdpa_err}"),
                   flush=True)
@@ -913,12 +981,19 @@ def mla_kernel_phase(torch, fa, pa):
             pgot = pa.paged_attend_partial(*pargs, **pkw)
             pwant = pa.paged_attend_partial_plain(*pargs, block=kt, **pkw)
             g = pa.gather_view
-            k1_args = (q, g(pk, tbl), g(pv, tbl), q_pos, g(ppos, tbl))
+            gk = g(pk, tbl)
+            k1_args = (q, gk, g(pv, tbl), q_pos, g(ppos, tbl))
             k1 = fa.attend_partial(*k1_args, **pkw)
+            k1a = fa.attend_partial(q, gk, gk[..., :Dv], *k1_args[3:], **pkw)
             torch.cuda.synchronize()
             perr = _check_partials(torch, fa, f"latent paged {name}", pgot,
                                    pwant)
             vs_k1 = max(float((a - b).abs().max()) for a, b in zip(pgot, k1))
+            paerr, pagot, pams, pcms = served(
+                f"paged {name}", pa.paged_attend_partial,
+                pa.paged_attend_partial_plain, pargs, pkw)
+            vs_k1 = max(vs_k1, max(float((a - b).abs().max())
+                                   for a, b in zip(pagot, k1a)))
             pms = _graph_ms(torch, lambda: pa.paged_attend_partial(
                 *pargs, **pkw))
             pplain = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
@@ -929,21 +1004,32 @@ def mla_kernel_phase(torch, fa, pa):
             del pout
             nb, fl = _work(torch, *k1_args, None, None, True)
             nb += tbl.numel() * 4
-            pbound, pby = _bound(nb, fl, kv_type)
+            pbound, pby = _bound(nb, fl, kv_type, rate)
+            panb, _ = _work(torch, *k1_args, None, None, True, v_in_k=True)
+            panb += tbl.numel() * 4
+            pabound, paby = _bound(panb, fl, kv_type, rate)
             pag_rows.append(dict(
-                name=name, max_abs_err=perr, max_abs_diff_vs_kernel1=vs_k1,
-                ms=pms, plain_ms=pplain, bound_ms=pbound, bound_by=pby,
-                library_ms=plib, sdpa_backend=pbackend,
-                sdpa_error=perr_sdpa, bytes=nb, flops=fl, dtype=kv_type))
-            print(f"kernel latent paged {name}: max|err| {perr:.2e}  "
-                  f"|paged - kernel 1 on the gathered view| {vs_k1:.3g}  "
-                  f"kernel {pms:.4f} ms  plain {pplain:.4f} ms  bound "
-                  f"{pbound:.4f} ms ({pby})  sdpa ({pbackend}) "
+                name=name, max_abs_err=max(perr, paerr),
+                max_abs_diff_vs_kernel1=vs_k1, ms=pms, plain_ms=pplain,
+                bound_ms=pbound, bound_by=pby, library_ms=plib,
+                sdpa_backend=pbackend, sdpa_error=perr_sdpa, bytes=nb,
+                flops=fl, dtype=kv_type, ops_ms=fl / rate * 1e3,
+                ops_ms_dtype_peak=fl / PEAK_FLOPS[kv_type] * 1e3,
+                v_in_k_ms=pams, v_in_k_cloned_ms=pcms,
+                v_in_k_bound_ms=pabound, v_in_k_bound_by=paby,
+                v_in_k_bytes=panb))
+            print(f"kernel latent paged {name}: max|err| {perr:.2e} (v in k "
+                  f"{paerr:.2e})  |paged - kernel 1 on the gathered view| "
+                  f"{vs_k1:.3g} (both v cases)  kernel {pms:.4f} ms, v in k "
+                  f"{pams:.4f} (cloned {pcms:.4f})  plain {pplain:.4f} ms  "
+                  f"bound {pbound:.4f} ms ({pby}), v in k {pabound:.4f} "
+                  f"({paby})  sdpa ({pbackend}) "
                   + (f"{plib:.4f} ms" if plib is not None else "refused"),
                   flush=True)
             if vs_k1 != 0.0:
                 fail(f"latent paged {name}: not bitwise kernel 1's latent "
                      "form on the gathered view")
+            del gk, k1_args, k1, k1a, pk, pv
         del k, v, cases
     # shared memory of the compiled latent kernels against kernel_smem
     smem = {}
@@ -954,14 +1040,15 @@ def mla_kernel_phase(torch, fa, pa):
                 out = [ctypes.c_int() for _ in range(3)]
                 rc = f(Dk, Dv, q_bf16, kv, *(ctypes.byref(o) for o in out))
                 dyn, sta, lim = (o.value for o in out)
-                size = 4 if kv == 0 else 2
+                want = fa.kernel_smem(Dk, Dv, 4 if kv == 0 else 2,
+                                      2 if q_bf16 else 4)
                 key = f"{fn}_q{'bf16' if q_bf16 else 'f32'}_kv_{kv_name}"
                 smem[key] = dict(dynamic=dyn, static=sta, limit=lim)
-                if rc != 0 or dyn != fa.kernel_smem(Dk, Dv, size) \
-                        or dyn + sta > lim or lim != SMEM_LIMIT:
+                if rc != 0 or dyn != want or dyn + sta > lim \
+                        or lim != SMEM_LIMIT:
                     fail(f"latent shared memory {key}: rc {rc}, dynamic "
-                         f"{dyn} (kernel_smem {fa.kernel_smem(Dk, Dv, size)})"
-                         f", static {sta}, limit {lim}")
+                         f"{dyn} (kernel_smem {want}), static {sta}, limit "
+                         f"{lim}")
     print(f"latent-form shared memory (bytes): {smem}", flush=True)
     return res_rows, pag_rows, smem
 
@@ -1858,12 +1945,17 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         results.append(dict(rid=r.rid, prompt_len=len(p), matched=matched,
                             path_noise=noise, tie_tol=tie_tol, note=note,
                             teacher_forced_argmax=n_argmax,
-                            teacher_forced_max_gap=max(tf)))
+                            teacher_forced_max_gap=max(tf),
+                            iterations=r.n_iterations,
+                            accepted=r.n_accepted_total,
+                            drafted=r.n_drafted_total))
         print(f"{label} request {r.rid} (prompt {len(p)}): {matched}/"
               f"{NEW_TOKENS} tokens match the greedy reference; {note}; "
               f"teacher-forced: {n_argmax}/{NEW_TOKENS} are the target's "
               f"argmax, every token within {max(tf):.3g} of it; path "
-              f"noise {noise:.3g}", flush=True)
+              f"noise {noise:.3g}; {r.n_iterations} iterations, "
+              f"{r.n_accepted_total} tokens committed of "
+              f"{r.n_drafted_total} drafted", flush=True)
 
     summary = dict(
         phase=label, requests=len(prompts), new_tokens=NEW_TOKENS,
@@ -2135,6 +2227,111 @@ def profile_async_window(torch, target, drafters, prompts, warm=4, steps=6):
     return out
 
 
+MOE_RANGE = "chip_smoke: moe layer"
+
+
+def range_device_us(events, range_name):
+    """Device time of the kernels launched inside the host ranges named
+    `range_name`. The profiler links each device kernel by its
+    correlation id to the one host operation that launched it (that
+    operation's `kernels`); an operation counts when it starts inside
+    such a range on the range's own thread. Returns (ranges, device us
+    launched inside them, device us linked to any host operation)."""
+    from torch.autograd import DeviceType
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [(e.thread, e.time_range.start, e.time_range.end)
+              for e in host if e.name == range_name]
+    inside = linked = 0.0
+    for e in host:
+        t = sum(k.duration for k in e.kernels)
+        if not t:
+            continue
+        linked += t
+        if any(th == e.thread and a <= e.time_range.start < b
+               for th, a, b in ranges):
+            inside += t
+    return len(ranges), inside, linked
+
+
+def profile_latent_window(torch, target, drafters, prompts, warm=3,
+                          steps=5):
+    """`torch.profiler` over `steps` iterations of phase L's engine (after
+    `warm` unprofiled ones; simulated backend, resident pool): the
+    device's busy time in the window (the union of its operations), the
+    device time of the latent kernels (kernels 1 and 2's
+    `latent_kernel`), and that of the MoE layer (the kernels launched
+    inside the `apply_moe` calls, each wrapped in a `record_function`
+    range: `range_device_us`), each as a share of the busy time and of
+    the window, with the share of the device time that the profiler
+    linked to a host operation at all. Returns a summary dict."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as moe_mod
+
+    eng = make_engine(target, drafters)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    orig = moe_mod.apply_moe
+
+    def traced(*a, **kw):
+        with record_function(MOE_RANGE):
+            return orig(*a, **kw)
+
+    moe_mod.apply_moe = traced
+    try:
+        for _ in range(warm):
+            eng.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        moe_mod.apply_moe = orig
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name != MOE_RANGE]
+    if not dev:
+        print("phase L profiler: torch.profiler recorded no device "
+              "activity; device shares not measured", flush=True)
+        return dict(profiler="no device activity recorded")
+    busy = sum(b - a for a, b in _merge(
+        [(e.time_range.start, e.time_range.end) for e in dev])) / 1e3
+    latent = [e for e in dev if "latent_kernel" in e.name]
+    latent_ms = sum(e.time_range.end - e.time_range.start
+                    for e in latent) / 1e3
+    dev_ms = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
+    moe_calls, moe_us, linked_us = range_device_us(prof.events(), MOE_RANGE)
+    if not linked_us:
+        print("phase L profiler: no device kernel was linked to a host "
+              "operation; the MoE layer's share not measured", flush=True)
+        return dict(profiler="no kernel linked to a host operation",
+                    device_busy_ms=busy, latent_device_ms=latent_ms)
+    moe_ms = moe_us / 1e3
+    out = dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
+               device_busy_share=busy / window_ms,
+               latent_launches=len(latent), latent_device_ms=latent_ms,
+               latent_share_of_busy=latent_ms / busy,
+               latent_share_of_window=latent_ms / window_ms,
+               moe_layer_calls=moe_calls, moe_device_ms=moe_ms,
+               moe_share_of_busy=moe_ms / busy,
+               moe_share_of_window=moe_ms / window_ms,
+               device_op_ms=dev_ms, linked_share=linked_us / 1e3 / dev_ms)
+    print(f"phase L profiler: {steps} iterations in {window_ms:.1f} ms, the "
+          f"device busy {busy:.2f} ms ({busy / window_ms:.1%}); latent "
+          f"kernels {len(latent)} launches, {latent_ms:.3f} ms "
+          f"({latent_ms / busy:.1%} of busy, {latent_ms / window_ms:.1%} of "
+          f"the window); MoE layer {moe_calls} calls, kernels launched "
+          f"inside them {moe_ms:.3f} ms ({moe_ms / busy:.1%} of busy, "
+          f"{moe_ms / window_ms:.1%} of the window); "
+          f"{out['linked_share']:.1%} of the {dev_ms:.2f} ms of device "
+          "operations linked to a host operation", flush=True)
+    return out
+
+
 def observe_pools(eng, label="phase C"):
     """Phases C and G: peak pages held by each model's pool, and pages
     held and fragmentation when the first request completes (all four
@@ -2355,6 +2552,10 @@ def deepseek_phases(torch, M, attn, cfg, run, references, make_prompts, err,
                                   pairs=r["router_pairs"])
                              for p, r in zip(lprompts, lrefs)]
     sum_l["weights_gb"] = weights_gb
+    # where L's device time goes: the latent kernels and the MoE layer
+    sum_l["profile"] = profile_latent_window(
+        torch, (lcfg, lparams), [(lcfg, lparams, f"l{i}") for i in range(2)],
+        lprompts)
     del lparams, lp, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -2701,9 +2902,11 @@ def main() -> int:
                  yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows)),
              "flash_attention_partial_mla": dict(
                  smem=mla_smem, sdpa_backends=sorted(
-                     {r["sdpa_backend"] for r in fam_rows})),
-             "paged_flash_decode_mla": dict(sdpa_backends=sorted(
-                 {r["sdpa_backend"] for r in pam_rows}))}
+                     {r["sdpa_backend"] for r in fam_rows}),
+                 **_latent_sums(fam_rows)),
+             "paged_flash_decode_mla": dict(
+                 sdpa_backends=sorted({r["sdpa_backend"] for r in pam_rows}),
+                 **_latent_sums(pam_rows))}
     # why a kernel has no library call (library_ms null)
     no_library = {
         "ssd_scan_pallas": "no PyTorch call computes the scan",
@@ -2723,8 +2926,8 @@ def main() -> int:
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]
         t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S * 1e3
-        # (the SSD rows count their tensor-core operations at that unit's
-        # rate: `ops_ms`)
+        # (the SSD and latent rows count their operations at the rate of
+        # the unit they run on: `ops_ms`)
         t_ops = sum(r.get("ops_ms", r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3)
                     for r in rows)
         kernels.append(dict(

@@ -12,31 +12,25 @@
 // window) and by an optional bool mask; a masked key scores NEG_INF =
 // -1e30 and contributes p = 0, so a fully masked row leaves l = 0.
 //
-// Two forms share the body, fixed by the head widths (Dk, Dv):
-//   * Dk == Dv in {16, 32, 64, 128}: GQA heads (f32, bf16 or int8 K/V).
-//   * Dk != Dv, the latent form: MLA's absorbed attention (DeepSeek-V3:
+// Two kernels share the key addressing, the split and the merge, chosen
+// by the head widths (Dk, Dv):
+//   * `partial_kernel`, Dk == Dv in {16, 32, 64, 128}: GQA heads (f32,
+//     bf16 or int8 K/V). Described below.
+//   * `latent_kernel`, Dk != Dv: MLA's absorbed attention (DeepSeek-V3:
 //     one KV head holding c_kv ++ k_pe, Dk = 512 + 64 = 576, Dv = 512,
 //     all 128 query heads folded onto it as G = 128 rows a token), and a
-//     tiny pair (40, 32) for tests; f32 or bf16 K/V. Its tiles are 16
-//     keys (a double-buffered f32 tile of 576 + 512 values a key is
-//     136 KB; 32 keys would be 272 KB, above a block's 227 KB), 16
-//     threads share a query row at Dk > 128 (each keeps a 36-value q
-//     strip and a 32-value acc strip in registers), and a cluster splits
-//     keys over at most 8 blocks (a portable cluster: one such block
-//     fills an SM's shared memory). K and V are staged separately: the
-//     kernel reads `v` as given, although MLA writes V as the first 512
-//     columns of K.
+//     tiny pair (40, 32) for tests; f32 or bf16 K/V and q. 64 query rows
+//     a block share each key tile, V is read out of K's tile when `v` is
+//     K's first Dv columns, and both products run on tensor cores: see
+//     the comment above `latent_kernel`.
 //
-// What bounds it on the H100: at decode, verification's cache pass and
-// commit (a handful of query rows per KV head) it reads each K/V byte of
-// the keys a request holds once for a few rows: bound by those bytes over
-// 3.35 TB/s, a few microseconds, so latency decides — how many blocks
-// share the keys and how many round trips to HBM each block waits for.
-// Only the 512-row prefill has enough rows per key to approach the f32
-// FMA rate. The latent form has 128 rows a token on its one KV head: at
-// decode each of a token's 8 row tiles reads the request's whole latent
-// cache (about 8x the bytes bound; sharing a tile over all 128 heads is
-// ROADMAP queue 2's latent-form entry).
+// What bounds the GQA form on the H100: at decode, verification's cache
+// pass and commit (a handful of query rows per KV head) it reads each K/V
+// byte of the keys a request holds once for a few rows: bound by those
+// bytes over 3.35 TB/s, a few microseconds, so latency decides — how many
+// blocks share the keys and how many round trips to HBM each block waits
+// for. Only the 512-row prefill has enough rows per key to approach the
+// f32 FMA rate.
 //
 // What the design does about it:
 //   * Split-K (flash-decoding). A cluster of `n_split` blocks owns
@@ -81,9 +75,9 @@
 //     16 rows of a block and was 2-3.7x slower on the H100.) The scale is
 //     not folded into the dot product ((q . k8) * scale), which would be
 //     another function.
-//   * f32 on CUDA cores. TPR threads (8, or 16 at Dk > 128) share a query
-//     row; each keeps its strip of Dk/TPR of q in registers and scores
-//     every key of a tile over that strip (one shared-memory read per
+//   * f32 on CUDA cores. TPR = 8 threads share a query row; each keeps
+//     its strip of Dk/TPR of q in registers and scores every key of a
+//     tile over that strip (one shared-memory read per
 //     FMA, broadcast to the warp's rows), then a fixed butterfly over the
 //     row's lanes hands each lane the full dot products of KT/TPR keys.
 //     Strips are interleaved in chunks of up to 16 bytes (lane + TPR c),
@@ -113,20 +107,20 @@ namespace attn_partial {
 
 namespace cg = cooperative_groups;
 
-constexpr int ROWS = 16;            // query rows per block
+constexpr int ROWS = 16;            // query rows per block (GQA form)
 constexpr int META = 3;             // tiles of key metadata in flight
 constexpr float NEG_INF = -1e30f;
 
-// The tiling of the form for head widths (DK, DV): see the top of the
+// The tiling of the GQA form for head widths (D, D): see the top of the
 // file. `ops.py::tiling` mirrors KT and MAX_SPLIT.
 template <int DK, int DV>
 struct Form {
-  static constexpr bool LATENT = DK != DV;
-  static constexpr int KT = LATENT ? 16 : 32;        // keys per tile
-  static constexpr int TPR = DK > 128 ? 16 : 8;      // threads per row
+  static_assert(DK == DV, "the Dk != Dv form is LatentForm");
+  static constexpr int KT = 32;                      // keys per tile
+  static constexpr int TPR = 8;                      // threads per row
   static constexpr int THREADS = ROWS * TPR;
   static constexpr int KPT = KT / TPR;               // keys per lane
-  static constexpr int MAX_SPLIT = LATENT ? 8 : 16;  // blocks a cluster
+  static constexpr int MAX_SPLIT = 16;               // blocks a cluster
   static_assert(KT % TPR == 0 && KT % 4 == 0 && 32 % TPR == 0, "tiling");
 };
 
@@ -168,6 +162,9 @@ struct Params {
   float scale;
   int causal;
   int window;
+  int v_in_k;                  // latent form: v is K's first Dv columns
+                               // (same base and strides): V is read out
+                               // of K's tile (`ops.py::v_in_k`)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -696,23 +693,898 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
 }
 
+// =====================================================================
+// The latent form (Dk != Dv): MLA's absorbed attention
+// =====================================================================
+//
+// One KV head holds c_kv ++ k_pe (Dk = 576 at DeepSeek-V3's widths) and
+// every query head reads it: a token is G = 128 query rows over the same
+// keys, and V is c_kv, the first Dv = 512 columns of K (the model passes
+// `v = k[..., :Dv]`). The function is the GQA form's: partials (m, l,
+// acc) over the given k and v, under the same masks, split and merge.
+//
+// What bounds it on the H100. Per key a request holds, K is 576 values
+// and each of a token's 128 rows does 2 x (576 + 512) operations on it:
+// about 120 operations a byte at f32, 240 at bf16, so decode,
+// verification and commit (1-10 tokens) are bound by the latent bytes
+// only if a tile is read once for all of a token's rows, and the T = 512
+// prefill by the operations. A first design (16 rows a block, K and V
+// staged separately, scalar f32 FMAs on CUDA cores, one shared-memory read
+// per 1-4 FMAs) read the cache 8 times a token at decode and ran at 9-73x
+// its bound, slower than SDPA at the prefill. This one is bound, per
+// 16-key tile, by its tensor-core products and the arithmetic that feeds
+// them: a 64-row f32 tile issues 3264 `mma.sync` (1088 products, three
+// TF32 passes each), and the TF32 splits of its operands share their
+// issue slots; a bf16 tile issues 1088 bf16 `mma.sync`, and its copies'
+// issue, the softmax and four block barriers weigh as much as the
+// products. At decode the cluster merge and the q load add to a few
+// tiles on the critical path.
+//
+// What this design does about it:
+//   * 64 rows share a tile. A block owns 64 query rows (half a token's
+//     heads at G = 128) and stages each 16-key tile of K once for all of
+//     them, so decode reads each held key twice per (request, split), and
+//     the T = 10 cache pass and the T = 6 commit walk the cache with 20
+//     and 12 row tiles a request, not 80 and 48. q (64 x 576) is staged
+//     once per block in shared memory, in its own dtype. The f32 budget
+//     decides the shape: q 148,480 B + two 16-key K tiles 74,240 + the
+//     score tiles 8,192 + static ~1.4 KB fit the 232,448 B of a block;
+//     128 rows or 32-key tiles would not. One block an SM, 16 warps.
+//   * V out of K's tile. When `v_in_k` (same base and strides, Dv <= Dk:
+//     `ops.py::v_in_k`), only K is copied, double-buffered, and P·V reads
+//     its first Dv columns: half the bytes of a K and a V tile. A `v` that
+//     is not K's (a snapshot, a gathered view, random inputs) is staged in
+//     the second buffer instead, single-buffered beside a single K buffer:
+//     K(i + 1) is copied while P·V(i) runs and V(i + 1) while Q·Kᵀ(i + 1)
+//     runs. The arithmetic reads the same values in the same order either
+//     way, so aliased and non-aliased inputs that hold the same values give
+//     bitwise equal partials.
+//   * Tensor cores, `mma.sync` with f32 accumulation. f32 K/V:
+//     m16n8k8 TF32; an f32 operand is split into a TF32 high part and its
+//     residual by one bit mask and a product is taken as hi·hi + lo·hi +
+//     hi·lo (3xTF32, to about 2^-19, as `ssd_scan.cu`; bf16 q is exact in
+//     TF32, so its residual product is skipped). bf16 K/V: m16n8k16 bf16
+//     at twice the depth; K and V are exact, f32 q and P are split into
+//     two bf16 halves (about 2^-17), so each product is two; V's
+//     fragments come transposed from `ldmatrix`. Why not `wgmma`: TF32
+//     `wgmma` needs both operands K-major, V stored key-major is not
+//     K-major for P·V, and 3xTF32 would need split copies of q and K in
+//     shared memory, which the f32 budget above has no room for; the
+//     bf16 products are left to ROADMAP 2d. `mma.sync` loads fragments
+//     from registers in any layout and takes the tiny pair's k = 40 (five
+//     8-deep TF32 steps; bf16 pads q and K with zeros to 48).
+//     Warp layout: Q·Kᵀ gives warp w the 16 rows 16 (w % 4) and all 16
+//     keys over a quarter of the k-steps (w / 4); quarters 2 and 3 store
+//     their sums to the two score tiles, then quarters 0 and 1 add theirs
+//     (S = (q0 + q2) + (q1 + q3), a fixed order). Softmax runs on 8
+//     threads a row. P·V gives warp w 32 rows and 64 columns (Dv 512), so
+//     each V fragment serves two row tiles (64 accumulator registers a
+//     thread; no spill at f32).
+//   * Conflict-free fragments at one address register. Staged rows are
+//     padded to 16 bytes past a multiple of 128 (32 for f32 q read in
+//     pairs), so every fragment load of a warp (q and K along k, V down a
+//     column at keys 2t and 2t + 1, where P's k order is permuted so that
+//     a thread's two P values sit side by side; `ldmatrix`'s 8 rows)
+//     touches distinct banks at a fixed offset from one base.
+//   * Bulk copies. q and each K or V tile are staged by `cp.async.bulk`,
+//     one key row a warp, completing on an mbarrier per buffer, in place
+//     of 2304 16-byte `cp.async` copies a tile whose issue every warp
+//     waited on.
+//   * Everything else is the GQA form's: the split plan from the grid
+//     alone, the cluster merge through distributed shared memory (each
+//     row's fold factors computed once), tiles with no live key for the
+//     block's rows neither copied nor computed (and passed with one
+//     barrier), metadata two tiles ahead, softmax, masks and NEG_INF as
+//     before (a fully masked row keeps l = 0).
+//
+// What is left (ROADMAP 2d): `wgmma` for the bf16 products, a leaner f32
+// path, and dropping the MLA cache's "v" leaf.
+
+// The latent form's tiling (`ops.py::tiling` mirrors KT, MAX_SPLIT and
+// ROWS).
+template <int DK, int DV>
+struct LatentForm {
+  static constexpr int ROWS = 64;                 // query rows per block
+  static constexpr int KT = 16;                   // keys per tile
+  static constexpr int WARPS = 16;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MAX_SPLIT = 8;             // blocks a cluster
+  static constexpr int KSTEPS = DK / 8;           // 8-deep steps of Q·Kᵀ
+  static constexpr int KQ = (KSTEPS + 3) / 4;     // Q·Kᵀ: steps a k-quarter
+  static constexpr int MR = DV % 64 == 0 ? 2 : 1; // P·V: 16-row tiles a warp
+  static constexpr int RG = ROWS / 16 / MR;       // P·V: row groups
+  static constexpr int CG = WARPS / RG;           // P·V: column groups
+  static constexpr int VN = DV / CG / 8;          // P·V: 8-wide n-tiles
+  static constexpr int SPT = THREADS / ROWS;      // softmax threads a row
+  static_assert(DK % 8 == 0 && DV % (8 * CG) == 0 && DV < DK,
+                "latent widths");
+  static_assert(KT % SPT == 0 && SPT <= 32, "softmax lanes");
+};
+
+// Row pitch, in elements of T, of a staged row of d values: padded so
+// that a row is SKEW bytes past a multiple of 128 (32 banks). SKEW 16 puts
+// the 8 rows of a 4-byte fragment load 4 banks apart and the rows 2t and
+// 2t + 1 of a V fragment 8 apart, and gives `ldmatrix` 8 rows in distinct
+// banks; SKEW 32 puts the rows of an 8-byte load (f32 q in bf16 pairs) 8
+// banks apart. Every fragment load is conflict-free and is one base
+// register plus an immediate offset.
+template <typename T, int SKEW = 16>
+__host__ __device__ constexpr int latent_pitch(int d) {
+  return d +
+         ((SKEW - d * int(sizeof(T))) % 128 + 128) % 128 / int(sizeof(T));
+}
+// Staged row widths: bf16 K is read 16 values a step (`mma` m16n8k16),
+// so its rows and q's are padded with zeros to a multiple of 16
+template <int DK, typename KVT>
+__host__ __device__ constexpr int latent_dk() {
+  return std::is_same<KVT, __nv_bfloat16>::value ? (DK + 15) / 16 * 16 : DK;
+}
+template <int DK, typename QT, typename KVT>
+__host__ __device__ constexpr int latent_q_pitch() {
+  return latent_pitch<QT, std::is_same<KVT, __nv_bfloat16>::value &&
+                                  std::is_same<QT, float>::value
+                              ? 32
+                              : 16>(latent_dk<DK, KVT>());
+}
+
+// Dynamic shared memory of a latent block: q, two tile buffers, the two
+// partial score tiles (then P); at least the merge's (ROWS, DV) f32 rows
+// and fold factors, which reuse it after the key loop.
+// `ops.py::kernel_smem` mirrors it.
+template <int DK, int DV, typename QT, typename KVT>
+struct LatentSmem {
+  using F = LatentForm<DK, DV>;
+  static constexpr int Q =
+      F::ROWS * latent_q_pitch<DK, QT, KVT>() * int(sizeof(QT));
+  static constexpr int KV = 2 * F::KT *
+                            latent_pitch<KVT>(latent_dk<DK, KVT>()) *
+                            int(sizeof(KVT));
+  static constexpr int SP = 2 * F::ROWS * F::KT * 4;
+  // the merge: each block's (ROWS, DV) f32 rows, then each row's factors
+  // of the fold over ranks
+  static constexpr int MERGE = F::ROWS * DV * 4 + F::ROWS * F::MAX_SPLIT * 8;
+  static constexpr int BYTES = Q + KV + SP > MERGE ? Q + KV + SP : MERGE;
+};
+
+// a staged value as the bits of an f32 (bf16: exact, in the high half)
+__device__ __forceinline__ uint32_t ld_bits(const float* p) {
+  return __float_as_uint(*p);
+}
+__device__ __forceinline__ uint32_t ld_bits(const __nv_bfloat16* p) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p)) << 16;
+}
+
+// v = hi + lo in TF32: hi is v with the 13 low mantissa bits cleared
+// (a bit mask, not `cvt.rna.tf32`: the conversion unit's rate), lo the
+// exact residual v - hi, of which the tensor core reads the top 19 bits as
+// of any TF32 operand (hi + lo carries 21 bits of v's 24, products good to
+// about 2^-19). An EXACT value (bf16) is its own high part.
+constexpr uint32_t TF32_MASK = 0xffffe000u;
+template <bool EXACT>
+__device__ __forceinline__ void tf32_split(uint32_t v, uint32_t& hi,
+                                           uint32_t& lo) {
+  if (EXACT) {
+    hi = v;
+    lo = 0u;
+  } else {
+    hi = v & TF32_MASK;
+    lo = __float_as_uint(__uint_as_float(v) - __uint_as_float(hi));
+  }
+}
+
+// d += a b, m16n8k8 TF32 with f32 accumulation. Fragments (g = lane / 4,
+// t = lane % 4): A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8,
+// t + 4); B b0 (k t, n g), b1 (k t + 4, n g); D d0 (g, 2t), d1 (g, 2t +
+// 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b, m16n8k16 bf16 with f32 accumulation. Fragments (g, t as
+// above; each register two bf16, the lower k in the low half): A a0 (g,
+// 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); B
+// b0 (k 2t..2t+1, n g), b1 (k 2t + 8.., n g); D as m16n8k8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// the B fragment of keys 0-15 of an 8-column slice of a row-major bf16
+// tile, transposed on the way: lane l names row l % 16 (`row` points at
+// that row's first column of the slice)
+__device__ __forceinline__ void ldmatrix_b(uint32_t (&b)[2],
+                                           const __nv_bfloat16* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(b[0]), "=r"(b[1])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(row))));
+}
+// two values as bf16 pairs hi + lo (an f32 pair: hi rounded to bf16, lo
+// the rounded residual, together about 2^-17 of each value; a bf16 pair:
+// itself, lo zero)
+__device__ __forceinline__ void bf16_pair(float x, float y, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h),
+                                                 y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+__device__ __forceinline__ void bf16_pair(const float* p, uint32_t& hi,
+                                          uint32_t& lo) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  bf16_pair(v.x, v.y, hi, lo);
+}
+__device__ __forceinline__ void bf16_pair(const __nv_bfloat16* p,
+                                          uint32_t& hi, uint32_t& lo) {
+  hi = *reinterpret_cast<const uint32_t*>(p);
+  lo = 0u;
+}
+
+// Bulk copies (the TMA engine without a tensor map): one thread copies a
+// whole row of `bytes` (a multiple of 16, both ends 16-byte aligned) into
+// shared memory and the copy completes on an mbarrier that expects the
+// tile's bytes; threads wait on the barrier's phase parity. A buffer is
+// refilled only after a block barrier that follows its last reads (no
+// generic-proxy write precedes an async write of the same bytes, so no
+// proxy fence is needed).
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int DK, int DV, typename QT, typename KVT, bool PAGED>
+__global__ void __launch_bounds__(LatentForm<DK, DV>::THREADS, 1)
+latent_kernel(const Params p) {
+  using F = LatentForm<DK, DV>;
+  using SM = LatentSmem<DK, DV, QT, KVT>;
+  constexpr int ROWS = F::ROWS, KT = F::KT, THREADS = F::THREADS;
+  constexpr int KSTEPS = F::KSTEPS, VN = F::VN, MAX_SPLIT = F::MAX_SPLIT;
+  constexpr bool QEX = std::is_same<QT, __nv_bfloat16>::value;
+  constexpr bool KEX = std::is_same<KVT, __nv_bfloat16>::value;
+  constexpr int DKS = latent_dk<DK, KVT>();       // staged K width
+  constexpr int QP = latent_q_pitch<DK, QT, KVT>();   // q row pitch
+  constexpr int KP = latent_pitch<KVT>(DKS);      // K row pitch
+  constexpr int VP = latent_pitch<KVT>(DV);       // V row pitch (own tile)
+
+  extern __shared__ __align__(16) uint8_t lsm[];
+  QT* q_s = reinterpret_cast<QT*>(lsm);                        // [ROWS][QP]
+  KVT* buf_s = reinterpret_cast<KVT*>(lsm + SM::Q);           // [2][KT][KP]
+  float* sp_s = reinterpret_cast<float*>(lsm + SM::Q + SM::KV);
+  // sp_s: [2][ROWS][KT] partial scores of the two k-halves; P in half 0
+  __shared__ int32_t kpos_s[META][KT];
+  __shared__ int32_t ktile_s[META];                   // tile_of(i)
+  __shared__ int32_t kpage_s[PAGED ? META : 1][KT];   // paged: the key's
+  __shared__ int32_t krow_s[PAGED ? META : 1][KT];    // page and its row
+  __shared__ float corr_s[ROWS];
+  __shared__ float mrg_m[ROWS], mrg_l[ROWS];
+  __shared__ __align__(8) uint64_t bar_s[3];   // tile buffers 0, 1; q
+
+  const int R = p.T * p.G;
+  const int rank = blockIdx.x % p.n_split;
+  const int r0 = (blockIdx.x / p.n_split) * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;        // fragment coordinates
+  const int rg = warp & 3;                        // Q·Kᵀ: its 16 rows
+  const int kq = warp >> 2;                       // Q·Kᵀ: its k-quarter
+  constexpr int MR = F::MR, RG = F::RG, CG = F::CG;
+  const int prow = 16 * MR * (warp % RG);         // P·V: its 16 MR rows
+  const int pcol = (warp / RG) * (DV / CG);       // P·V: its DV / CG columns
+  const bool alias = p.v_in_k != 0;
+  const int slot = PAGED ? 0 : (p.slot_idx ? p.slot_idx[b] : b);
+  const int32_t* btab = PAGED ? p.block_table + b * p.bt_sb : nullptr;
+  const int32_t* kp = p.k_pos + (PAGED ? 0 : slot * p.kpos_sp);
+  const KVT* kb = static_cast<const KVT*>(p.k) + h * p.k_sh +
+                  (PAGED ? 0 : slot * p.k_sp);
+  const KVT* vb = static_cast<const KVT*>(p.v) + h * p.v_sh +
+                  (PAGED ? 0 : slot * p.v_sp);
+
+  // this block's tiles: spans rank, rank + n_split, ... of span_tiles
+  // tiles (as partial_kernel)
+  const int n_tiles = (p.S + KT - 1) / KT;
+  const int span = p.span_tiles;
+  int nt = 0;
+  for (int j = rank; j * span < n_tiles; j += p.n_split)
+    nt += min(span, n_tiles - j * span);
+  auto tile_of = [&](int i) {
+    return (rank + p.n_split * (i / span)) * span + i % span;
+  };
+
+  // softmax: SPT threads a row, KT / SPT keys of a tile each
+  constexpr int SPT = F::SPT, SKEYS = KT / SPT;
+  const int srow = tid / SPT, sq = tid % SPT;
+  const int sr = r0 + srow;
+  const bool srow_ok = sr < R;
+  const int st = srow_ok ? sr / p.G : 0;
+  const int qpos = srow_ok ? p.q_pos[b * p.qpos_sb + st] : 0;
+  const uint8_t* mrow =
+      (p.mask != nullptr && srow_ok) ? p.mask + b * p.mask_sb + st * p.mask_st
+                                     : nullptr;
+
+  // warp 0 tests tiles for live keys: the block's query-position range
+  int qmin = 2147483647, qmax = -2147483647 - 1;
+  if (warp == 0) {
+#pragma unroll
+    for (int rr = lane; rr < ROWS; rr += 32) {
+      if (r0 + rr < R) {
+        const int qp = p.q_pos[b * p.qpos_sb + (r0 + rr) / p.G];
+        qmin = min(qmin, qp);
+        qmax = max(qmax, qp);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+      qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+    }
+  }
+  auto live_key = [&](int32_t kpos) {
+    return kpos >= 0 && (!p.causal || kpos <= qmax) &&
+           (p.window <= 0 || qmin - kpos < p.window);
+  };
+
+  // key metadata of tile i, for thread tid < KT (as partial_kernel)
+  auto block_page = [&](int i) -> int32_t {
+    const int s = tile_of(i) * KT + tid;
+    return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
+  };
+  auto load_meta = [&](int i, int32_t page) -> KeyMeta {
+    KeyMeta km{-1, 0, 0, 0.f, 0.f};
+    const int s = tile_of(i) * KT + tid;
+    if (i < nt && s < p.S)
+      km.pos = PAGED ? kp[page * p.kpos_sp + s % p.page_size] : kp[s];
+    return km;
+  };
+  auto store_meta = [&](int i, int32_t page, const KeyMeta& km) {
+    kpos_s[i % META][tid] = km.pos;
+    if (tid == 0) ktile_s[i % META] = tile_of(i);
+    if constexpr (PAGED) {
+      kpage_s[i % META][tid] = page;
+      krow_s[i % META][tid] = (tile_of(i) * KT + tid) % p.page_size;
+    }
+  };
+  // bulk-copy tile i's K rows (IS_V: its V rows) into buffer `buf` on its
+  // barrier: key row j by warp j (KT == WARPS), so no warp waits long on
+  // the copy engine; rows past S are zeroed (a masked key must add
+  // exactly 0, so its V row must be finite)
+  static_assert(KT == F::WARPS, "a key row a warp");
+  auto issue_rows = [&](int i, int buf, auto is_v_c) {
+    constexpr bool is_v = decltype(is_v_c)::value;
+    constexpr int D = is_v ? DV : DK, pitch = is_v ? VP : KP;
+    constexpr uint32_t row_bytes = D * sizeof(KVT);
+    KVT* dst = buf_s + buf * KT * KP + warp * pitch;
+    const int s0 = ktile_s[i % META] * KT, s = s0 + warp;
+    if (s < p.S) {
+      if (lane == 0) {
+        int64_t off;
+        if constexpr (PAGED)
+          off = static_cast<int64_t>(kpage_s[i % META][warp]) *
+                    (is_v ? p.v_sp : p.k_sp) +
+                static_cast<int64_t>(krow_s[i % META][warp]) *
+                    (is_v ? p.v_ss : p.k_ss);
+        else
+          off = static_cast<int64_t>(s) * (is_v ? p.v_ss : p.k_ss);
+        if (warp == 0) mbar_expect(&bar_s[buf], min(KT, p.S - s0) * row_bytes);
+        bulk_copy(dst, (is_v ? vb : kb) + off, row_bytes, &bar_s[buf]);
+      }
+    } else {
+      for (int e = lane; e < D; e += 32) dst[e] = KVT(0.f);
+    }
+  };
+  uint32_t parity = 0;   // bit b: the phase parity buffer b's barrier is in
+  auto wait_buf = [&](int buf) {
+    mbar_wait(&bar_s[buf], (parity >> buf) & 1u);
+    parity ^= 1u << buf;
+  };
+
+  // O: rows prow + 16 mi + g8 (+ 8), columns pcol + 8 n + 2 t4 (+ 1)
+  float o[MR][VN][4];
+#pragma unroll
+  for (int mi = 0; mi < MR; ++mi)
+#pragma unroll
+    for (int n = 0; n < VN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.f;
+  float m_run = NEG_INF;   // the softmax threads' row state
+  float l_run = 0.f;
+
+  // prologue: the barriers, metadata of tiles 0 and 1, q and K(0)
+  if (tid == 0) {
+    mbar_init(&bar_s[0]);
+    mbar_init(&bar_s[1]);
+    mbar_init(&bar_s[2]);
+  }
+  int32_t page_next = 0;   // paged: block-table entry of tile i + 2
+  int live0 = 0, live1 = 0;
+  if (tid < KT) {
+    int32_t pg0 = 0, pg1 = 0;
+    if constexpr (PAGED) {
+      pg0 = block_page(0);
+      pg1 = block_page(1);
+      page_next = block_page(2);
+    }
+    const KeyMeta a = load_meta(0, pg0), c1 = load_meta(1, pg1);
+    store_meta(0, pg0, a);
+    store_meta(1, pg1, c1);
+    live0 = 0 < nt && live_key(a.pos);
+    live1 = 1 < nt && live_key(c1.pos);
+  }
+  if constexpr (DKS != DK) {   // the zero columns q and K are padded with
+    // (buffer 1 holds V rows, of no padding, unless V is read out of K)
+    const int rows = ROWS + (alias ? 2 : 1) * KT;
+    for (int e = tid; e < rows * (DKS - DK); e += THREADS) {
+      const int row = e / (DKS - DK), col = DK + e % (DKS - DK);
+      if (row < ROWS)
+        q_s[row * QP + col] = QT(0.f);
+      else
+        buf_s[(row - ROWS) * KP + col] = KVT(0.f);
+    }
+  }
+  int cur_live = __syncthreads_or(live0);
+  int next_live = __syncthreads_or(live1);
+  if (nt > 0) {   // q: rows 4 w .. 4 w + 3 by lanes 0-3 of warp w
+    constexpr uint32_t row_bytes = DK * sizeof(QT);
+    constexpr int RPW = ROWS / F::WARPS;
+    static_assert(ROWS % F::WARPS == 0 && RPW <= 32, "q rows a warp");
+    const int rr = warp * RPW + lane, r = r0 + rr;
+    if (tid == 0) mbar_expect(&bar_s[2], min(ROWS, R - r0) * row_bytes);
+    if (lane < RPW && r < R)
+      bulk_copy(q_s + rr * QP, static_cast<const QT*>(p.q) + b * p.q_sb +
+                                   h * p.q_sh + (r / p.G) * p.q_st +
+                                   (r % p.G) * p.q_sg,
+                row_bytes, &bar_s[2]);
+    for (int x = 0; x < RPW; ++x)
+      if (r0 + warp * RPW + x >= R)
+        for (int e = lane; e < DK; e += 32)
+          q_s[(warp * RPW + x) * QP + e] = QT(0.f);
+  }
+  if (cur_live) issue_rows(0, 0, std::false_type{});
+  if (nt > 0) mbar_wait(&bar_s[2], 0);
+  __syncthreads();   // zeroed rows (past R or S) are seen by every warp
+
+  // Q·Kᵀ: this warp's k-steps are KQ kq .. KQ kq + KQ - 1 (a quarter)
+  constexpr int KQ = F::KQ;
+  float* spw = sp_s + (kq & 1) * ROWS * KT + (16 * rg + g8) * KT + 2 * t4;
+  for (int i = 0; i < nt; ++i) {
+    // aliased: K(i + 1) into the other buffer; else V(i) into buffer 1
+    // (the barrier ending tile i - 1 freed both)
+    if (alias && next_live)
+      issue_rows(i + 1, (i + 1) & 1, std::false_type{});
+    else if (!alias && cur_live)
+      issue_rows(i, 1, std::true_type{});
+    // metadata of tile i + 2 (and the page of tile i + 3) in flight
+    KeyMeta ahead{-1, 0, 0, 0.f, 0.f};
+    const int32_t page_ahead = page_next;
+    if (tid < KT) {
+      ahead = load_meta(i + 2, page_next);
+      if constexpr (PAGED) page_next = block_page(i + 3);
+    }
+    // a tile with no live key: nothing to wait for or compute
+    if (!cur_live) {
+      if (!alias && next_live) issue_rows(i + 1, 0, std::false_type{});
+    } else {
+      const int kbuf = alias ? (i & 1) : 0;
+      wait_buf(kbuf);                                     // K(i)
+      const KVT* ks = buf_s + kbuf * KT * KP;
+      // ---- S = Q·Kᵀ over this warp's k-quarter: rows 16 rg + g8 (+ 8),
+      // keys 8 j + 2 t4 (+ 1); three sums (hi·hi, lo·hi, hi·lo). Quarters 2
+      // and 3 store theirs to the two partial tiles, then quarters 0 and 1
+      // add theirs: S = (q0 + q2) + (q1 + q3), in a fixed order.
+      float s4[2][4];
+      if constexpr (KEX) {
+        // bf16 K: m16n8k16 bf16, q in two bf16 halves (one, bf16 q)
+        constexpr int KS = DKS / 16, KQ16 = (KS + 3) / 4;
+        float d[2][2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[j][x][e] = 0.f;
+        const QT* qa = q_s + (16 * rg + g8) * QP + 16 * KQ16 * kq + 2 * t4;
+        const KVT* kr = ks + g8 * KP + 16 * KQ16 * kq + 2 * t4;
+#pragma unroll
+        for (int m = 0; m < KQ16; ++m) {
+          if (KS % 4 != 0 && KQ16 * kq + m >= KS) continue;
+          uint32_t ah[4], al[4];
+          bf16_pair(qa + 16 * m, ah[0], al[0]);
+          bf16_pair(qa + 8 * QP + 16 * m, ah[1], al[1]);
+          bf16_pair(qa + 16 * m + 8, ah[2], al[2]);
+          bf16_pair(qa + 8 * QP + 16 * m + 8, ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const KVT* kj = kr + 8 * j * KP + 16 * m;
+            const uint32_t bb[2] = {
+                *reinterpret_cast<const uint32_t*>(kj),
+                *reinterpret_cast<const uint32_t*>(kj + 8)};
+            if (!QEX) mma_bf16(d[j][1], al, bb);
+            mma_bf16(d[j][0], ah, bb);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s4[j][e] = d[j][0][e] + d[j][1][e];
+      } else {
+        float d[2][3][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int x = 0; x < 3; ++x)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d[j][x][e] = 0.f;
+        const QT* qa = q_s + (16 * rg + g8) * QP + 8 * KQ * kq + t4;
+        const KVT* kr = ks + g8 * KP + 8 * KQ * kq + t4;
+#pragma unroll
+        for (int m = 0; m < KQ; ++m) {
+          if (KSTEPS % 4 != 0 && KQ * kq + m >= KSTEPS) continue;
+          uint32_t ah[4], al[4];
+          tf32_split<QEX>(ld_bits(qa + 8 * m), ah[0], al[0]);
+          tf32_split<QEX>(ld_bits(qa + 8 * QP + 8 * m), ah[1], al[1]);
+          tf32_split<QEX>(ld_bits(qa + 8 * m + 4), ah[2], al[2]);
+          tf32_split<QEX>(ld_bits(qa + 8 * QP + 8 * m + 4), ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t bh[2], bl[2];
+            tf32_split<false>(ld_bits(kr + 8 * j * KP + 8 * m), bh[0], bl[0]);
+            tf32_split<false>(ld_bits(kr + 8 * j * KP + 8 * m + 4), bh[1],
+                              bl[1]);
+            if (!QEX) mma_tf32(d[j][1], al, bh);
+            mma_tf32(d[j][2], ah, bl);
+            mma_tf32(d[j][0], ah, bh);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s4[j][e] = d[j][0][e] + (d[j][1][e] + d[j][2][e]);
+      }
+      if (kq >= 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          *reinterpret_cast<float2*>(spw + 8 * j) =
+              make_float2(s4[j][0], s4[j][1]);
+          *reinterpret_cast<float2*>(spw + 8 * KT + 8 * j) =
+              make_float2(s4[j][2], s4[j][3]);
+        }
+      }
+      __syncthreads();
+      if (kq < 2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float2* a = reinterpret_cast<float2*>(spw + 8 * j);
+          float2* c = reinterpret_cast<float2*>(spw + 8 * KT + 8 * j);
+          const float2 x = *a, y = *c;
+          *a = make_float2(s4[j][0] + x.x, s4[j][1] + x.y);
+          *c = make_float2(s4[j][2] + y.x, s4[j][3] + y.y);
+        }
+      }
+      __syncthreads();
+      // not aliased: K(i + 1) into buffer 0 (Q·Kᵀ(i) is done with it)
+      if (!alias && next_live) issue_rows(i + 1, 0, std::false_type{});
+
+      // ---- online softmax over the tile's 16 keys (the GQA form's
+      // arithmetic); P into partial tile 0, the row's correction to corr_s
+      {
+        const int32_t* kpos_t = kpos_s[i % META];
+        const int s0 = ktile_s[i % META] * KT;
+        float* psr = sp_s + srow * KT + SKEYS * sq;
+        float sc[SKEYS];
+        bool ok[SKEYS];
+        float tmax = NEG_INF;
+#pragma unroll
+        for (int i2 = 0; i2 < SKEYS; ++i2) {
+          const int j = SKEYS * sq + i2;
+          const int kpos = kpos_t[j];
+          bool valid = srow_ok && kpos >= 0;
+          if (p.causal) valid = valid && kpos <= qpos;
+          if (p.window > 0) valid = valid && (qpos - kpos < p.window);
+          if (mrow != nullptr)
+            valid = valid && s0 + j < p.S && mrow[s0 + j] != 0;
+          sc[i2] = valid ? (psr[i2] + psr[i2 + ROWS * KT]) * p.scale : NEG_INF;
+          ok[i2] = valid;
+          tmax = fmaxf(tmax, sc[i2]);
+        }
+#pragma unroll
+        for (int off = SPT / 2; off > 0; off >>= 1)
+          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+        const float m_new = fmaxf(m_run, tmax);
+        float psum = 0.f;
+#pragma unroll
+        for (int i2 = 0; i2 < SKEYS; ++i2) {
+          const float pv = ok[i2] ? expf(sc[i2] - m_new) : 0.f;
+          psr[i2] = pv;
+          psum += pv;
+        }
+#pragma unroll
+        for (int off = SPT / 2; off > 0; off >>= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        const float corr = expf(m_run - m_new);
+        l_run = l_run * corr + psum;
+        m_run = m_new;
+        if (sq == 0) corr_s[srow] = corr;
+      }
+      if (!alias) wait_buf(1);                            // V(i)
+      __syncthreads();
+
+      // ---- O = O corr + P·V: k = t4 is key 8 j + 2 t4 and k = t4 + 4 key
+      // 8 j + 2 t4 + 1, so a thread's two P values are adjacent; each V
+      // fragment serves the warp's MR row tiles
+      {
+#pragma unroll
+        for (int mi = 0; mi < MR; ++mi) {
+          const float c0 = corr_s[prow + 16 * mi + g8];
+          const float c1 = corr_s[prow + 16 * mi + g8 + 8];
+#pragma unroll
+          for (int n = 0; n < VN; ++n) {
+            o[mi][n][0] *= c0;
+            o[mi][n][1] *= c0;
+            o[mi][n][2] *= c1;
+            o[mi][n][3] *= c1;
+          }
+        }
+        const KVT* vs = alias ? ks : buf_s + KT * KP;
+        const int vp = alias ? KP : VP;
+        if constexpr (KEX) {
+          // bf16 V: m16n8k16 bf16 over the tile's 16 keys, P in two bf16
+          // halves, V fragments transposed by `ldmatrix`
+          uint32_t ah[MR][4], al[MR][4];
+#pragma unroll
+          for (int mi = 0; mi < MR; ++mi) {
+            const float* pr = sp_s + (prow + 16 * mi + g8) * KT + 2 * t4;
+            bf16_pair(pr, ah[mi][0], al[mi][0]);
+            bf16_pair(pr + 8 * KT, ah[mi][1], al[mi][1]);
+            bf16_pair(pr + 8, ah[mi][2], al[mi][2]);
+            bf16_pair(pr + 8 * KT + 8, ah[mi][3], al[mi][3]);
+          }
+          const KVT* vrow = vs + (lane % 16) * vp + pcol;
+#pragma unroll
+          for (int n = 0; n < VN; ++n) {
+            uint32_t bb[2];
+            ldmatrix_b(bb, vrow + 8 * n);
+#pragma unroll
+            for (int mi = 0; mi < MR; ++mi) {
+              mma_bf16(o[mi][n], al[mi], bb);
+              mma_bf16(o[mi][n], ah[mi], bb);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t ah[MR][4], al[MR][4];
+#pragma unroll
+            for (int mi = 0; mi < MR; ++mi) {
+              const float* pr =
+                  sp_s + (prow + 16 * mi + g8) * KT + 8 * j + 2 * t4;
+              const float2 pa = *reinterpret_cast<const float2*>(pr);
+              const float2 pb = *reinterpret_cast<const float2*>(pr + 8 * KT);
+              tf32_split<false>(__float_as_uint(pa.x), ah[mi][0], al[mi][0]);
+              tf32_split<false>(__float_as_uint(pb.x), ah[mi][1], al[mi][1]);
+              tf32_split<false>(__float_as_uint(pa.y), ah[mi][2], al[mi][2]);
+              tf32_split<false>(__float_as_uint(pb.y), ah[mi][3], al[mi][3]);
+            }
+            const KVT* v0 = vs + (8 * j + 2 * t4) * vp + pcol + g8;
+            const KVT* v1 = v0 + vp;
+#pragma unroll
+            for (int n = 0; n < VN; ++n) {
+              uint32_t bh[2], bl[2];
+              tf32_split<false>(ld_bits(v0 + 8 * n), bh[0], bl[0]);
+              tf32_split<false>(ld_bits(v1 + 8 * n), bh[1], bl[1]);
+#pragma unroll
+              for (int mi = 0; mi < MR; ++mi) {
+                mma_tf32(o[mi][n], al[mi], bh);
+                mma_tf32(o[mi][n], ah[mi], bl);
+                mma_tf32(o[mi][n], ah[mi], bh);
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // metadata of tile i + 2 lands; every thread is done with the buffers
+    int live2 = 0;
+    if (tid < KT) {
+      store_meta(i + 2, page_ahead, ahead);
+      live2 = i + 2 < nt && live_key(ahead.pos);
+    }
+    const int l2 = __syncthreads_or(live2);
+    cur_live = next_live;
+    next_live = l2;
+  }
+
+  // this thread's output rows of O and the softmax row's (m, l)
+  auto out_row = [&](int r) -> int64_t {
+    return ((static_cast<int64_t>(b) * p.T + r / p.G) * p.H + h) * p.G +
+           r % p.G;
+  };
+  const int ocol = pcol + 2 * t4;
+  if (p.n_split == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = r0 + prow + 16 * mi + 8 * hf + g8;
+        if (r < R) {
+          float* dst = p.acc + out_row(r) * DV + ocol;
+#pragma unroll
+          for (int n = 0; n < VN; ++n)
+            *reinterpret_cast<float2*>(dst + 8 * n) =
+                make_float2(o[mi][n][2 * hf], o[mi][n][2 * hf + 1]);
+        }
+      }
+    }
+    if (sq == 0 && srow_ok) {
+      p.m[out_row(sr)] = m_run;
+      p.l[out_row(sr)] = l_run;
+    }
+    return;
+  }
+
+  // merge the cluster's n_split partials in rank order (merge_partials'
+  // arithmetic); the staging memory is free now and holds this block's O
+  // and, per row, the factors (ea, eb) of each step of the fold
+  __syncthreads();
+  float* mrg_acc = reinterpret_cast<float*>(lsm);   // [ROWS][DV]
+  float* fac = mrg_acc + ROWS * DV;                 // [ROWS][MAX_SPLIT][2]
+#pragma unroll
+  for (int mi = 0; mi < MR; ++mi) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float* dst = mrg_acc + (prow + 16 * mi + 8 * hf + g8) * DV + ocol;
+#pragma unroll
+      for (int n = 0; n < VN; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[mi][n][2 * hf], o[mi][n][2 * hf + 1]);
+    }
+  }
+  if (sq == 0) {
+    mrg_m[srow] = m_run;
+    mrg_l[srow] = l_run;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  // each row's fold over the ranks, once: m and l, and the factors that
+  // every column of the row applies
+  if (tid < ROWS && r0 + tid < R) {
+    float mq[MAX_SPLIT], lq[MAX_SPLIT];   // every remote load in flight
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q) {
+      mq[q] = q < p.n_split ? cluster.map_shared_rank(mrg_m, q)[tid] : 0.f;
+      lq[q] = q < p.n_split ? cluster.map_shared_rank(mrg_l, q)[tid] : 0.f;
+    }
+    float m_a = mq[0], l_a = lq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float mm = fmaxf(m_a, mq[q]);
+        const float ea = expf(m_a - mm), eb = expf(mq[q] - mm);
+        l_a = l_a * ea + lq[q] * eb;
+        m_a = mm;
+        fac[(tid * MAX_SPLIT + q) * 2] = ea;
+        fac[(tid * MAX_SPLIT + q) * 2 + 1] = eb;
+      }
+    }
+    if (rank == 0) {
+      p.m[out_row(r0 + tid)] = m_a;
+      p.l[out_row(r0 + tid)] = l_a;
+    }
+  }
+  __syncthreads();
+  // this rank's share of the rows' columns, four at a time
+  for (int e = rank * THREADS + tid; e < ROWS * DV / 4;
+       e += p.n_split * THREADS) {
+    const int rr = e / (DV / 4), d = 4 * (e % (DV / 4));
+    if (r0 + rr >= R) continue;
+    float4 aq[MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q)
+      aq[q] = q < p.n_split
+                  ? *reinterpret_cast<const float4*>(
+                        cluster.map_shared_rank(mrg_acc, q) + rr * DV + d)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a_a = aq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float ea = fac[(rr * MAX_SPLIT + q) * 2];
+        const float eb = fac[(rr * MAX_SPLIT + q) * 2 + 1];
+        a_a.x = a_a.x * ea + aq[q].x * eb;
+        a_a.y = a_a.y * ea + aq[q].y * eb;
+        a_a.z = a_a.z * ea + aq[q].z * eb;
+        a_a.w = a_a.w * ea + aq[q].w * eb;
+      }
+    }
+    *reinterpret_cast<float4*>(p.acc + out_row(r0 + rr) * DV + d) = a_a;
+  }
+  cluster.sync();   // no block leaves while another reads its partials
+}
+
+template <int DK, int DV, typename QT, typename KVT, bool PAGED>
+int launch_latent(const Params& p, int B, cudaStream_t stream) {
+  using F = LatentForm<DK, DV>;
+  if (p.n_split > F::MAX_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = latent_kernel<DK, DV, QT, KVT, PAGED>;
+  constexpr int smem = LatentSmem<DK, DV, QT, KVT>::BYTES;
+  static bool attr = false;   // one flag per instantiation
+  if (!attr) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    attr = true;
+  }
+  const int R = p.T * p.G;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((R + F::ROWS - 1) / F::ROWS) * p.n_split, p.H, B);
+  cfg.blockDim = dim3(F::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.n_split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = p.n_split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
+}
+
 // K/V storage: the `kv` argument of the entry points
 constexpr int KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2;
 
 template <int DK, int DV, typename QT, bool PAGED>
 int dispatch_kv(const Params& p, int B, int kv, cudaStream_t stream) {
-  switch (kv) {
-    case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
-    case KV_BF16:
-      return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
-    case KV_INT8:
-      if constexpr (DK == DV) {
+  if constexpr (DK != DV) {   // the latent form: f32 or bf16 K/V
+    switch (kv) {
+      case KV_F32:
+        return launch_latent<DK, DV, QT, float, PAGED>(p, B, stream);
+      case KV_BF16:
+        return launch_latent<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (kv) {
+      case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
+      case KV_BF16:
+        return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
+      case KV_INT8:
         if (p.k_scale == nullptr || p.v_scale == nullptr)
           return static_cast<int>(cudaErrorInvalidValue);
         return launch<DK, DV, QT, int8_t, PAGED>(p, B, stream);
-      }
-      return static_cast<int>(cudaErrorInvalidValue);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -746,9 +1618,14 @@ int dispatch(const Params& p, int B, int DK, int DV, int q_bf16, int kv,
 
 template <int DK, int DV, typename QT, typename KVT, bool PAGED>
 int smem_kv(int* dynamic, int* static_bytes, int* limit) {
-  return smem_report(partial_kernel<DK, DV, QT, KVT, PAGED>,
-                     kv_smem_bytes<DK, DV, KVT>(), dynamic, static_bytes,
-                     limit);
+  if constexpr (DK != DV)
+    return smem_report(latent_kernel<DK, DV, QT, KVT, PAGED>,
+                       LatentSmem<DK, DV, QT, KVT>::BYTES, dynamic,
+                       static_bytes, limit);
+  else
+    return smem_report(partial_kernel<DK, DV, QT, KVT, PAGED>,
+                       kv_smem_bytes<DK, DV, KVT>(), dynamic, static_bytes,
+                       limit);
 }
 
 template <int DK, int DV, typename QT, bool PAGED>

@@ -39,8 +39,11 @@
 // need P in bf16, outside the 1e-4 tolerance: ROADMAP queue 2 item 2c).
 //
 // MLA targets run its latent form (Dk = 576 != Dv = 512: the absorbed
-// query over one KV head of c_kv ++ k_pe, G = 128 rows a token; 16-key
-// tiles, see the header). The kernel body is
+// query over one KV head of c_kv ++ k_pe, G = 128 rows a token), a kernel
+// of its own in the header (`latent_kernel`): 64 query rows share each
+// 16-key tile, V is read out of K's tile when `v` is K's first 512
+// columns (`v_in_k`), and both products run on tensor cores (`mma.sync`:
+// 3xTF32 for f32 K/V, bf16 for bf16 K/V). The kernel body is
 // `../../csrc/attention_partial.cuh`, shared with the paged-pool kernel; this file instantiates it for the resident slot pool
 // and is its C entry point, which launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
@@ -58,7 +61,8 @@ extern "C" int fa_partial_launch(
     int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
     int64_t vsc_ss, int64_t vsc_sh, int64_t kpos_sp, int64_t qpos_sb,
     int64_t mask_sb, int64_t mask_st, float scale, int causal, int window,
-    int q_bf16, int kv, int n_split, int span_tiles, void* stream) {
+    int q_bf16, int kv, int n_split, int span_tiles, int v_in_k,
+    void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -104,6 +108,7 @@ extern "C" int fa_partial_launch(
   p.scale = scale;
   p.causal = causal;
   p.window = window;
+  p.v_in_k = v_in_k;
   return attn_partial::dispatch<false>(p, B, Dk, Dv, q_bf16, kv,
                                        static_cast<cudaStream_t>(stream));
 }

@@ -17,9 +17,12 @@ blocked online-softmax attention and returns the unnormalised partials
 Dk == Dv is a GQA head (16, 32, 64 or 128 wide). Dk != Dv is the latent
 form: MLA's absorbed attention, one KV head of c_kv ++ k_pe (Dk = 576,
 Dv = 512 at DeepSeek-V3's widths; (40, 32) for tests) with every query
-head folded into G. Its key tile is 16 (`tiling`): the plain version,
-`plan_splits` and `split_ranges` take the same tile as the kernel, so a
-slot pool and a page pool holding the same keys stay bitwise equal.
+head folded into G. Its kernel shares each 16-key tile over 64 query rows
+and runs both products on tensor cores; when `v` is K's first Dv columns
+(`v_in_k`: MLA passes `k[..., :Dv]`) it reads V out of K's tile. Its
+tiles come from one place (`tiling`): the plain version, `plan_splits`
+and `split_ranges` take the kernel's, so a slot pool and a page pool
+holding the same keys stay bitwise equal.
 
 An int8 K/V pair is the reference's dequantized bf16 view,
 bf16(f32(k8) * scale) (`dequantize_kv`): the plain version builds that
@@ -36,7 +39,7 @@ On a CUDA tensor the wrapper launches the kernel of
 `csrc/flash_attention.cu` or raises; on a CPU tensor it runs the plain
 version, a transcription of the reference's `attend_partial` arithmetic.
 `plan_splits` fixes, from the shapes alone, how many blocks of a cluster
-split each (request, KV head, 16-row tile)'s keys and how many key tiles
+split each (request, KV head, row tile)'s keys and how many key tiles
 a block walks at a time; `split_ranges` gives each block's keys, over
 which the plain version merged in rank order (`merge_two`) is the
 kernel's arithmetic.
@@ -60,20 +63,22 @@ SUPPORTED_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (40, 32),
 #: keys per tile of the kernel; the model's cache reads run the plain
 #: version with the same tile on the CPU
 KEY_TILE = 32
-#: the latent form's key tile: a double-buffered f32 tile of 16 keys of
-#: 576 + 512 values fills 136 KB of a block's 227 KB (32 keys would not fit)
+#: the latent form's key tile and query rows a block: at f32, 64 rows of q
+#: (576 values) and two 16-key K tiles fill 226 KB of a block's 227 KB
+#: (`attention_partial.cuh::LatentForm`; 32 keys or 128 rows would not fit)
 LATENT_KEY_TILE = 16
+LATENT_ROW_TILE = 64
 _KV_DTYPES = (torch.float32, torch.bfloat16)
 #: the kernels' K/V storage argument
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-#: query rows per block of the kernel
+#: query rows per block of the kernel (GQA form)
 ROW_TILE = 16
 #: the split plan aims at this many blocks (two per SM of 132), and never
 #: splits a (request, head, row tile) over more blocks than this (the
 #: non-portable cluster limit of the H100)
 SPLIT_TARGET_BLOCKS = 256
 MAX_SPLIT = 16
-#: the latent form's cluster limit: the portable 8 (one of its f32 blocks
+#: the latent form's cluster limit: the portable 8 (one of its blocks
 #: fills an SM's shared memory)
 LATENT_MAX_SPLIT = 8
 #: the pool capacity the span is sized for (the serving phases' max_len)
@@ -96,8 +101,8 @@ def _declare(lib):
                    + [i32] * 7          # B T G H S Dk Dv
                    + [i64] * 20         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 6          # causal window q_bf16 kv
-                                        # n_split span_tiles
+                   + [i32] * 7          # causal window q_bf16 kv
+                                        # n_split span_tiles v_in_k
                    + [vp])              # stream
     fn.restype = ctypes.c_int
     declare_smem(lib.fa_smem)
@@ -200,10 +205,11 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
 # =====================================================================
 
 def tiling(latent: bool):
-    """(keys per tile, most blocks a cluster splits keys over) of the
-    form: `latent` for Dk != Dv (`attention_partial.cuh::Form`)."""
-    return ((LATENT_KEY_TILE, LATENT_MAX_SPLIT) if latent
-            else (KEY_TILE, MAX_SPLIT))
+    """(keys per tile, most blocks a cluster splits keys over, query rows
+    per block) of the form: `latent` for Dk != Dv
+    (`attention_partial.cuh::LatentForm`, else `Form`)."""
+    return ((LATENT_KEY_TILE, LATENT_MAX_SPLIT, LATENT_ROW_TILE) if latent
+            else (KEY_TILE, MAX_SPLIT, ROW_TILE))
 
 
 def key_tile(Dk: int, Dv: int) -> int:
@@ -224,8 +230,8 @@ def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False):
     block walks every n_split-th span. So the plan never reads the live
     lengths, and two capacities holding the same keys (a slot pool, a
     page pool's view) sum the same spans in the same order."""
-    kt, max_split = tiling(latent)
-    base = B * H * -(-R // ROW_TILE)
+    kt, max_split, rows = tiling(latent)
+    base = B * H * -(-R // rows)
     n0 = 1
     while n0 < max_split and base * n0 < SPLIT_TARGET_BLOCKS:
         n0 *= 2
@@ -237,14 +243,36 @@ def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False):
     return n, span
 
 
-def kernel_smem(Dk: int, Dv: int, kv_element_size: int) -> int:
-    """Dynamic shared memory of one block: the double-buffered K/V tiles
-    in their stored dtype (4, 2 or 1 bytes a value), reused for the
-    merge's (ROW_TILE, Dv) f32 rows, and for int8 K/V the bf16 view of
-    one K/V tile. (Static shared memory is known only from the compiled
-    kernel: the `gpu` tests hold this against the kernels' request and
-    the sum of both against the device's limit.)"""
-    kt = key_tile(Dk, Dv)
+def _latent_pitch(d: int, size: int, skew: int = 16) -> int:
+    """Elements of a staged latent row of d values of `size` bytes, padded
+    to `skew` bytes past a multiple of 128 (`attention_partial.cuh::
+    latent_pitch`: bank-conflict-free fragment loads)."""
+    return d + (skew - d * size) % 128 // size
+
+
+def kernel_smem(Dk: int, Dv: int, kv_element_size: int,
+                q_element_size: int = 4) -> int:
+    """Dynamic shared memory of one block. GQA form (Dk == Dv): the
+    double-buffered K/V tiles in their stored dtype (4, 2 or 1 bytes a
+    value), reused for the merge's (ROW_TILE, Dv) f32 rows, and for int8
+    K/V the bf16 view of one K/V tile. Latent form: the block's 64 rows of
+    q in their dtype (`q_element_size`), two 16-key tile buffers (K and K,
+    or K and V), the two partial score tiles; at least the merge's
+    (LATENT_ROW_TILE, Dv) f32 rows and each row's fold factors, two f32 a
+    rank (`LatentSmem`). (Static shared memory is known only from the
+    compiled kernel: the `gpu` tests hold this against the kernels'
+    request and the sum of both against the device's limit.)"""
+    kt, max_split, rows = tiling(Dk != Dv)
+    if Dk != Dv:
+        # bf16 K/V: rows padded to whole 16-value steps, f32 q read in pairs
+        bf16 = kv_element_size == 2
+        dk = -(-Dk // 16) * 16 if bf16 else Dk
+        skew = 32 if bf16 and q_element_size == 4 else 16
+        staged = (rows * _latent_pitch(dk, q_element_size, skew)
+                  * q_element_size
+                  + 2 * kt * _latent_pitch(dk, kv_element_size)
+                  * kv_element_size + 2 * rows * kt * 4)
+        return max(staged, rows * Dv * 4 + rows * max_split * 8)
     view = kt * (Dk + Dv) * 2 if kv_element_size == 1 else 0
     return 2 * kt * (Dk + Dv) * kv_element_size + view
 
@@ -269,6 +297,29 @@ def as_int32(t):
     if t.dtype != torch.int32 or not t.is_contiguous():
         t = t.to(torch.int32).contiguous()
     return t
+
+
+def v_in_k(k, v) -> bool:
+    """Whether `v` is K's first Dv columns: the same storage, base
+    pointer, dtype and leading shape and strides, a contiguous last
+    dimension and Dv <= Dk (MLA passes `k[..., :Dv]`). The latent kernel
+    then reads V out of K's tile and copies no V tile."""
+    return (v.dtype == k.dtype and v.device == k.device
+            and v.dim() == k.dim() and v.shape[:-1] == k.shape[:-1]
+            and v.shape[-1] <= k.shape[-1]
+            and v.stride()[:-1] == k.stride()[:-1]
+            and v.stride(-1) == k.stride(-1) == 1
+            and v.data_ptr() == k.data_ptr()
+            and v.untyped_storage().data_ptr()
+            == k.untyped_storage().data_ptr())
+
+
+def rows_aligned(t) -> bool:
+    """The latent kernel copies q rows in 16-byte pieces: the base and the
+    strides of every dimension but the last must be 16-byte multiples."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s % per == 0
+                                          for s in t.stride()[:-1])
 
 
 def kv_aligned(t, strides) -> bool:
@@ -376,6 +427,9 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     m, l, acc = empty_partials((B, T, Hkv, G), Dv, dev)
     if B * T * G == 0:
         return m.fill_(NEG_INF), l.zero_(), acc.zero_()
+    if Dk != Dv and not rows_aligned(q):
+        q = q.clone(memory_format=torch.contiguous_format)
+        qs = q.stride()
 
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
     if _FN is None:
@@ -394,7 +448,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
              0 if mask is None else mask.stride(1),
              float(scale), int(bool(causal)), int(window),
              int(q.dtype == torch.bfloat16), kv, n_split, span,
-             cuda_stream(dev))
+             int(v_in_k(k, v)), cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")

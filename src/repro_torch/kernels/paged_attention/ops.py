@@ -53,8 +53,8 @@ def _declare(lib):
                                         # Dk Dv
                    + [i64] * 19         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 5          # window q_bf16 kv
-                                        # n_split span_tiles
+                   + [i32] * 6          # window q_bf16 kv
+                                        # n_split span_tiles v_in_k
                    + [vp])              # stream
     fn.restype = ctypes.c_int
     fa.declare_smem(lib.paged_smem)
@@ -146,6 +146,9 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
     m, l, acc = fa.empty_partials((B, T, Hkv, G), Dv, dev)
     if B * T * G == 0 or nv == 0:
         return m.fill_(fa.NEG_INF), l.zero_(), acc.zero_()
+    if Dk != Dv and not fa.rows_aligned(q):
+        q = q.clone(memory_format=torch.contiguous_format)
+        qs = q.stride()
 
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
     if _FN is None:
@@ -163,7 +166,7 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
             vs[0], vs[1], vs[2], *sc, page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
             int(q.dtype == torch.bfloat16), kv, n_split, span,
-            cuda_stream(dev))
+            int(fa.v_in_k(k, v)), cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")

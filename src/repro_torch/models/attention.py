@@ -34,7 +34,10 @@ table inside the kernel, without a gathered copy.
 MLA (`mla_attention`, DeepSeek-V3's absorbed form) caches only
 c_kv ++ k_pe per token, as the reference: "k" is (B, C, 1, kv_lora +
 rope) and "v" (B, C, 1, kv_lora), one KV head that every query head
-reads, so its reads go to the kernels' latent form (Dk != Dv).
+reads, so its reads go to the kernels' latent form (Dk != Dv). Both
+leaves are written from the same c_kv, so V is K's first kv_lora
+columns: MLA reads pass `k[..., :kv_lora]` as v (`cache_partial`'s
+`v_in_k`), which the latent kernel reads out of K's tile.
 
 Cross-attention is not ported yet and raises `NotImplementedError`
 naming its ROADMAP item.
@@ -92,20 +95,24 @@ def blocked_attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
 
 
 def cache_partial(q, cache, q_pos, *, scale, window=0, block=None,
-                  slot_idx=None, page_view=None):
+                  slot_idx=None, page_view=None, v_in_k=False):
     """Causal partials of q over a cache, read in place: a page pool
     through `page_view` by the paged kernel, else a resident cache
     (through `slot_idx` when given) by the flash-attention kernel; an
-    int8 cache with its scales, by the kernels' int8 K/V form."""
+    int8 cache with its scales, by the kernels' int8 K/V form. `v_in_k`
+    (MLA's latent caches, whose "v" equals K's first columns): pass
+    `cache["k"][..., :Dv]` as v."""
     scales = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    v = cache["v"]
+    if v_in_k:
+        v = cache["k"][..., : v.shape[-1]]
     if page_view is not None:
         return pa.paged_attend_partial(
-            q, cache["k"], cache["v"], q_pos, cache["slot_pos"], page_view,
+            q, cache["k"], v, q_pos, cache["slot_pos"], page_view,
             scale=scale, window=window, block=block, **scales)
-    return attend_partial(q, cache["k"], cache["v"], q_pos,
-                          cache["slot_pos"], scale=scale, causal=True,
-                          window=window, block=block, slot_idx=slot_idx,
-                          **scales)
+    return attend_partial(q, cache["k"], v, q_pos, cache["slot_pos"],
+                          scale=scale, causal=True, window=window,
+                          block=block, slot_idx=slot_idx, **scales)
 
 
 # =====================================================================
@@ -216,7 +223,7 @@ def take_rows(cache, slot_idx, page_view=None):
 
 def _attend_cached(qg, k_new, v_new, cache, positions, *, scale, window,
                    block, seg_mask, slot_idx, write, token_mask=None,
-                   page_view=None):
+                   page_view=None, v_in_k=False):
     """Cache-backed attention core.
 
     Plain decode/extend (write, no seg_mask): the new rows are written in
@@ -231,13 +238,15 @@ def _attend_cached(qg, k_new, v_new, cache, positions, *, scale, window,
     read and overwritten by the next real tokens there.
     page_view: (B, n_view) int32 — `cache` is a page pool, read and
     written through this block table.
+    v_in_k: the cache's "v" is K's first Dv columns (MLA): reads pass
+    them as v (`cache_partial`).
     Returns (out, cache | None)."""
     B, T = positions.shape
     k_pos = (positions if token_mask is None
              else torch.where(token_mask, positions,
                               torch.full_like(positions, -1)))
     kw = dict(scale=scale, window=window, block=block, slot_idx=slot_idx,
-              page_view=page_view)
+              page_view=page_view, v_in_k=v_in_k)
     if write and seg_mask is None:
         set_rows(cache, kv_rows(cache, k_new, v_new, k_pos), positions,
                  slot_idx, page_view)
@@ -411,7 +420,7 @@ def mla_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
                             cfg.norm_eps)                       # (B,T,R)
     kpe = apply_rope(qdot(x, p["wkr"]), positions, cfg.rope_theta)
     k_eff = torch.cat([ckv, kpe.to(ckv.dtype)], dim=-1)[:, :, None, :]
-    v_eff = ckv[:, :, None, :]                                  # (B,T,1,R)
+    v_eff = k_eff[..., :R]              # (B,T,1,R): c_kv, read out of K
 
     if cache is None:
         out_lat = blocked_attention(qg, k_eff, v_eff, positions, positions,
@@ -423,7 +432,7 @@ def mla_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
         out_lat, new_cache = _attend_cached(
             qg, k_eff, v_eff, cache, positions, scale=scale, window=window,
             block=block, seg_mask=seg_mask, slot_idx=slot_idx, write=write,
-            token_mask=token_mask, page_view=page_view)
+            token_mask=token_mask, page_view=page_view, v_in_k=True)
     out_lat = out_lat.reshape(B, T, H, R)
     wuv = p["wuv"].reshape(R, H, m.v_head_dim)
     out = torch.einsum("bthr,rhv->bthv", *_promote(out_lat, wuv))

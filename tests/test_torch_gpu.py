@@ -209,8 +209,8 @@ def test_attention_smem_matches_compiled_kernels(cuda):
                     case = (f.__name__, Dk, Dv, q_bf16, kv, dynamic, static)
                     assert limit == SMEM_LIMIT
                     assert dynamic == fa.kernel_smem(
-                        Dk, Dv, torch.empty((), dtype=kv_dtype).element_size()
-                    ), case
+                        Dk, Dv, torch.empty((), dtype=kv_dtype).element_size(),
+                        2 if q_bf16 else 4), case
                     assert dynamic + static <= limit, case
 
 
@@ -559,20 +559,26 @@ def _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("v_in_k", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dk,Dv,G", [(40, 32, 4), (576, 512, 128)])
-@pytest.mark.parametrize("T", [1, 6])
-def test_latent_kernel1_matches_plain(cuda, Dk, Dv, G, T, dtype):
+@pytest.mark.parametrize("T", [1, 6, 64])
+def test_latent_kernel1_matches_plain(cuda, Dk, Dv, G, T, dtype, v_in_k):
     """Kernel 1's latent form (Dk != Dv, one KV head, every query head
     folded into G) against its plain version at the tiny pair and at
     DeepSeek-V3's (576, 512): a scrambled slot pool read in place, plain
-    causal, a tree mask, a window, f32 and bf16 q. The same f32
-    arithmetic in another summation order, so rtol = atol = 1e-4; a
-    second run gives the same bits."""
+    causal, a tree mask, a window, f32 and bf16 q, with `v` its own tile
+    or K's first Dv columns (`v_in_k`), split over a cluster (T 1, 6) or
+    not (T 64 at G 128). The tensor cores' 3xTF32 products and another
+    summation order, so rtol = atol = 1e-4; a second run gives the same
+    bits."""
     gen = torch.Generator(device=cuda).manual_seed(Dk + T)
     B, P, S = 3, 6, 512
     lens = [0, 300, 0, 57, 511, 200]
     k, v, kpos = _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens)
+    if v_in_k:
+        v = k[..., :Dv]
+    assert fa.v_in_k(k, v) == v_in_k
     slot_idx = torch.tensor([4, 1, 3], dtype=torch.int32, device=cuda)
     cur = torch.tensor([lens[4], lens[1], lens[3]], device=cuda)
     qpos = (cur[:, None] - T + torch.arange(T, device=cuda)).to(torch.int32)
@@ -594,12 +600,14 @@ def test_latent_kernel1_matches_plain(cuda, Dk, Dv, G, T, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("v_in_k", [False, True])
 @pytest.mark.parametrize("Dk,Dv,G", [(40, 32, 4), (576, 512, 128)])
 @pytest.mark.parametrize("T", [1, 10, 64])
-def test_latent_paged_bitwise_kernel1(cuda, Dk, Dv, G, T):
+def test_latent_paged_bitwise_kernel1(cuda, Dk, Dv, G, T, v_in_k):
     """The paged kernel's latent form on a scrambled page pool (page_size
     64, NULL filler entries) equals kernel 1's latent form on the
-    gathered view bit for bit, and its plain version within 1e-4."""
+    gathered view bit for bit, with `v` its own pool or K's first Dv
+    columns on both sides, and its plain version within 1e-4."""
     gen = torch.Generator(device=cuda).manual_seed(Dk * T)
     B, ps, nv = 3, 64, 8
     lens = [5 * ps + 3, ps, T + 2]
@@ -620,10 +628,15 @@ def test_latent_paged_bitwise_kernel1(cuda, Dk, Dv, G, T):
     q = torch.randn((B, T, 1, G, Dk), generator=gen, device=cuda)
     qp = torch.tensor([[max(n - T + t, 0) for t in range(T)] for n in lens],
                       dtype=torch.int32, device=cuda)
+    kg = pa.gather_view(k, tbl)
+    vg = kg[..., :Dv] if v_in_k else pa.gather_view(v, tbl)
+    if v_in_k:
+        v = k[..., :Dv]
+    assert fa.v_in_k(k, v) == fa.v_in_k(kg, vg) == v_in_k
     before = (fa.LAUNCHES_LATENT, pa.LAUNCHES_LATENT)
     got = pa.paged_attend_partial(q, k, v, qp, pos, tbl, scale=Dk ** -0.5)
-    k1 = fa.attend_partial(q, pa.gather_view(k, tbl), pa.gather_view(v, tbl),
-                           qp, pa.gather_view(pos, tbl), scale=Dk ** -0.5)
+    k1 = fa.attend_partial(q, kg, vg, qp, pa.gather_view(pos, tbl),
+                           scale=Dk ** -0.5)
     assert (fa.LAUNCHES_LATENT, pa.LAUNCHES_LATENT) == (before[0] + 1,
                                                         before[1] + 1)
     for a, b in zip(got, k1):
@@ -633,6 +646,44 @@ def test_latent_paged_bitwise_kernel1(cuda, Dk, Dv, G, T):
                                          block=fa.key_tile(Dk, Dv))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dk,Dv,G", [(40, 32, 4), (576, 512, 128)])
+@pytest.mark.parametrize("T", [1, 10])
+def test_latent_v_in_k_bitwise_cloned_v(cuda, Dk, Dv, G, T, dtype):
+    """V read out of K's tile (`v = k[..., :Dv]`) and V staged from a
+    clone of those columns give bitwise equal partials, on kernel 1 (a
+    slot pool, and a q view whose rows are not 16-byte aligned, which the
+    wrapper copies) and on the paged kernel; each call is one latent
+    launch."""
+    gen = torch.Generator(device=cuda).manual_seed(Dk * 3 + T)
+    P, S, lens = 6, 320, [0, 300, 0, 57, 319, 200]
+    k, _, kpos = _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens)
+    sidx = torch.tensor([4, 1, 3], dtype=torch.int32, device=cuda)
+    qpos = (torch.tensor([lens[4], lens[1], lens[3]], device=cuda)[:, None]
+            - T + torch.arange(T, device=cuda)).to(torch.int32)
+    wide = torch.randn((3, T, 1, G, Dk + 1), generator=gen, device=cuda)
+    q_odd = wide[..., :Dk]
+    assert not fa.rows_aligned(q_odd)
+    kw = dict(scale=Dk ** -0.5, slot_idx=sidx)
+    alias = fa.attend_partial(q_odd, k, k[..., :Dv], qpos, kpos, **kw)
+    cloned = fa.attend_partial(q_odd.contiguous(), k, k[..., :Dv].clone(),
+                               qpos, kpos, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(alias, cloned))
+    pk = k.reshape(P * S // 64, 64, 1, Dk)
+    pos = kpos.reshape(P * S // 64, 64)
+    tbl = torch.arange(P * S // 64, dtype=torch.int32,
+                       device=cuda).reshape(P, S // 64)[sidx.long()]
+    before = pa.LAUNCHES_LATENT
+    palias = pa.paged_attend_partial(q_odd, pk, pk[..., :Dv], qpos, pos, tbl,
+                                     scale=Dk ** -0.5)
+    pcloned = pa.paged_attend_partial(q_odd, pk, pk[..., :Dv].clone(), qpos,
+                                      pos, tbl, scale=Dk ** -0.5)
+    assert pa.LAUNCHES_LATENT == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(palias, pcloned))
+    assert all(torch.equal(a, b) for a, b in zip(palias, alias))
 
 
 @pytest.mark.gpu

@@ -255,16 +255,19 @@ def test_split_plan_covers_every_key_tile_once(B, H, R, S):
 
 
 def test_attention_kernel_smem_in_budget():
-    """Every instantiation's K/V double buffer (int8, for Dk == Dv: with
-    the bf16 view of a tile) fits a block on the H100 and holds the
-    merge's (16, Dv) f32 rows, at every (Dk, Dv) pair the kernels are
-    built for, the latent form's included (a `gpu` test holds it, with
-    the static part, against the compiled kernels)."""
+    """Every instantiation's dynamic shared memory fits a block on the
+    H100 and holds the merge's (row tile, Dv) f32 rows, at every (Dk, Dv)
+    pair the kernels are built for: the GQA form's K/V double buffer
+    (int8: with the bf16 view of a tile) and the latent form's 64 rows of
+    q, two tile buffers and score tiles, at f32 and bf16 q (a `gpu` test
+    holds it, with the static part, against the compiled kernels)."""
     assert (576, 512) in fa.SUPPORTED_PAIRS
     for Dk, Dv in fa.SUPPORTED_PAIRS:
+        rows = fa.tiling(Dk != Dv)[2]
         for size in ((1, 2, 4) if Dk == Dv else (2, 4)):
-            dynamic = fa.kernel_smem(Dk, Dv, size)
-            assert fa.ROW_TILE * Dv * 4 <= dynamic <= SMEM_LIMIT
+            for q_size in (2, 4):
+                dynamic = fa.kernel_smem(Dk, Dv, size, q_size)
+                assert rows * Dv * 4 <= dynamic <= SMEM_LIMIT
 
 
 def _split_merged(q, k, v, qpos, kpos, mask, scale, window, slot_idx):

@@ -37,6 +37,7 @@ from repro.models import model as JM
 from repro.serving.engine import SpeculativeEngine as JaxEngine
 from repro.serving.runner import ModelRunner as JaxRunner
 from repro_torch import config as tconfig
+from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
@@ -157,19 +158,53 @@ def test_plain_latent_form_matches_pallas_interpret(Dk, Dv, G, T, S,
 
 
 def test_latent_tiling_and_smem():
-    """The latent form's key tile is 16 for the plain version, the split
-    plan and the split ranges alike, and its clusters stay portable."""
+    """The latent form's key tile (16) and row tile (64) come from one
+    place for the plain version, the split plan and the split ranges
+    alike; its clusters stay portable; a block's 64 rows share each key
+    tile (2, 20 and 12 row tiles a request at decode, the T = 10 cache
+    pass and the T = 6 commit, against 8, 80 and 48 for 16-row tiles);
+    its shared memory (q in its dtype, two 16-key tile buffers, the two
+    partial score tiles, at least the merge's 64 f32 rows and fold
+    factors) fits a block of the H100 with room for the kernel's static
+    part."""
     assert fa.key_tile(576, 512) == fa.key_tile(40, 32) == 16
     assert fa.key_tile(128, 128) == fa.KEY_TILE == 32
+    assert fa.tiling(True) == (16, fa.LATENT_MAX_SPLIT, 64)
+    assert fa.tiling(False) == (fa.KEY_TILE, fa.MAX_SPLIT, fa.ROW_TILE)
     for B, R in ((4, 128), (1, 128), (1, 512 * 128), (9, 6 * 128)):
         n, span = fa.plan_splits(B, 1, R, 1024, True)
         assert n <= fa.LATENT_MAX_SPLIT
         tiles = sorted(t for keys in fa.split_ranges(1024, n, span, True)
                        for lo, hi in keys for t in range(lo // 16, hi // 16))
         assert tiles == list(range(1024 // 16))
-    # a T = 512 prefill: 4096 row tiles a request, no split
+    # a T = 512 prefill: 1024 row tiles a request, no split; decode,
+    # the cache pass and the commit of 4 requests split 8, 4 and 8 ways
     assert fa.plan_splits(1, 1, 512 * 128, 1024, True) == (1, 64)
-    assert fa.kernel_smem(576, 512, 4) == 2 * 16 * 1088 * 4
+    assert fa.plan_splits(4, 1, 128, 1024, True) == (8, 8)
+    assert fa.plan_splits(4, 1, 10 * 128, 1024, True) == (4, 16)
+    assert fa.plan_splits(4, 1, 6 * 128, 1024, True) == (8, 8)
+    assert [-(-R // fa.tiling(True)[2]) for R in (128, 1280, 768)] == [
+        2, 20, 12]
+    # rows padded to 16 bytes past a multiple of 128 (conflict-free
+    # fragment loads): 580 f32 or 584 bf16 values for Dk 576, 68 or 72
+    # for the tiny pair's 40 (with bf16 K, padded to 48 first); f32 q
+    # beside bf16 K is read in pairs, 32 bytes past: 584 f32 values
+    q_f32, kv_f32, scores = 64 * 580 * 4, 2 * 16 * 580 * 4, 2 * 64 * 16 * 4
+    assert fa.kernel_smem(576, 512, 4) == q_f32 + kv_f32 + scores == 230912
+    assert fa.kernel_smem(576, 512, 4, 2) == 64 * 584 * 2 + kv_f32 + scores
+    assert fa.kernel_smem(576, 512, 2, 4) == (64 * 584 * 4 + 2 * 16 * 584 * 2
+                                              + scores)
+    assert fa.kernel_smem(40, 32, 2, 4) == (64 * 72 * 4 + 2 * 16 * 72 * 2
+                                            + scores)
+    # bf16 q and K/V: the merge's (64, 512) f32 rows and the rows' fold
+    # factors (two a rank of 8) are the larger part
+    assert fa.kernel_smem(576, 512, 2, 2) == 64 * 512 * 4 + 64 * 8 * 8
+    assert fa.kernel_smem(40, 32, 4) == 64 * 68 * 4 + 2 * 16 * 68 * 4 + scores
+    # room beside it for the kernels' static part (1344 bytes, paged)
+    for Dk, Dv in ((576, 512), (40, 32)):
+        for kv in (2, 4):
+            for qs in (2, 4):
+                assert fa.kernel_smem(Dk, Dv, kv, qs) <= SMEM_LIMIT - 1344
 
 
 # ------------------------------------------------- mla_attention

@@ -1,0 +1,65 @@
+"""`chip_smoke.py`'s accounting on the CPU: the latent form's work and
+bound, and the profiler attribution of device time to a host range (the
+script itself needs the card)."""
+import importlib.util
+from pathlib import Path
+from types import SimpleNamespace
+
+import torch
+from torch.autograd import DeviceType
+
+ROOT = Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("chip_smoke",
+                                               ROOT / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+
+
+def test_latent_work_and_bound():
+    """V read out of K's tile moves Dk values a held key, not Dk + Dv; the
+    operations are the same; the f32 latent bound counts them at the
+    3xTF32 rate of the tensor cores, the bf16 one at the bf16 rate."""
+    B, T, H, G, Dk, Dv, S = 1, 1, 1, 2, 6, 4, 3
+    q = torch.zeros(B, T, H, G, Dk)
+    k = torch.zeros(B, S, H, Dk)
+    v = torch.zeros(B, S, H, Dv)
+    q_pos = torch.tensor([[1]], dtype=torch.int32)
+    k_pos = torch.tensor([[0, 1, -1]], dtype=torch.int32)
+    nb, fl = smoke._work(torch, q, k, v, q_pos, k_pos, None, None, True)
+    nb_a, fl_a = smoke._work(torch, q, k, k[..., :Dv], q_pos, k_pos, None,
+                             None, True, v_in_k=True)
+    assert fl == fl_a == 2 * (2 * H * G) * (Dk + Dv)   # 2 live keys
+    assert nb - nb_a == 2 * H * Dv * 4
+    assert smoke.LATENT_FLOPS["float32"] == smoke.TF32X3_FLOPS
+    assert smoke.LATENT_FLOPS["bfloat16"] == smoke.PEAK_FLOPS["bfloat16"]
+    flops = 1e12
+    bound, by = smoke._bound(0, flops, "float32",
+                             smoke.LATENT_FLOPS["float32"])
+    assert by == "operations" and bound == flops / smoke.TF32X3_FLOPS * 1e3
+    assert smoke._bound(0, flops, "float32")[0] == flops / 67e12 * 1e3
+
+
+def _ev(name, thread, start, end, kernels=(), dev=DeviceType.CPU):
+    return SimpleNamespace(
+        name=name, thread=thread, device_type=dev,
+        time_range=SimpleNamespace(start=start, end=end),
+        kernels=[SimpleNamespace(duration=d) for d in kernels])
+
+
+def test_range_device_us_counts_kernels_launched_inside():
+    """A kernel counts toward a range when the host operation that
+    launched it starts inside the range on the range's thread: not one
+    launched later, nor one from another thread; the device-side
+    annotation of the range is no range."""
+    R = smoke.MOE_RANGE
+    events = [
+        _ev(R, 1, 10, 50, kernels=[1]),      # a launch by the range itself
+        _ev("aten::mm", 1, 12, 20, kernels=[5, 7]),
+        _ev("aten::add", 1, 60, 61, kernels=[3]),
+        _ev("aten::mm", 2, 20, 30, kernels=[4]),
+        _ev("aten::view", 1, 30, 31),
+        _ev(R, 0, 11, 49, dev=DeviceType.CUDA),
+        _ev("sm90_gemm", 0, 13, 25, dev=DeviceType.CUDA),
+    ]
+    assert smoke.range_device_us(events, R) == (1, 13, 20)
+    assert smoke.range_device_us(events, "no such range") == (0, 0, 20)
