@@ -66,7 +66,8 @@ wrappers), then serves the CoSine path end to end through
            segment, unquantized as in the reference, reads bf16 K/V);
   phase K-paged  phase K on the paged pool: every pool read through the
            paged kernel's int8 form, and the committed streams equal
-           phase K's;
+           phase K's; then a `torch.profiler` window over 5 of phase K's
+           iterations (the int8 forms' share of the device's busy time);
   phase J  a qwen2-moe-a2.7b target at full width (24 layers, d_model
            2048, MHA 16 x 128 with QKV bias, 60 routed experts top-4 of
            width 1408 and a shared expert of 5632 in every layer, vocab
@@ -93,12 +94,14 @@ wrappers), then serves the CoSine path end to end through
            L's iterations (the latent kernels' and the MoE layer's share
            of the device's busy time).
 
-Before the serving phases the int8 K/V forms of kernels 1 and 2 are held
-against their plain versions (the reference's dequantized bf16 view) at
-phases K and K-paged's shapes and timed beside their bytes bound (int8
-K/V and 4 bytes of scale per row and head) and a dequantize + SDPA
-yardstick; the paged int8 form must equal kernel 1's int8 form on the
-gathered view bit for bit. The latent form of both kernels (MLA's one KV
+Before the serving phases the int8 K/V forms of kernels 1 and 2 (a
+kernel of their own, `int8_kernel`, whose compiled registers and spills
+are printed) are held against their plain versions (the reference's
+dequantized bf16 view) at phases K and K-paged's shapes and timed beside
+their bound (int8 K/V and two 4-byte scales per row and head; the
+operations at the bf16 tensor-core rate their products run at) and a
+dequantize + SDPA yardstick; the paged int8 form must equal kernel 1's
+int8 form on the gathered view bit for bit. The latent form of both kernels (MLA's one KV
 head: Dk 576, Dv 512, G 128) is held the same way at phase L's shapes
 (decode, the tree's cache pass and segment, a T = 6 commit, a T = 512
 prefill; f32 and bf16 K/V) beside SDPA over K/V expanded to 128 heads
@@ -197,6 +200,32 @@ KERNEL_SOURCES = {
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: registers, spill store and load bytes} from
+    the `-Xptxas -v` output of a build."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, dict(registers=None, spill_stores=None,
+                                      spill_loads=None))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -672,9 +701,10 @@ def int8kv_kernel_phase(torch, fa, pa, attn):
     K-paged's shapes: each within KERNEL_TOL of its plain version (the
     reference's dequantized bf16 view through the plain partials), the
     paged form bit for bit kernel 1's int8 form on the gathered view;
-    times against the bytes bound (int8 K/V and 4 bytes of scale per
-    row and head) and the dequantize + SDPA yardstick. Returns (resident
-    rows, paged rows)."""
+    times against the bound (the bytes: int8 K/V and two 4-byte scales
+    per row and head; the operations at the bf16 tensor-core rate) and
+    the dequantize + SDPA yardstick. Returns (resident rows, paged rows,
+    host cost of a cache write)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(808)
     perm = torch.Generator().manual_seed(9)
@@ -713,14 +743,16 @@ def int8kv_kernel_phase(torch, fa, pa, attn):
             nbytes, flops = _work(torch, q, k8, v8, q_pos, kp, sidx, None,
                                   True)
             nbytes += int((kp[idx] >= 0).sum()) * H * 4 * 2
-            bound, by = _bound(nbytes, flops, "int8")
+            bound, by = _bound(nbytes, flops, "bfloat16")
             res_rows.append(dict(
                 name=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
                 yardstick_ms=yard_ms, bytes=nbytes,
-                flops=flops, dtype="int8"))
+                flops=flops, dtype="int8",
+                ops_ms=flops / PEAK_FLOPS["bfloat16"] * 1e3))
             print(f"kernel int8 K/V {name}: splits "
-                  f"{fa.plan_splits(B, H, T * G, MAX_LEN)}  max|err| "
+                  f"{fa.plan_splits(B, H, T * G, MAX_LEN, False, True)}  "
+                  f"row tile {fa.tiling(False, True, T * G)[2]}  max|err| "
                   f"{err:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"bound {bound:.4f} ms ({by})  dequantize + sdpa "
                   f"{yard_ms:.4f} ms", flush=True)
@@ -751,12 +783,13 @@ def int8kv_kernel_phase(torch, fa, pa, attn):
                                     k1_kw["v_scale"], k1_args[4], q_pos)
             nb, fl = _work(torch, *k1_args, None, None, True)
             nb += int((k1_args[4] >= 0).sum()) * H * 4 * 2 + tbl.numel() * 4
-            pbound, pby = _bound(nb, fl, "int8")
+            pbound, pby = _bound(nb, fl, "bfloat16")
             pag_rows.append(dict(
                 name=name, max_abs_err=perr, max_abs_diff_vs_kernel1=vs_k1,
                 ms=pms, plain_ms=pplain, bound_ms=pbound, bound_by=pby,
                 library_ms=None, yardstick_ms=pyard,
-                bytes=nb, flops=fl, dtype="int8"))
+                bytes=nb, flops=fl, dtype="int8",
+                ops_ms=fl / PEAK_FLOPS["bfloat16"] * 1e3))
             print(f"kernel paged int8 K/V {name}: max|err| {perr:.2e}  "
                   f"|paged - kernel 1 on the gathered view| {vs_k1:.3g}  "
                   f"kernel {pms:.4f} ms  plain {pplain:.4f} ms  bound "
@@ -2253,32 +2286,31 @@ def range_device_us(events, range_name):
     return len(ranges), inside, linked
 
 
-def profile_latent_window(torch, target, drafters, prompts, warm=3,
-                          steps=5):
-    """`torch.profiler` over `steps` iterations of phase L's engine (after
-    `warm` unprofiled ones; simulated backend, resident pool): the
-    device's busy time in the window (the union of its operations), the
-    device time of the latent kernels (kernels 1 and 2's
-    `latent_kernel`), and that of the MoE layer (the kernels launched
-    inside the `apply_moe` calls, each wrapped in a `record_function`
-    range: `range_device_us`), each as a share of the busy time and of
-    the window, with the share of the device time that the profiler
-    linked to a host operation at all. Returns a summary dict."""
+def profile_engine_window(torch, target, drafters, prompts, warm=3,
+                          steps=5, wrap=()):
+    """`torch.profiler` over `steps` iterations of a serving phase's
+    engine (after `warm` unprofiled ones; simulated backend, resident
+    pool). `wrap` names (module, function, range) triples: each call of
+    the function runs inside a `record_function` range of that name.
+    Returns (profiler events, the device's events outside those ranges,
+    the window's wall ms, the device's busy ms in it: the union of its
+    operations), or None when the profiler recorded no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    from repro_torch.models import moe as moe_mod
 
     eng = make_engine(target, drafters)
     for p in prompts:
         eng.submit(p, max_new_tokens=NEW_TOKENS)
-    orig = moe_mod.apply_moe
+    saved = []
+    for mod, name, rng in wrap:
+        orig = getattr(mod, name)
 
-    def traced(*a, **kw):
-        with record_function(MOE_RANGE):
-            return orig(*a, **kw)
+        def traced(*a, _orig=orig, _rng=rng, **kw):
+            with record_function(_rng):
+                return _orig(*a, **kw)
 
-    moe_mod.apply_moe = traced
+        saved.append((mod, name, orig))
+        setattr(mod, name, traced)
     try:
         for _ in range(warm):
             eng.step()
@@ -2291,20 +2323,87 @@ def profile_latent_window(torch, target, drafters, prompts, warm=3,
             torch.cuda.synchronize()
             window_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        moe_mod.apply_moe = orig
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    ranges = {rng for _, _, rng in wrap}
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and e.name != MOE_RANGE]
+           and e.name not in ranges]
     if not dev:
+        return None
+    busy = sum(b - a for a, b in _merge(
+        [(e.time_range.start, e.time_range.end) for e in dev])) / 1e3
+    return prof.events(), dev, window_ms, busy
+
+
+def _kernel_share(dev, match, busy, window_ms):
+    """Launches and device ms of the device events whose name `match`
+    accepts, with their shares of the busy time and of the window."""
+    mine = [e for e in dev if match(e.name)]
+    ms = sum(e.time_range.end - e.time_range.start for e in mine) / 1e3
+    return dict(launches=len(mine), device_ms=ms, share_of_busy=ms / busy,
+                share_of_window=ms / window_ms)
+
+
+def is_int8kv_kernel(name: str) -> bool:
+    """A device event of kernels 1 and 2's int8 K/V form (`int8_kernel`)."""
+    return "int8_kernel" in name
+
+
+def profile_int8kv_window(torch, target, drafters, prompts, warm=3, steps=5,
+                          match=is_int8kv_kernel):
+    """`torch.profiler` over `steps` iterations of phase K's engine (int8
+    KV caches for the target and the drafters): the device's busy time in
+    the window and the int8 K/V forms' device time (`match`: the events of
+    their kernel), as shares of the busy time and of the window. Returns a
+    summary dict."""
+    got = profile_engine_window(torch, target, drafters, prompts, warm,
+                                steps)
+    if got is None:
+        print("phase K profiler: torch.profiler recorded no device "
+              "activity; device shares not measured", flush=True)
+        return dict(profiler="no device activity recorded")
+    _, dev, window_ms, busy = got
+    dev_ms = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
+    k8 = _kernel_share(dev, match, busy, window_ms)
+    out = dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
+               device_busy_share=busy / window_ms, device_op_ms=dev_ms,
+               int8kv_launches=k8["launches"],
+               int8kv_device_ms=k8["device_ms"],
+               int8kv_share_of_busy=k8["share_of_busy"],
+               int8kv_share_of_window=k8["share_of_window"])
+    print(f"phase K profiler: {steps} iterations in {window_ms:.1f} ms, the "
+          f"device busy {busy:.2f} ms ({busy / window_ms:.1%}); int8 K/V "
+          f"forms {k8['launches']} launches, {k8['device_ms']:.3f} ms "
+          f"({k8['share_of_busy']:.1%} of busy, "
+          f"{k8['share_of_window']:.1%} of the window)", flush=True)
+    return out
+
+
+def profile_latent_window(torch, target, drafters, prompts, warm=3,
+                          steps=5):
+    """`torch.profiler` over `steps` iterations of phase L's engine
+    (`profile_engine_window`): the device's busy time in the window, the
+    device time of the latent kernels (kernels 1 and 2's
+    `latent_kernel`), and that of the MoE layer (the kernels launched
+    inside the `apply_moe` calls, each wrapped in a `record_function`
+    range: `range_device_us`), each as a share of the busy time and of
+    the window, with the share of the device time that the profiler
+    linked to a host operation at all. Returns a summary dict."""
+    from repro_torch.models import moe as moe_mod
+
+    got = profile_engine_window(torch, target, drafters, prompts, warm,
+                                steps,
+                                wrap=[(moe_mod, "apply_moe", MOE_RANGE)])
+    if got is None:
         print("phase L profiler: torch.profiler recorded no device "
               "activity; device shares not measured", flush=True)
         return dict(profiler="no device activity recorded")
-    busy = sum(b - a for a, b in _merge(
-        [(e.time_range.start, e.time_range.end) for e in dev])) / 1e3
-    latent = [e for e in dev if "latent_kernel" in e.name]
-    latent_ms = sum(e.time_range.end - e.time_range.start
-                    for e in latent) / 1e3
+    events, dev, window_ms, busy = got
+    latent = _kernel_share(dev, lambda n: "latent_kernel" in n, busy,
+                           window_ms)
+    latent_ms = latent["device_ms"]
     dev_ms = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
-    moe_calls, moe_us, linked_us = range_device_us(prof.events(), MOE_RANGE)
+    moe_calls, moe_us, linked_us = range_device_us(events, MOE_RANGE)
     if not linked_us:
         print("phase L profiler: no device kernel was linked to a host "
               "operation; the MoE layer's share not measured", flush=True)
@@ -2313,17 +2412,18 @@ def profile_latent_window(torch, target, drafters, prompts, warm=3,
     moe_ms = moe_us / 1e3
     out = dict(steps=steps, window_ms=window_ms, device_busy_ms=busy,
                device_busy_share=busy / window_ms,
-               latent_launches=len(latent), latent_device_ms=latent_ms,
-               latent_share_of_busy=latent_ms / busy,
-               latent_share_of_window=latent_ms / window_ms,
+               latent_launches=latent["launches"], latent_device_ms=latent_ms,
+               latent_share_of_busy=latent["share_of_busy"],
+               latent_share_of_window=latent["share_of_window"],
                moe_layer_calls=moe_calls, moe_device_ms=moe_ms,
                moe_share_of_busy=moe_ms / busy,
                moe_share_of_window=moe_ms / window_ms,
                device_op_ms=dev_ms, linked_share=linked_us / 1e3 / dev_ms)
     print(f"phase L profiler: {steps} iterations in {window_ms:.1f} ms, the "
           f"device busy {busy:.2f} ms ({busy / window_ms:.1%}); latent "
-          f"kernels {len(latent)} launches, {latent_ms:.3f} ms "
-          f"({latent_ms / busy:.1%} of busy, {latent_ms / window_ms:.1%} of "
+          f"kernels {latent['launches']} launches, {latent_ms:.3f} ms "
+          f"({latent['share_of_busy']:.1%} of busy, "
+          f"{latent['share_of_window']:.1%} of "
           f"the window); MoE layer {moe_calls} calls, kernels launched "
           f"inside them {moe_ms:.3f} ms ({moe_ms / busy:.1%} of busy, "
           f"{moe_ms / window_ms:.1%} of the window); "
@@ -2607,6 +2707,21 @@ def main() -> int:
         for line in (lib.build_log or "").splitlines():
             if "Used" in line or "spill" in line:
                 print(f"{lib.name}: {line.strip()}", flush=True)
+    int8kv_compiled = {}
+    for lib in libraries[:2]:
+        if lib.build_log is None:   # built by an earlier run: no report
+            print(f"{lib.name}: built before this run, registers not "
+                  "reported", flush=True)
+            continue
+        for fn, st in ptxas_report(lib.build_log).items():
+            if "int8_kernel" in fn:
+                int8kv_compiled[f"{lib.name}:{fn}"] = st
+                print(f"{lib.name}: int8 K/V form {fn}: {st['registers']} "
+                      f"registers, spill stores {st['spill_stores']} B, "
+                      f"spill loads {st['spill_loads']} B", flush=True)
+        if not any(k.startswith(f"{lib.name}:") for k in int8kv_compiled):
+            fail(f"{lib.name}: the build log names no int8_kernel "
+                 "instantiation")
 
     fa_rows, fa_host = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
@@ -2729,6 +2844,9 @@ def main() -> int:
     if not paged8_exact or same != len(prompts):
         fail("phase K-paged: the paged int8 pool committed other tokens "
              "than the resident int8 pool")
+    # where K's device time goes: the int8 K/V forms' share of it
+    sum_k["profile"] = profile_int8kv_window(torch, kv8["target"],
+                                             kv8["drafters"], prompts)
     del kv8
     gc.collect()
     torch.cuda.empty_cache()
@@ -2897,7 +3015,8 @@ def main() -> int:
                                      launches_by_form=ssd_forms),
              "flash_attention_partial_int8_kv": dict(
                  yardstick_ms=sum(r["yardstick_ms"] for r in fa8_rows),
-                 host_kv_write_us=kv_write_host),
+                 host_kv_write_us=kv_write_host,
+                 compiled=int8kv_compiled, phase_k_profile=sum_k["profile"]),
              "paged_flash_decode_int8_kv": dict(
                  yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows)),
              "flash_attention_partial_mla": dict(

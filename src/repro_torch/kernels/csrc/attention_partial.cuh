@@ -12,10 +12,15 @@
 // window) and by an optional bool mask; a masked key scores NEG_INF =
 // -1e30 and contributes p = 0, so a fully masked row leaves l = 0.
 //
-// Two kernels share the key addressing, the split and the merge, chosen
-// by the head widths (Dk, Dv):
-//   * `partial_kernel`, Dk == Dv in {16, 32, 64, 128}: GQA heads (f32,
-//     bf16 or int8 K/V). Described below.
+// Three kernels share the key addressing, the split and the merge, chosen
+// by the head widths (Dk, Dv) and the K/V storage:
+//   * `partial_kernel`, Dk == Dv in {16, 32, 64, 128}: GQA heads with f32
+//     or bf16 K/V. Described below.
+//   * `int8_kernel`, the same heads with int8 K/V and an f32 scale per
+//     (row, head) (`kv_dtype="int8"` caches): a ring of int8 tiles in
+//     flight, each tile converted once to bf16 in shared memory by the
+//     warps that read it, both products on tensor cores, 16 or 64 query
+//     rows a block: see the comment above `int8_kernel`.
 //   * `latent_kernel`, Dk != Dv: MLA's absorbed attention (DeepSeek-V3:
 //     one KV head holding c_kv ++ k_pe, Dk = 512 + 64 = 576, Dv = 512,
 //     all 128 query heads folded onto it as G = 128 rows a token), and a
@@ -50,8 +55,8 @@
 //     resident slot pool, a page pool's view) that hold the same keys
 //     give the same bits. n_split <= 16 (16 is above the portable
 //     cluster size of 8).
-//   * Pipelined tiles. K/V tiles are staged in their stored dtype (f32,
-//     bf16 or int8) with 16-byte `cp.async` copies into a double buffer, so the
+//   * Pipelined tiles. K/V tiles are staged in their stored dtype (f32
+//     or bf16) with 16-byte `cp.async` copies into a double buffer, so the
 //     copy of tile t + 1 overlaps the arithmetic of tile t; values become
 //     f32 where they are used. A tile's key positions (and, paged, its
 //     rows' page offsets) are read two tiles ahead (the block-table entry
@@ -61,20 +66,6 @@
 //     diagonal or out of the window) is not copied at all
 //     (`__syncthreads_or`): a request reads only the K/V it holds, and
 //     skipping is bit-exact (every p = 0, the correction exp(0) = 1).
-//   * int8 K/V (the `kv_dtype="int8"` caches). Tiles are staged as
-//     int8, D bytes a key row, by the same 16-byte `cp.async` copies (a
-//     quarter of f32's bytes); each key's f32 scale for this head, one
-//     per (row, head), is read with the key's metadata two tiles ahead
-//     and kept beside it in shared memory. Once a tile has landed, the
-//     block dequantizes it in one pass into a bf16 tile in shared memory,
-//     exactly bf16(f32(k8) * scale): the reference's dequantized view
-//     (`dequantize_cache`) element for element, so the int8 form and its
-//     plain version differ only in summation order. The arithmetic then
-//     reads that tile as the bf16 form reads its own. (Dequantizing in
-//     each query row's registers instead repeats the conversion for all
-//     16 rows of a block and was 2-3.7x slower on the H100.) The scale is
-//     not folded into the dot product ((q . k8) * scale), which would be
-//     another function.
 //   * f32 on CUDA cores. TPR = 8 threads share a query row; each keeps
 //     its strip of Dk/TPR of q in registers and scores every key of a
 //     tile over that strip (one shared-memory read per
@@ -210,37 +201,6 @@ __device__ __forceinline__ void lds(const __nv_bfloat16* p, float (&o)[CV]) {
   }
 }
 
-// An int8 tile (its K rows, then its V rows: 2 x KT x D values) as its
-// bf16 view bf16(f32(x8) * scale), written once by the whole block: the
-// reference's dequantized view bit for bit (the f32 product is exact
-// IEEE, the bf16 conversion rounds to nearest even, as torch and XLA).
-// int8 -> f32 by the exponent trick (bias the byte to unsigned, place
-// it in the mantissa of 2^23, subtract 2^23 + 128), which needs no
-// conversion unit.
-template <int D, int KT, int THREADS>
-__device__ __forceinline__ void dequant_tile(const int8_t* src,
-                                             __nv_bfloat16* dst,
-                                             const float* k_sc,
-                                             const float* v_sc, int tid) {
-  constexpr int VALS = KT * D;
-  for (int e = 4 * tid; e < 2 * VALS; e += 4 * THREADS) {
-    const int j = (e % VALS) / D;
-    const float sc = e < VALS ? k_sc[j] : v_sc[j];
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(src + e) ^
-                       0x80808080u;
-    float f[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[b] = (__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + b)) -
-              8388736.f) * sc;
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
-    *reinterpret_cast<uint2*>(dst + e) =
-        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
-                   *reinterpret_cast<const uint32_t*>(&hi));
-  }
-}
-
 // One level of the butterfly that sums a row's partial dots over its
 // lanes, then the next: lanes with bit OFF keep the upper HALF of their
 // keys and add their partner's, so each level halves the keys a lane
@@ -266,13 +226,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
-// One key's metadata, read by thread `j` (< KT) of the block: position,
-// pool-row offsets of K and V (element offsets from the head's base) and,
-// int8, the key's K and V scales for this head.
+// One key's metadata, read by thread `j` (< KT) of the block: position
+// and pool-row offsets of K and V (element offsets from the head's base).
 struct KeyMeta {
   int32_t pos;
   int64_t koff, voff;
-  float ksc, vsc;
 };
 
 template <int DK, int DV, typename QT, typename KVT, bool PAGED>
@@ -281,13 +239,11 @@ partial_kernel(const Params p) {
   using F = Form<DK, DV>;
   constexpr int KT = F::KT, TPR = F::TPR, THREADS = F::THREADS;
   constexpr int KPT = F::KPT, MAX_SPLIT = F::MAX_SPLIT;
-  constexpr bool Q8 = std::is_same<KVT, int8_t>::value;
-  static_assert(!Q8 || DK == DV, "int8 K/V only in the Dk == Dv form");
-  // the tiles the arithmetic reads: int8 K/V through their bf16 view
-  using CT = typename std::conditional<Q8, __nv_bfloat16, KVT>::type;
-  constexpr int CVK = chunk_vals(DK / TPR, 16 / int(sizeof(CT)));
+  static_assert(!std::is_same<KVT, int8_t>::value,
+                "int8 K/V is int8_kernel's");
+  constexpr int CVK = chunk_vals(DK / TPR, 16 / int(sizeof(KVT)));
   constexpr int NCHK = DK / TPR / CVK;               // q chunks per thread
-  constexpr int CVV = chunk_vals(DV / TPR, 16 / int(sizeof(CT)));
+  constexpr int CVV = chunk_vals(DV / TPR, 16 / int(sizeof(KVT)));
   constexpr int NCHV = DV / TPR / CVV;               // acc chunks
   constexpr int TILE_K = KT * DK;                    // elements per tile
   constexpr int TILE_V = KT * DV;
@@ -296,14 +252,9 @@ partial_kernel(const Params p) {
 
   extern __shared__ __align__(16) uint8_t kv_smem[];
   KVT* kv_s = reinterpret_cast<KVT*>(kv_smem);       // [2][K, V][KT][D]
-  // int8: the current tile's bf16 view, [K, V][KT][D], after the staging
-  CT* dq_s = reinterpret_cast<CT*>(kv_smem +
-                                   2 * (TILE_K + TILE_V) * sizeof(KVT));
   __shared__ int32_t kpos_s[META][KT];
   __shared__ int64_t koff_s[PAGED ? META : 1][KT];
   __shared__ int64_t voff_s[PAGED ? META : 1][KT];
-  __shared__ float ksc_s[Q8 ? META : 1][KT];         // int8: key scales
-  __shared__ float vsc_s[Q8 ? META : 1][KT];
   __shared__ __align__(16) float p_s[ROWS][KT];
   __shared__ float mrg_m[ROWS], mrg_l[ROWS];
 
@@ -379,7 +330,7 @@ partial_kernel(const Params p) {
     return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
   };
   auto load_meta = [&](int i, int32_t page) -> KeyMeta {
-    KeyMeta km{-1, 0, 0, 0.f, 0.f};
+    KeyMeta km{-1, 0, 0};
     const int s = tile_of(i) * KT + tid;
     if (i < nt && s < p.S) {
       // the pool row (slot or page) and the row within it
@@ -392,10 +343,6 @@ partial_kernel(const Params p) {
       } else {
         km.pos = kp[s];
       }
-      if constexpr (Q8) {
-        km.ksc = p.k_scale[prow * p.ksc_sp + rw * p.ksc_ss + h * p.ksc_sh];
-        km.vsc = p.v_scale[prow * p.vsc_sp + rw * p.vsc_ss + h * p.vsc_sh];
-      }
     }
     return km;
   };
@@ -404,10 +351,6 @@ partial_kernel(const Params p) {
     if constexpr (PAGED) {
       koff_s[i % META][tid] = km.koff;
       voff_s[i % META][tid] = km.voff;
-    }
-    if constexpr (Q8) {
-      ksc_s[i % META][tid] = km.ksc;
-      vsc_s[i % META][tid] = km.vsc;
     }
   };
   // issue the copies of tile i (its metadata is in slot i % META): a key's
@@ -472,7 +415,7 @@ partial_kernel(const Params p) {
     if (next_live) copy_tile(i + 1);
     asm volatile("cp.async.commit_group;\n" ::);
     // metadata of tile i + 2 (and the page of tile i + 3) in flight
-    KeyMeta ahead{-1, 0, 0, 0.f, 0.f};
+    KeyMeta ahead{-1, 0, 0};
     if (tid < KT) {
       ahead = load_meta(i + 2, page_next);
       if constexpr (PAGED) page_next = block_page(i + 3);
@@ -481,17 +424,8 @@ partial_kernel(const Params p) {
     __syncthreads();
 
     if (cur_live) {
-      const CT* ks;
-      if constexpr (Q8) {
-        dequant_tile<DK, KT, THREADS>(kv_s + (i & 1) * (TILE_K + TILE_V),
-                                      dq_s, ksc_s[i % META],
-                                      vsc_s[i % META], tid);
-        __syncthreads();
-        ks = dq_s;
-      } else {
-        ks = kv_s + (i & 1) * (TILE_K + TILE_V);
-      }
-      const CT* vs = ks + TILE_K;
+      const KVT* ks = kv_s + (i & 1) * (TILE_K + TILE_V);
+      const KVT* vs = ks + TILE_K;
       const int32_t* kpos_t = kpos_s[i % META];
       const int s0 = tile_of(i) * KT;
       // partial dots of all KT keys over this thread's strip
@@ -654,12 +588,11 @@ partial_kernel(const Params p) {
   cluster.sync();   // no block leaves while another reads its partials
 }
 
-// the double-buffered staging tiles and, int8, the bf16 view of one tile
+// the double-buffered staging tiles
 template <int DK, int DV, typename KVT>
 constexpr int kv_smem_bytes() {
   constexpr int KT = Form<DK, DV>::KT;
-  return 2 * KT * (DK + DV) * int(sizeof(KVT)) +
-         (std::is_same<KVT, int8_t>::value ? KT * (DK + DV) * 2 : 0);
+  return 2 * KT * (DK + DV) * int(sizeof(KVT));
 }
 
 template <int DK, int DV, typename QT, typename KVT, bool PAGED>
@@ -1060,7 +993,7 @@ latent_kernel(const Params p) {
     return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
   };
   auto load_meta = [&](int i, int32_t page) -> KeyMeta {
-    KeyMeta km{-1, 0, 0, 0.f, 0.f};
+    KeyMeta km{-1, 0, 0};
     const int s = tile_of(i) * KT + tid;
     if (i < nt && s < p.S)
       km.pos = PAGED ? kp[page * p.kpos_sp + s % p.page_size] : kp[s];
@@ -1184,7 +1117,7 @@ latent_kernel(const Params p) {
     else if (!alias && cur_live)
       issue_rows(i, 1, std::true_type{});
     // metadata of tile i + 2 (and the page of tile i + 3) in flight
-    KeyMeta ahead{-1, 0, 0, 0.f, 0.f};
+    KeyMeta ahead{-1, 0, 0};
     const int32_t page_ahead = page_next;
     if (tid < KT) {
       ahead = load_meta(i + 2, page_next);
@@ -1561,12 +1494,711 @@ int launch_latent(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
 }
 
+// =====================================================================
+// The int8 K/V form (Dk == Dv, `kv_dtype="int8"` caches)
+// =====================================================================
+//
+// With the GQA form it replaces the Pallas TPU kernels
+// `flash_attention_partial` (src/repro/kernels/common.py) and
+// `paged_flash_decode` (src/repro/kernels/decode_attention/kernel.py)
+// for int8 caches. The function is the GQA form's over the reference's
+// dequantized view of an int8 cache: K and V are bf16(f32(x8) * scale), one f32 scale per
+// (row, KV head) (`dequantize_cache`), and the kernel returns the same
+// partials (acc, m, l) under the same masks, split and merge.
+//
+// What bounds it on the H100. At decode, verification's cache pass and
+// commit it reads each held key's 2 x D int8 bytes and two scales once
+// for a handful of query rows: bound by those bytes over 3.35 TB/s, 0.1
+// to 2.3 us at phase K's shapes, so latency decides. At the T = 512
+// prefill the products are 2 x 512 x 2D operations a key; on bf16 tensor
+// cores they stay below the bytes, on f32 CUDA cores they would not. In
+// practice a tile costs what its warp spends converting int8 to bf16:
+// every value needs its own f32 product and rounding (the reference's
+// bits), about 3.5 instructions, and a warp of this kernel issues them
+// at a fraction of the SM's rate (one 8-warp block fills an SM's
+// registers, so each scheduler holds two warps). A first design (an
+// instantiation of the GQA kernel) staged a tile one ahead, dequantized
+// it in a block-wide pass between two barriers, computed on CUDA cores
+// at 16 query rows a block whatever R was, and ran at ~38x its bound.
+//
+// What this design does about it:
+//   * Tiles in flight. Each warp publishes a tile's metadata (positions
+//     and the K and V scales of its 32 keys, one lane a key; paged: the
+//     page through the block table) in shared memory and issues its
+//     16-byte `cp.async` copies into a ring of STAGES int8 tiles; the
+//     copies land on the stage's mbarrier (`cp.async.mbarrier.arrive`),
+//     and the first STAGES tiles of a block are all in flight before the
+//     first is computed. (One `cp.async.bulk` a key row was tried first:
+//     at 64-128 bytes a row it was about 7 % slower.) A tile with no live key
+//     for the block's rows is neither copied nor computed.
+//   * One conversion a value for all the rows that read it. A team of
+//     warps that share a tile converts it, 16 bytes a thread at a time,
+//     into a bf16 view in shared memory with `dequant_tile`'s arithmetic
+//     (the exponent trick, an f32 product, round to nearest even), so
+//     every value is the reference's bf16 bit for bit; the team's warps
+//     then read their tensor-core fragments from the view by `ldmatrix`
+//     (V transposed on the way). Converting straight into each warp's
+//     fragments was tried first: it has no view and no barrier, but at
+//     64 rows a block each of the 4 warps of a row tile converted the
+//     whole tile, and prefill took half as long again.
+//   * Both products on tensor cores: `mma.sync` m16n8k16 bf16 with f32
+//     accumulation. K and V are exact in bf16 by construction; f32 q and
+//     P are split into two bf16 halves (hi, lo: about 2^-17), so each
+//     product is two (bf16 q: one). Why not `wgmma`: it needs 4 warps on
+//     64 rows of one tile, while decode has 1-10 rows, and the f32 q and
+//     P halves double its operands in shared memory.
+//   * Rows per block from the grid. A block is 8 warps; its row tile
+//     (`RT`, from `ops.py::tiling`: 16 rows where R <= 16, else 64)
+//     makes teams of RT / 16 warps, one 16-row group each, and the teams
+//     take every (8 / team)-th tile of the block's keys. At 16 rows each
+//     warp is its own team; at 64 rows a prefill tile is staged and
+//     converted once for 64 rows (72 tiles a head at the target's T =
+//     512, not 272). The block's warps fold their partials into the
+//     first warp of each row group through shared memory, in a fixed
+//     order, in registers.
+//   * The grid runs the heaviest blocks first: row tiles are the slowest
+//     grid dimension, last rows (the most keys under the causal mask)
+//     first, so a prefill's second wave is its lightest blocks.
+//   * Everything else is the GQA form's: the split plan from the grid
+//     alone (with its own target, `ops.py::INT8_SPLIT_TARGET_BLOCKS`),
+//     the cluster's ranks merged in a fixed order through distributed
+//     shared memory (each row's fold factors computed once), NEG_INF
+//     masking, a fully masked row leaving l = 0, and the paged and
+//     resident instantiations sharing this body with key addressing the
+//     only difference.
+
+// The int8 form's tiling (`ops.py::tiling` and `kernel_smem` mirror it).
+template <int D>
+struct Int8Form {
+  static constexpr int KT = 32;                   // keys per tile
+  static constexpr int WARPS = 8;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int STAGES = 8;                // int8 tiles in flight
+  static constexpr int MAX_SPLIT = 16;            // blocks a cluster
+  static constexpr int MAX_ROWS = 64;             // row tile 16 or 64
+  static constexpr int STAGE = 2 * KT * D;        // an int8 K and V tile
+  // a team's bf16 view of one K and V tile: rows padded by 16 bytes, so
+  // that the 8 rows an `ldmatrix` reads lie in distinct banks
+  static constexpr int VROW = 2 * D + 16;
+  static constexpr int VIEW = 2 * KT * VROW;
+  static constexpr int KSTEPS = D / 16;           // 16-deep steps of q·k
+  static constexpr int NT = D / 8;                // 8-wide n-tiles of O
+  // the ring of int8 tiles and one view per team (at most WARPS teams);
+  // after the key loop the same bytes hold the warps' (o, m, l) handed to
+  // the folding warps, then the block's (MAX_ROWS, D) f32 partial with m
+  // and l and each row's fold factors (two f32 a rank)
+  static constexpr int STAGED = STAGES * STAGE + WARPS * VIEW;
+  static constexpr int XCH = (WARPS - 1) * (D / 2 + 4) * 32 * 4;
+  static constexpr int MERGE =
+      (MAX_ROWS * D + 2 * MAX_ROWS + MAX_ROWS * MAX_SPLIT * 2) * 4;
+  static constexpr int BYTES = STAGED > MERGE && STAGED > XCH ? STAGED
+                               : MERGE > XCH ? MERGE : XCH;
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "int8 head width");
+  static_assert(STAGES % WARPS == 0, "the first tiles' producers");
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar,
+                                            uint32_t count = 1) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// an arrival on `bar` once every `cp.async` this thread issued so far has
+// landed (counted in the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Byte b of w (each byte of w an int8 value biased by 0x80) times sc in
+// f32: the exponent trick (the byte in the mantissa of 2^23, minus 2^23 +
+// 128) gives the int8 value exactly with no conversion unit; the product
+// rounds once, as f32(x8) * scale does in the reference.
+__device__ __forceinline__ float dequant_byte(uint32_t w, int b, float sc) {
+  return (__uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650 + b)) -
+          8388736.f) * sc;
+}
+// bf16(x), bf16(y) as one register (x in the low half), rounded to
+// nearest even: the reference's dequantized values
+__device__ __forceinline__ uint32_t bf16x2(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// the 4 (x4) 8x8 b16 matrices whose rows lanes 8 i .. 8 i + 7 point at,
+// one register each (`trans`: transposed on the way)
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(row)));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(row)));
+}
+
+template <int D, typename QT, bool PAGED>
+__global__ void __launch_bounds__(Int8Form<D>::THREADS)
+int8_kernel(const Params p, const int RT) {
+  using F = Int8Form<D>;
+  constexpr int KT = F::KT, NST = F::STAGES, WARPS = F::WARPS;
+  constexpr int THREADS = F::THREADS, MAX_SPLIT = F::MAX_SPLIT;
+  constexpr int KSTEPS = F::KSTEPS, NT = F::NT, VROW = F::VROW;
+  constexpr int MAX_ROWS = F::MAX_ROWS;
+  constexpr bool QEX = std::is_same<QT, __nv_bfloat16>::value;
+
+  extern __shared__ __align__(16) uint8_t i8sm[];
+  __shared__ int32_t pos_s[NST][KT];              // each stage's metadata
+  __shared__ float ksc_s[NST][KT], vsc_s[NST][KT];
+  __shared__ int32_t live_s[NST];
+  __shared__ __align__(8) uint64_t full_s[NST], empty_s[NST];
+
+  const int R = p.T * p.G;
+  const int RG = RT / 16;                         // warps of a team (rows)
+  const int KS = WARPS / RG;                      // teams (key splits)
+  // grid (n_split, H, B x row tiles), the row tiles last and in reverse:
+  // the blocks of the last rows, which see the most keys, start first
+  const int n_rt = (R + RT - 1) / RT;
+  const int B = gridDim.z / n_rt;
+  const int rank = blockIdx.x;
+  const int r0 = (n_rt - 1 - blockIdx.z / B) * RT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z % B;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;        // fragment coordinates
+  const int rg = warp % RG, ks = warp / RG;       // this warp's rows, team
+  const int slot = PAGED ? 0 : (p.slot_idx ? p.slot_idx[b] : b);
+  const int32_t* btab = PAGED ? p.block_table + b * p.bt_sb : nullptr;
+  const int32_t* kp = p.k_pos + (PAGED ? 0 : slot * p.kpos_sp);
+  const int8_t* kb = static_cast<const int8_t*>(p.k) + h * p.k_sh +
+                     (PAGED ? 0 : slot * p.k_sp);
+  const int8_t* vb = static_cast<const int8_t*>(p.v) + h * p.v_sh +
+                     (PAGED ? 0 : slot * p.v_sp);
+
+  // this block's tiles: spans rank, rank + n_split, ... of span_tiles
+  // tiles (as partial_kernel)
+  const int n_tiles = (p.S + KT - 1) / KT;
+  const int span = p.span_tiles;
+  int nt = 0;
+  for (int j = rank; j * span < n_tiles; j += p.n_split)
+    nt += min(span, n_tiles - j * span);
+  auto tile_of = [&](int i) {
+    return (rank + p.n_split * (i / span)) * span + i % span;
+  };
+
+  // this warp's rows: wr + gq and wr + gq + 8 (x = 0, 1)
+  const int wr = r0 + 16 * rg;
+  const bool has_rows = wr < R;
+  bool row_ok[2];
+  int qpos[2];
+  const uint8_t* mrow[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = wr + gq + 8 * x;
+    row_ok[x] = r < R;
+    const int t = row_ok[x] ? r / p.G : 0;
+    qpos[x] = row_ok[x] ? p.q_pos[b * p.qpos_sb + t] : 0;
+    mrow[x] = (p.mask != nullptr && row_ok[x])
+                  ? p.mask + b * p.mask_sb + t * p.mask_st
+                  : nullptr;
+  }
+  // this thread's values of q for its A fragments, loaded first (in
+  // flight with the positions and the first tiles' metadata): at k-step
+  // m, d = 16 m + 2 tq (+ 1) and 16 m + 8 + 2 tq (+ 1), in both its rows
+  QT qv[2][KSTEPS][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = wr + gq + 8 * x;
+    const QT* qrow = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh +
+                     (row_ok[x] ? (r / p.G) * p.q_st + (r % p.G) * p.q_sg
+                                : 0) + 2 * tq;
+#pragma unroll
+    for (int m = 0; m < KSTEPS; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qv[x][m][e] = row_ok[x] ? qrow[16 * m + 8 * (e >> 1) + (e & 1)]
+                                : QT(0.f);
+  }
+
+  // the block's query-position range (every warp: no barrier needed)
+  int qmin = 2147483647, qmax = -2147483647 - 1;
+#pragma unroll
+  for (int rr = lane; rr < MAX_ROWS; rr += 32) {
+    if (rr < RT && r0 + rr < R) {
+      const int qp = p.q_pos[b * p.qpos_sb + (r0 + rr) / p.G];
+      qmin = min(qmin, qp);
+      qmax = max(qmax, qp);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  }
+  auto live_key = [&](int32_t kpos) {
+    return kpos >= 0 && (!p.causal || kpos <= qmax) &&
+           (p.window <= 0 || qmin - kpos < p.window);
+  };
+
+  // ---- the producer side: tile i into stage i % NST (the first NST
+  // tiles by warp i % WARPS, later ones by a consumer of tile i - NST),
+  // one lane a key: its metadata (`fetch`: one round trip, paged two),
+  // then (`publish`) the stage's metadata in shared memory, its liveness
+  // and the 16-byte copies of its K and V rows, which land on the
+  // stage's barrier (a stage is refilled once its consumers released it)
+  struct Fetched {
+    int32_t pos;
+    float ksc, vsc;
+    int64_t ko, vo;
+  };
+  auto fetch = [&](int i) -> Fetched {
+    const int key = tile_of(i) * KT + lane;
+    Fetched f{-1, 0.f, 0.f, 0, 0};
+    if (key < p.S) {
+      int64_t prow = slot, rw = key;
+      if constexpr (PAGED) {
+        prow = btab[key / p.page_size];
+        rw = key % p.page_size;
+      }
+      f.pos = kp[PAGED ? prow * p.kpos_sp + rw : rw];
+      f.ksc = p.k_scale[prow * p.ksc_sp + rw * p.ksc_ss + h * p.ksc_sh];
+      f.vsc = p.v_scale[prow * p.vsc_sp + rw * p.vsc_ss + h * p.vsc_sh];
+      f.ko = PAGED ? prow * p.k_sp + rw * p.k_ss : rw * p.k_ss;
+      f.vo = PAGED ? prow * p.v_sp + rw * p.v_ss : rw * p.v_ss;
+    }
+    return f;
+  };
+  auto publish = [&](int i, const Fetched& f) {
+    const int st = i % NST, s0 = tile_of(i) * KT;
+    const bool live = __any_sync(0xffffffffu, live_key(f.pos));
+    pos_s[st][lane] = f.pos;
+    ksc_s[st][lane] = f.ksc;
+    vsc_s[st][lane] = f.vsc;
+    if (lane == 0) live_s[st] = live;
+    if (!live) {   // no copies: all KT + 1 arrivals at once
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full_s[st], KT + 1);
+      return;
+    }
+    // 16-byte copies: each instruction of the warp covers 32 / CPR whole
+    // rows (CPR copies a row), row j's offsets from lane j
+    constexpr int CPR = D / 16, RPI = 32 / CPR;
+    uint8_t* dst = i8sm + st * F::STAGE;
+    const int part = 16 * (lane % CPR);
+#pragma unroll
+    for (int it = 0; it < CPR; ++it) {
+      const int j = it * RPI + lane / CPR;
+      const int64_t kj = __shfl_sync(0xffffffffu, f.ko, j);
+      const int64_t vj = __shfl_sync(0xffffffffu, f.vo, j);
+      if (s0 + j < p.S) {
+        cp_async16(dst + j * D + part, kb + kj + part, 16);
+        cp_async16(dst + (KT + j) * D + part, vb + vj + part, 16);
+      }
+    }
+    cp_async_arrive(&full_s[st]);   // KT arrivals as the copies land
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&full_s[st]);   // and the metadata's
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(&full_s[st], KT + 1);
+      mbar_init(&empty_s[st], RG);
+    }
+  }
+  __syncthreads();
+  {  // this warp's first NST / WARPS tiles: every fetch in flight at once
+    constexpr int PRO = NST / WARPS;
+    Fetched f[PRO];
+#pragma unroll
+    for (int c = 0; c < PRO; ++c)
+      if (warp + WARPS * c < nt) f[c] = fetch(warp + WARPS * c);
+#pragma unroll
+    for (int c = 0; c < PRO; ++c)
+      if (warp + WARPS * c < nt) publish(warp + WARPS * c, f[c]);
+  }
+
+  // q as A fragments in bf16 halves (hi, lo): rows gq (a0, a2), gq + 8
+  uint32_t qh[KSTEPS][4], ql[KSTEPS][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int m = 0; m < KSTEPS; ++m) {
+      bf16_pair(to_f32(qv[x][m][0]), to_f32(qv[x][m][1]), qh[m][x],
+                ql[m][x]);
+      bf16_pair(to_f32(qv[x][m][2]), to_f32(qv[x][m][3]), qh[m][2 + x],
+                ql[m][2 + x]);
+    }
+
+  // O: rows gq (+ 8), columns 8 n + 2 tq (+ 1)
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+
+  // the team (the RG warps that share this warp's tiles) and its view
+  uint8_t* view = i8sm + NST * F::STAGE + ks * F::VIEW;
+  const int tt = rg * 32 + lane, team = 32 * RG;
+  auto team_sync = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + ks), "r"(team) : "memory");
+  };
+
+  for (int i = ks; i < nt; i += KS) {
+    const int st = i % NST;
+    // one of tile i's consumers (the row group (i / KS) % RG) refills
+    // stage st with tile i + NST once it is drained: that tile's metadata
+    // is fetched while tile i is converted
+    const bool refill = rg == (i / KS) % RG && i + NST < nt;
+    Fetched nf{-1, 0.f, 0.f, 0, 0};
+    if (refill) nf = fetch(i + NST);
+    mbar_wait(&full_s[st], (i / NST) & 1);
+    const bool live = live_s[st];
+    const int s0 = tile_of(i) * KT;
+    // the positions of this thread's score columns, kept past the stage's
+    // release: keys 8 j + 2 tq (+ 1)
+    int kpos_r[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) kpos_r[j][c] = pos_s[st][8 * j + 2 * tq + c];
+    if (live) {
+      // ---- the team converts the int8 tile into its bf16 view, 16
+      // bytes a step: bf16(f32(x8) * scale), `dequantize_cache` bit for
+      // bit (once the team's warps are done with the previous view)
+      team_sync();
+      const uint8_t* src = i8sm + st * F::STAGE;
+      for (int c = tt; c < 4 * D; c += team) {   // 2D chunks of K, of V
+        const int row = c / (D / 16);            // 0..31 K, 32..63 V
+        const int col = c % (D / 16);
+        const float sc = row < KT ? ksc_s[st][row] : vsc_s[st][row - KT];
+        const uint4 w = *reinterpret_cast<const uint4*>(src + row * D +
+                                                        16 * col);
+        const uint32_t ww[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                                w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+        uint32_t hv[8];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          hv[2 * k] = bf16x2(dequant_byte(ww[k], 0, sc),
+                             dequant_byte(ww[k], 1, sc));
+          hv[2 * k + 1] = bf16x2(dequant_byte(ww[k], 2, sc),
+                                 dequant_byte(ww[k], 3, sc));
+        }
+        uint4* dst = reinterpret_cast<uint4*>(view + row * VROW + 32 * col);
+        dst[0] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        dst[1] = make_uint4(hv[4], hv[5], hv[6], hv[7]);
+      }
+    }
+    // the int8 stage is read: release it, and refill it if this warp does
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_s[st]);
+    if (refill) {
+      mbar_wait(&empty_s[st], (i / NST) & 1);
+      publish(i + NST, nf);
+    }
+    if (!live) continue;
+    team_sync();   // the view is written
+    if (!has_rows) continue;
+    const uint8_t* kv = view;                     // K rows of the view
+    const uint8_t* vv = view + KT * VROW;         // V rows
+    // ---- S = q·Kᵀ: n-tile j holds keys 8 j + 2 tq (+ 1), rows gq (+ 8);
+    // K's B fragments by `ldmatrix` (two n-tiles a load); the hi and lo
+    // products in separate sums
+    float sh[4][4], sl[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sh[j][e] = sl[j][e] = 0.f;
+    const uint8_t* krow = kv + ((lane & 7) + ((lane >> 4) << 3)) * VROW +
+                          ((lane >> 3) & 1) * 16;
+#pragma unroll
+    for (int m = 0; m < KSTEPS; ++m) {
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        uint32_t bq[4];
+        ldmatrix_x4<false>(bq, krow + 16 * jp * VROW + 32 * m);
+        const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+        mma_bf16(sh[2 * jp], qh[m], b0);
+        mma_bf16(sh[2 * jp + 1], qh[m], b1);
+        if (!QEX) {
+          mma_bf16(sl[2 * jp], ql[m], b0);
+          mma_bf16(sl[2 * jp + 1], ql[m], b1);
+        }
+      }
+    }
+    // ---- online softmax over the tile's 32 keys: the GQA form's
+    // arithmetic, a row's state in its 4 lanes
+    float pv[4][4];
+    bool ok[4][4];
+    float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = e >> 1;
+        const int kj = 8 * j + 2 * tq + (e & 1);
+        const int kpos = kpos_r[j][e & 1];
+        bool valid = row_ok[x] && kpos >= 0;
+        if (p.causal) valid = valid && kpos <= qpos[x];
+        if (p.window > 0) valid = valid && (qpos[x] - kpos < p.window);
+        if (mrow[x] != nullptr)
+          valid = valid && s0 + kj < p.S && mrow[x][s0 + kj] != 0;
+        const float sc = valid ? (sh[j][e] + sl[j][e]) * p.scale : NEG_INF;
+        pv[j][e] = sc;
+        ok[j][e] = valid;
+        tmax[x] = fmaxf(tmax[x], sc);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], off));
+      const float m_new = fmaxf(m_run[x], tmax[x]);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 2 * x; e < 2 * x + 2; ++e) {
+          pv[j][e] = ok[j][e] ? expf(pv[j][e] - m_new) : 0.f;
+          psum += pv[j][e];
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      corr[x] = expf(m_run[x] - m_new);
+      l_run[x] = l_run[x] * corr[x] + psum;
+      m_run[x] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // ---- O += P·V over two 16-key steps: P's A fragments are the score
+    // fragments of n-tiles 2 kk and 2 kk + 1, split into bf16 halves; V's
+    // B fragments by `ldmatrix.trans` (two n-tiles a load)
+    const uint8_t* vrow = vv + ((lane & 7) + ((lane >> 3) & 1) * 8) * VROW +
+                          (lane >> 4) * 16;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t ah[4], al[4];
+      bf16_pair(pv[2 * kk][0], pv[2 * kk][1], ah[0], al[0]);
+      bf16_pair(pv[2 * kk][2], pv[2 * kk][3], ah[1], al[1]);
+      bf16_pair(pv[2 * kk + 1][0], pv[2 * kk + 1][1], ah[2], al[2]);
+      bf16_pair(pv[2 * kk + 1][2], pv[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bv[4];
+        ldmatrix_x4<true>(bv, vrow + 16 * kk * VROW + 32 * np);
+        const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+        mma_bf16(o[2 * np], al, b0);
+        mma_bf16(o[2 * np], ah, b0);
+        mma_bf16(o[2 * np + 1], al, b1);
+        mma_bf16(o[2 * np + 1], ah, b1);
+      }
+    }
+  }
+
+  // ---- the block's partial: the warps that share rows (KS of them)
+  // hand their (o, m, l) to the one with ks = 0 through shared memory in
+  // fragment order (the ring is free: every copy was waited for), which
+  // folds them in order ks = 1, 2, ... (merge_partials' arithmetic)
+  constexpr int NV = NT * 4;                      // o values a thread
+  __syncthreads();
+  float* xch = reinterpret_cast<float*>(i8sm);    // [WARPS - RG][NV + 4][32]
+  if (ks > 0) {
+    float* dst = xch + ((ks - 1) * RG + rg) * (NV + 4) * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[(n * 4 + e) * 32] = o[n][e];
+    dst[NV * 32] = m_run[0];
+    dst[(NV + 1) * 32] = m_run[1];
+    dst[(NV + 2) * 32] = l_run[0];
+    dst[(NV + 3) * 32] = l_run[1];
+  }
+  __syncthreads();
+  if (ks == 0) {
+    for (int q = 1; q < min(KS, nt); ++q) {   // warps past nt hold nothing
+      const float* src = xch + ((q - 1) * RG + rg) * (NV + 4) * 32 + lane;
+      float ea[2], eb[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float mq = src[(NV + x) * 32], lq = src[(NV + 2 + x) * 32];
+        const float mm = fmaxf(m_run[x], mq);
+        ea[x] = expf(m_run[x] - mm);
+        eb[x] = expf(mq - mm);
+        l_run[x] = l_run[x] * ea[x] + lq * eb[x];
+        m_run[x] = mm;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[n][e] = o[n][e] * ea[e >> 1] + src[(n * 4 + e) * 32] * eb[e >> 1];
+    }
+  }
+  const bool holds = ks == 0;                     // holds block rows
+  auto out_row = [&](int r) -> int64_t {
+    return ((static_cast<int64_t>(b) * p.T + r / p.G) * p.H + h) * p.G +
+           r % p.G;
+  };
+  if (p.n_split == 1) {   // straight from registers
+    if (holds) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int r = wr + gq + 8 * x;
+        if (!row_ok[x]) continue;
+        float* dst = p.acc + out_row(r) * D + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(o[n][2 * x], o[n][2 * x + 1]);
+        if (tq == 0) {
+          p.m[out_row(r)] = m_run[x];
+          p.l[out_row(r)] = l_run[x];
+        }
+      }
+    }
+    return;
+  }
+  // the block partial into shared memory, rows of [RT][D], for the
+  // cluster's fold
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(i8sm);   // [RT][D]
+  float* part_m = part + MAX_ROWS * D;            // [RT]
+  float* part_l = part_m + MAX_ROWS;
+  float* fac = part_l + MAX_ROWS;                 // [RT][MAX_SPLIT][2]
+  if (holds) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int pr = 16 * rg + gq + 8 * x;
+      float* dst = part + pr * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[n][2 * x], o[n][2 * x + 1]);
+      if (tq == 0) {
+        part_m[pr] = m_run[x];
+        part_l[pr] = l_run[x];
+      }
+    }
+  }
+
+  // ---- the cluster's n_split block partials in rank order (as the
+  // latent form): each row's fold once, then each rank its share of the
+  // rows' columns, four at a time
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (tid < RT && r0 + tid < R) {
+    float mq[MAX_SPLIT], lq[MAX_SPLIT];   // every remote load in flight
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q) {
+      mq[q] = q < p.n_split ? cluster.map_shared_rank(part_m, q)[tid] : 0.f;
+      lq[q] = q < p.n_split ? cluster.map_shared_rank(part_l, q)[tid] : 0.f;
+    }
+    float m_a = mq[0], l_a = lq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float mm = fmaxf(m_a, mq[q]);
+        const float ea = expf(m_a - mm), eb = expf(mq[q] - mm);
+        l_a = l_a * ea + lq[q] * eb;
+        m_a = mm;
+        fac[(tid * MAX_SPLIT + q) * 2] = ea;
+        fac[(tid * MAX_SPLIT + q) * 2 + 1] = eb;
+      }
+    }
+    if (rank == 0) {
+      p.m[out_row(r0 + tid)] = m_a;
+      p.l[out_row(r0 + tid)] = l_a;
+    }
+  }
+  __syncthreads();
+  for (int e = rank * THREADS + tid; e < RT * D / 4;
+       e += p.n_split * THREADS) {
+    const int rr = e / (D / 4), d = 4 * (e % (D / 4));
+    if (r0 + rr >= R) continue;
+    float4 aq[MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q)
+      aq[q] = q < p.n_split
+                  ? *reinterpret_cast<const float4*>(
+                        cluster.map_shared_rank(part, q) + rr * D + d)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a_a = aq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float ea = fac[(rr * MAX_SPLIT + q) * 2];
+        const float eb = fac[(rr * MAX_SPLIT + q) * 2 + 1];
+        a_a.x = a_a.x * ea + aq[q].x * eb;
+        a_a.y = a_a.y * ea + aq[q].y * eb;
+        a_a.z = a_a.z * ea + aq[q].z * eb;
+        a_a.w = a_a.w * ea + aq[q].w * eb;
+      }
+    }
+    *reinterpret_cast<float4*>(p.acc + out_row(r0 + rr) * D + d) = a_a;
+  }
+  cluster.sync();   // no block leaves while another reads its partials
+}
+
+template <int D, typename QT, bool PAGED>
+int launch_int8(const Params& p, int B, int row_tile, cudaStream_t stream) {
+  using F = Int8Form<D>;
+  if (p.n_split > F::MAX_SPLIT || (row_tile != 16 && row_tile != 64) ||
+      p.k_scale == nullptr || p.v_scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = int8_kernel<D, QT, PAGED>;
+  constexpr int smem = F::BYTES;
+  static bool attr = false;   // one flag per instantiation
+  if (!attr) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr = true;
+  }
+  const int R = p.T * p.G;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.n_split, p.H, ((R + row_tile - 1) / row_tile) * B);
+  cfg.blockDim = dim3(F::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.n_split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = p.n_split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p, row_tile));
+}
+
 // K/V storage: the `kv` argument of the entry points
 constexpr int KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2;
 
 template <int DK, int DV, typename QT, bool PAGED>
-int dispatch_kv(const Params& p, int B, int kv, cudaStream_t stream) {
+int dispatch_kv(const Params& p, int B, int kv, int row_tile,
+                cudaStream_t stream) {
   if constexpr (DK != DV) {   // the latent form: f32 or bf16 K/V
+    if (row_tile != LatentForm<DK, DV>::ROWS)
+      return static_cast<int>(cudaErrorInvalidValue);
     switch (kv) {
       case KV_F32:
         return launch_latent<DK, DV, QT, float, PAGED>(p, B, stream);
@@ -1575,24 +2207,26 @@ int dispatch_kv(const Params& p, int B, int kv, cudaStream_t stream) {
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
+    if (kv != KV_INT8 && row_tile != ROWS)
+      return static_cast<int>(cudaErrorInvalidValue);
     switch (kv) {
       case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
       case KV_BF16:
         return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
       case KV_INT8:
-        if (p.k_scale == nullptr || p.v_scale == nullptr)
-          return static_cast<int>(cudaErrorInvalidValue);
-        return launch<DK, DV, QT, int8_t, PAGED>(p, B, stream);
+        return launch_int8<DK, QT, PAGED>(p, B, row_tile, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
 }
 
 template <int DK, int DV, bool PAGED>
-int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv,
+int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv, int row_tile,
                     cudaStream_t stream) {
-  return q_bf16 ? dispatch_kv<DK, DV, __nv_bfloat16, PAGED>(p, B, kv, stream)
-                : dispatch_kv<DK, DV, float, PAGED>(p, B, kv, stream);
+  return q_bf16 ? dispatch_kv<DK, DV, __nv_bfloat16, PAGED>(p, B, kv,
+                                                             row_tile, stream)
+                : dispatch_kv<DK, DV, float, PAGED>(p, B, kv, row_tile,
+                                                    stream);
 }
 
 // The instantiated head widths (Dk, Dv): `ops.py::SUPPORTED_PAIRS`.
@@ -1601,16 +2235,19 @@ int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv,
 
 // Launch on `stream` for head widths (Dk, Dv) of ATTN_PARTIAL_PAIRS and
 // K/V storage `kv` (KV_F32, KV_BF16, or KV_INT8 with scales where Dk ==
-// Dv); returns the launch's error (cudaErrorInvalidValue for another
-// pair, kv or n_split).
+// Dv), `row_tile` query rows a block (`ops.py::tiling`: the GQA form's
+// 16, the latent form's 64, the int8 form's 16 or 64); returns the
+// launch's error (cudaErrorInvalidValue for another pair, kv, row tile
+// or n_split).
 template <bool PAGED>
 int dispatch(const Params& p, int B, int DK, int DV, int q_bf16, int kv,
-             cudaStream_t stream) {
+             int row_tile, cudaStream_t stream) {
   if (p.n_split < 1 || p.span_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
 #define PAIR_CASE(DK_, DV_)                                           \
   if (DK == DK_ && DV == DV_)                                         \
-    return dispatch_dtypes<DK_, DV_, PAGED>(p, B, q_bf16, kv, stream);
+    return dispatch_dtypes<DK_, DV_, PAGED>(p, B, q_bf16, kv, row_tile, \
+                                            stream);
   ATTN_PARTIAL_PAIRS(PAIR_CASE)
 #undef PAIR_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1638,8 +2275,8 @@ int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
                                                       limit);
     case KV_INT8:
       if constexpr (DK == DV)
-        return smem_kv<DK, DV, QT, int8_t, PAGED>(dynamic, static_bytes,
-                                                  limit);
+        return smem_report(int8_kernel<DK, QT, PAGED>, Int8Form<DK>::BYTES,
+                           dynamic, static_bytes, limit);
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

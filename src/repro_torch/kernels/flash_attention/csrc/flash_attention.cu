@@ -20,11 +20,9 @@
 //
 // What the design does about it: K/V are read in place from the resident
 // slot pool through `slot_idx` (no gathered copy, which would read and
-// write every byte once more), in their stored dtype (f32, bf16, or int8
-// with an f32 scale per (row, head): `kv_dtype="int8"` caches), by
+// write every byte once more), in their stored dtype (f32 or bf16), by
 // 16-byte `cp.async` copies into a double buffer and converted to f32
-// where they are used (int8 through the reference's bf16 view,
-// bf16(f32(k8) * scale)). The logical keys of each (request, KV head, tile
+// where they are used. The logical keys of each (request, KV head, tile
 // of 16 query rows) are split over a thread-block cluster of `n_split`
 // blocks (flash-decoding), whose partials merge in fixed order through
 // distributed shared memory, so decode's few rows still fill the SMs. A
@@ -37,6 +35,13 @@
 // sequential K grid axis become a loop inside the block); the
 // arithmetic is f32 on CUDA cores, not wgmma (bf16 tensor cores would
 // need P in bf16, outside the 1e-4 tolerance: ROADMAP queue 2 item 2c).
+//
+// int8 K/V (`kv_dtype="int8"` caches, an f32 scale per (row, head)) runs
+// a kernel of its own in the header (`int8_kernel`): a ring of 8 int8
+// tiles in flight, each tile converted once into the reference's bf16
+// view, bf16(f32(k8) * scale), in shared memory by the warps that read
+// it, both products on `mma.sync` bf16, and 16 or 64 query rows a block
+// by R.
 //
 // MLA targets run its latent form (Dk = 576 != Dv = 512: the absorbed
 // query over one KV head of c_kv ++ k_pe, G = 128 rows a token), a kernel
@@ -62,7 +67,7 @@ extern "C" int fa_partial_launch(
     int64_t vsc_ss, int64_t vsc_sh, int64_t kpos_sp, int64_t qpos_sb,
     int64_t mask_sb, int64_t mask_st, float scale, int causal, int window,
     int q_bf16, int kv, int n_split, int span_tiles, int v_in_k,
-    void* stream) {
+    int row_tile, void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -109,7 +114,7 @@ extern "C" int fa_partial_launch(
   p.causal = causal;
   p.window = window;
   p.v_in_k = v_in_k;
-  return attn_partial::dispatch<false>(p, B, Dk, Dv, q_bf16, kv,
+  return attn_partial::dispatch<false>(p, B, Dk, Dv, q_bf16, kv, row_tile,
                                        static_cast<cudaStream_t>(stream));
 }
 

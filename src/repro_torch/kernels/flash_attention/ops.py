@@ -26,9 +26,10 @@ holding the same keys stay bitwise equal.
 
 An int8 K/V pair is the reference's dequantized bf16 view,
 bf16(f32(k8) * scale) (`dequantize_kv`): the plain version builds that
-view and attends over it; the kernel's int8 form reads the int8 rows and
-scales in place and dequantizes each value to the same bf16 in
-registers.
+view and attends over it; the kernel's int8 form (a kernel of its own)
+reads the int8 rows and scales in place, converts each staged tile once
+to the same bf16 in shared memory for all the rows that read it, and
+takes 16 or 64 query rows a block by R (`tiling`).
 
 Rows are token-major (row r = t * G + g), which is the (B, Hkv, R, D)
 contract of the JAX package's Pallas kernel
@@ -73,11 +74,24 @@ _KV_DTYPES = (torch.float32, torch.bfloat16)
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: query rows per block of the kernel (GQA form)
 ROW_TILE = 16
+#: the int8 K/V form's query rows per block: 16 where R <= 16 (each of a
+#: block's 8 warps takes every 8th key tile of the same rows), else 64
+#: (teams of 4 warps, 16 rows each, share each key tile's bf16 view)
+#: (`attention_partial.cuh::Int8Form`)
+INT8_ROW_TILES = (16, 64)
+#: the int8 form's warps a block and ring of staged int8 key tiles
+INT8_WARPS = 8
+INT8_STAGES = 8
 #: the split plan aims at this many blocks (two per SM of 132), and never
 #: splits a (request, head, row tile) over more blocks than this (the
 #: non-portable cluster limit of the H100)
 SPLIT_TARGET_BLOCKS = 256
 MAX_SPLIT = 16
+#: the int8 form's target: far fewer blocks. One of its 8-warp blocks
+#: fills an SM's registers, so blocks past one a SM run in waves, and
+#: every split adds a cluster merge; 64 was the fastest of the targets
+#: 32 to 1024 tried on the H100 at phase K's shapes
+INT8_SPLIT_TARGET_BLOCKS = 64
 #: the latent form's cluster limit: the portable 8 (one of its blocks
 #: fills an SM's shared memory)
 LATENT_MAX_SPLIT = 8
@@ -101,8 +115,9 @@ def _declare(lib):
                    + [i32] * 7          # B T G H S Dk Dv
                    + [i64] * 20         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 7          # causal window q_bf16 kv
+                   + [i32] * 8          # causal window q_bf16 kv
                                         # n_split span_tiles v_in_k
+                                        # row_tile
                    + [vp])              # stream
     fn.restype = ctypes.c_int
     declare_smem(lib.fa_smem)
@@ -204,12 +219,17 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
 # split planning (plain Python, tested on the CPU)
 # =====================================================================
 
-def tiling(latent: bool):
+def tiling(latent: bool, int8: bool = False, R: int = 1):
     """(keys per tile, most blocks a cluster splits keys over, query rows
     per block) of the form: `latent` for Dk != Dv
-    (`attention_partial.cuh::LatentForm`, else `Form`)."""
-    return ((LATENT_KEY_TILE, LATENT_MAX_SPLIT, LATENT_ROW_TILE) if latent
-            else (KEY_TILE, MAX_SPLIT, ROW_TILE))
+    (`attention_partial.cuh::LatentForm`), `int8` for int8 K/V over R
+    query rows a (request, KV head) (`Int8Form`: its row tile from R),
+    else the GQA form (`Form`)."""
+    if latent:
+        return LATENT_KEY_TILE, LATENT_MAX_SPLIT, LATENT_ROW_TILE
+    if int8:
+        return KEY_TILE, MAX_SPLIT, INT8_ROW_TILES[R > INT8_ROW_TILES[0]]
+    return KEY_TILE, MAX_SPLIT, ROW_TILE
 
 
 def key_tile(Dk: int, Dv: int) -> int:
@@ -219,21 +239,24 @@ def key_tile(Dk: int, Dv: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False):
+def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False,
+                int8: bool = False):
     """(n_split, span_tiles) for B requests x H KV heads x R query rows
-    over S logical keys (`latent`: the Dk != Dv form's tiling). The span
-    (key tiles a block walks in one go) comes from the grid alone: the
-    fewest power-of-two blocks per (request, head, row tile), at most the
-    cluster limit, that give SPLIT_TARGET_BLOCKS blocks over a pool of
+    over S logical keys (`latent`: the Dk != Dv form's tiling; `int8`:
+    the int8 K/V form's, whose target is INT8_SPLIT_TARGET_BLOCKS). The
+    span (key tiles a block walks in one go) comes from the grid alone:
+    the fewest power-of-two blocks per (request, head, row tile), at most
+    the cluster limit, that give SPLIT_TARGET_BLOCKS blocks over a pool of
     SPLIT_REF_KEYS keys. The cluster then covers S with ceil(tiles / span)
     blocks rounded up to a power of two, at most the limit; past it a
     block walks every n_split-th span. So the plan never reads the live
     lengths, and two capacities holding the same keys (a slot pool, a
     page pool's view) sum the same spans in the same order."""
-    kt, max_split, rows = tiling(latent)
+    kt, max_split, rows = tiling(latent, int8, R)
+    target = INT8_SPLIT_TARGET_BLOCKS if int8 else SPLIT_TARGET_BLOCKS
     base = B * H * -(-R // rows)
     n0 = 1
-    while n0 < max_split and base * n0 < SPLIT_TARGET_BLOCKS:
+    while n0 < max_split and base * n0 < target:
         n0 *= 2
     span = max(1, SPLIT_REF_KEYS // kt // n0)
     spans = -(-max(1, -(-S // kt)) // span)
@@ -253,11 +276,15 @@ def _latent_pitch(d: int, size: int, skew: int = 16) -> int:
 def kernel_smem(Dk: int, Dv: int, kv_element_size: int,
                 q_element_size: int = 4) -> int:
     """Dynamic shared memory of one block. GQA form (Dk == Dv): the
-    double-buffered K/V tiles in their stored dtype (4, 2 or 1 bytes a
-    value), reused for the merge's (ROW_TILE, Dv) f32 rows, and for int8
-    K/V the bf16 view of one K/V tile. Latent form: the block's 64 rows of
-    q in their dtype (`q_element_size`), two 16-key tile buffers (K and K,
-    or K and V), the two partial score tiles; at least the merge's
+    double-buffered K/V tiles in their stored dtype (4 or 2 bytes a
+    value), reused for the merge's (ROW_TILE, Dv) f32 rows. int8 K/V (1
+    byte a value): a ring of INT8_STAGES int8 K/V tiles and a bf16 view
+    of one K/V tile for each of up to INT8_WARPS teams (rows padded by 16
+    bytes), at least the warps' partials handed over and the merge's (64,
+    D) f32 rows with m and l and each row's fold factors. Latent form: the
+    block's 64 rows of q in their dtype (`q_element_size`), two 16-key
+    tile buffers (K and K, or K and V), the two partial score tiles; at
+    least the merge's
     (LATENT_ROW_TILE, Dv) f32 rows and each row's fold factors, two f32 a
     rank (`LatentSmem`). (Static shared memory is known only from the
     compiled kernel: the `gpu` tests hold this against the kernels'
@@ -273,8 +300,14 @@ def kernel_smem(Dk: int, Dv: int, kv_element_size: int,
                   + 2 * kt * _latent_pitch(dk, kv_element_size)
                   * kv_element_size + 2 * rows * kt * 4)
         return max(staged, rows * Dv * 4 + rows * max_split * 8)
-    view = kt * (Dk + Dv) * 2 if kv_element_size == 1 else 0
-    return 2 * kt * (Dk + Dv) * kv_element_size + view
+    if kv_element_size == 1:
+        staged = (INT8_STAGES * 2 * kt * Dk
+                  + INT8_WARPS * 2 * kt * (2 * Dk + 16))
+        handed = (INT8_WARPS - 1) * (Dk // 2 + 4) * 32 * 4
+        rows = INT8_ROW_TILES[-1]
+        merge = (rows * Dv + 2 * rows + rows * max_split * 2) * 4
+        return max(staged, handed, merge)
+    return 2 * kt * (Dk + Dv) * kv_element_size
 
 
 def split_ranges(S: int, n_split: int, span_tiles: int,
@@ -434,7 +467,8 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
     if _FN is None:
         _FN = LIBRARY.load().fa_partial_launch
-    n_split, span = plan_splits(B, Hkv, T * G, S, Dk != Dv)
+    int8 = kv == KV_KIND[torch.int8]
+    n_split, span = plan_splits(B, Hkv, T * G, S, Dk != Dv, int8)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
              0 if slot_idx is None else slot_idx.data_ptr(),
@@ -448,13 +482,14 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
              0 if mask is None else mask.stride(1),
              float(scale), int(bool(causal)), int(window),
              int(q.dtype == torch.bfloat16), kv, n_split, span,
-             int(v_in_k(k, v)), cuda_stream(dev))
+             int(v_in_k(k, v)), tiling(Dk != Dv, int8, T * G)[2],
+             cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
     with COUNT_LOCK:
         LAUNCHES += 1
-        if kv == KV_KIND[torch.int8]:
+        if int8:
             LAUNCHES_INT8_KV += 1
         if Dk != Dv:
             LAUNCHES_LATENT += 1

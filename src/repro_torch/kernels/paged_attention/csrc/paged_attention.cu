@@ -29,8 +29,9 @@
 // in the same key tiles, split the same way, with the same tile
 // skipping and merge order, so the partials are bit for bit those of
 // `flash_attention.cu` on the gathered view, for f32, bf16 and int8 pools
-// alike (an int8 pool's scales are read through the same page offsets),
-// and for MLA's latent pools (Dk = 576, Dv = 512) as well, whose kernel
+// alike (an int8 pool's kernel, `int8_kernel`, reads each key's page,
+// scales and position through the block table and copies its K and V
+// rows from the page), and for MLA's latent pools (Dk = 576, Dv = 512) as well, whose kernel
 // (`latent_kernel`) bulk-copies each key row from its page and reads V
 // out of K's tile when the pool's `v` is K's first 512 columns.
 // Element offsets are computed in int64.
@@ -51,7 +52,7 @@ extern "C" int paged_partial_launch(
     int64_t ksc_sp, int64_t ksc_ss, int64_t ksc_sh, int64_t vsc_sp,
     int64_t vsc_ss, int64_t vsc_sh, int64_t pos_sp, int64_t qpos_sb,
     int64_t bt_sb, float scale, int window, int q_bf16, int kv, int n_split,
-    int span_tiles, int v_in_k, void* stream) {
+    int span_tiles, int v_in_k, int row_tile, void* stream) {
   attn_partial::Params p{};
   p.q = q;
   p.k = k;
@@ -98,7 +99,7 @@ extern "C" int paged_partial_launch(
   p.causal = 1;
   p.window = window;
   p.v_in_k = v_in_k;
-  return attn_partial::dispatch<true>(p, B, Dk, Dv, q_bf16, kv,
+  return attn_partial::dispatch<true>(p, B, Dk, Dv, q_bf16, kv, row_tile,
                                       static_cast<cudaStream_t>(stream));
 }
 

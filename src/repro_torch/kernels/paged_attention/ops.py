@@ -53,8 +53,9 @@ def _declare(lib):
                                         # Dk Dv
                    + [i64] * 19         # strides
                    + [ctypes.c_float]   # scale
-                   + [i32] * 6          # window q_bf16 kv
+                   + [i32] * 7          # window q_bf16 kv
                                         # n_split span_tiles v_in_k
+                                        # row_tile
                    + [vp])              # stream
     fn.restype = ctypes.c_int
     fa.declare_smem(lib.paged_smem)
@@ -155,7 +156,8 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
         _FN = LIBRARY.load().paged_partial_launch
     # the split of kernel 1 on the gathered view (S = n_view * ps), so
     # both kernels sum the same tiles in the same order
-    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps, Dk != Dv)
+    int8 = kv == fa.KV_KIND[torch.int8]
+    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps, Dk != Dv, int8)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             page_pos.data_ptr(), page_view.data_ptr(),
             0 if k_scale is None else k_scale.data_ptr(),
@@ -166,13 +168,14 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
             vs[0], vs[1], vs[2], *sc, page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
             int(q.dtype == torch.bfloat16), kv, n_split, span,
-            int(fa.v_in_k(k, v)), cuda_stream(dev))
+            int(fa.v_in_k(k, v)), fa.tiling(Dk != Dv, int8, T * G)[2],
+            cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
     with COUNT_LOCK:
         LAUNCHES += 1
-        if kv == fa.KV_KIND[torch.int8]:
+        if int8:
             LAUNCHES_INT8_KV += 1
         if Dk != Dv:
             LAUNCHES_LATENT += 1

@@ -313,30 +313,45 @@ def test_kernel1_split_edges_match_plain_and_repeat(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 @pytest.mark.parametrize("T,G,H", [(1, 7, 2), (10, 1, 20), (6, 4, 8)])
 def test_kernel1_bits_do_not_depend_on_capacity(cuda, T, G, H, dtype):
     """A slot pool of 1024 keys and a 128-key copy of the same keys give
     kernel 1 the same bits: the span of the key split comes from the
     grid, and blocks past the live keys merge in as exact no-ops. The
-    paged pool's streams equal the resident pool's by this (phase C)."""
+    paged pool's streams equal the resident pool's by this (phase C).
+    int8: the int8 K/V form, with its scales cut the same way."""
     gen = torch.Generator(device=cuda).manual_seed(T * G)
     B, D, S = 4, 64, 1024
     q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
-    k = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
-    v = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
+    int8 = dtype == torch.int8
+    if int8:
+        k, ks = _int8_kv(gen, (B, S, H, D), cuda)
+        v, vs = _int8_kv(gen, (B, S, H, D), cuda)
+    else:
+        k = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
+        v = torch.randn((B, S, H, D), generator=gen, device=cuda).to(dtype)
     lens = [100, 128 - T, 1, 60]
     kpos = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
     for b, n in enumerate(lens):
         kpos[b, :n + T] = torch.arange(n + T, dtype=torch.int32, device=cuda)
     qpos = torch.tensor([[n + t for t in range(T)] for n in lens],
                         dtype=torch.int32, device=cuda)
-    full = fa.attend_partial(q, k, v, qpos, kpos, scale=D ** -0.5)
-    short = fa.attend_partial(q, k[:, :128].contiguous(),
-                              v[:, :128].contiguous(), qpos,
-                              kpos[:, :128].contiguous(), scale=D ** -0.5)
-    assert fa.plan_splits(B, H, T * G, S)[0] > fa.plan_splits(
-        B, H, T * G, 128)[0]
+    full = fa.attend_partial(q, k, v, qpos, kpos, scale=D ** -0.5,
+                             **(dict(k_scale=ks, v_scale=vs) if int8
+                                else {}))
+    short = fa.attend_partial(
+        q, k[:, :128].contiguous(), v[:, :128].contiguous(), qpos,
+        kpos[:, :128].contiguous(), scale=D ** -0.5,
+        **(dict(k_scale=ks[:, :128].contiguous(),
+                v_scale=vs[:, :128].contiguous()) if int8 else {}))
+    n_full, span = fa.plan_splits(B, H, T * G, S, False, int8)
+    n_short, span_short = fa.plan_splits(B, H, T * G, 128, False, int8)
+    # the same span; more blocks over the long pool (int8: or, with one
+    # block, more tiles walked)
+    assert span == span_short and n_full >= n_short
+    assert n_full > n_short or int8
     for a, b in zip(full, short):
         assert torch.equal(a, b)
 
@@ -434,14 +449,21 @@ def _int8_kv(gen, shape, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,G,T", [(64, 7, 1), (128, 1, 10), (32, 2, 40),
-                                   (16, 4, 3), (128, 4, 6)])
+                                   (16, 4, 3), (128, 4, 6),
+                                   # phase K's widths (target D 128, G 1;
+                                   # drafter D 64, G 7): decode, cache
+                                   # pass, commit, a 512-token prefill
+                                   (128, 1, 1), (128, 1, 6), (128, 1, 512),
+                                   (64, 7, 10), (64, 7, 6), (64, 7, 512)])
 def test_int8_kv_kernel1_matches_plain(cuda, D, G, T, qdtype):
     """Kernel 1's int8 K/V form against its plain version (the
     reference's dequantized bf16 view through the plain partials): a slot
     pool read in place with its scales, plain causal, a mask, a window and
-    a fully masked row. Each value is dequantized to the same bf16, so
-    only the summation order differs: rtol = atol = 1e-4. Two runs give
-    the same bits."""
+    a fully masked row, at 16-row blocks (R <= 16) and 64-row blocks. Each
+    value is dequantized to the same bf16 and the products run on bf16
+    tensor cores with q and P split into two bf16 halves (about 2^-17),
+    so the difference is of the order of f32 summation order: rtol = atol
+    = 1e-4. Two runs give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(D + T)
     B, H, P, C = 3, 2, 5, 300
     q = torch.randn((B, T, H, G, D), generator=gen, device=cuda).to(qdtype)
@@ -545,6 +567,72 @@ def test_int8_kv_wrappers_raise_instead_of_falling_back(cuda):
                                     kpos.reshape(B * S // ps, ps), tbl,
                                     scale=D ** -0.5, **kw)
     assert (fa.LAUNCHES, pa.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("T,G", [(1, 7), (10, 1), (512, 1)])
+def test_int8_kv_same_bits_in_graph_on_stream_and_twice(cuda, T, G, paged):
+    """The int8 K/V form (16-row and 64-row blocks, kernel 1 and the paged
+    kernel) launches once per call and gives the same bits from the
+    default stream, a second run, a second stream and a CUDA graph replay
+    (no atomics, partials merged in a fixed order, no state kept between
+    calls)."""
+    gen = torch.Generator(device=cuda).manual_seed(T + G)
+    B, H, D, ps = 2, 2, 64, 64
+    S = 1024
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    lens = [min(S, 700), 90]
+    qpos = torch.tensor([[max(n - T, 0) + t for t in range(T)]
+                         for n in lens], dtype=torch.int32, device=cuda)
+    if paged:
+        P = 2 + B * S // ps
+        k8, ks = _int8_kv(gen, (P, ps, H, D), cuda)
+        v8, vs = _int8_kv(gen, (P, ps, H, D), cuda)
+        pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+        tbl = torch.arange(2, P, dtype=torch.int32,
+                           device=cuda).view(B, S // ps)
+        for b, n in enumerate(lens):
+            flat = torch.full((S,), -1, dtype=torch.int32, device=cuda)
+            flat[:n] = torch.arange(n, dtype=torch.int32, device=cuda)
+            pos[tbl[b].long()] = flat.view(-1, ps)
+
+        def call():
+            return pa.paged_attend_partial(q, k8, v8, qpos, pos, tbl,
+                                           scale=D ** -0.5, k_scale=ks,
+                                           v_scale=vs)
+        counter = pa
+    else:
+        k8, ks = _int8_kv(gen, (B, S, H, D), cuda)
+        v8, vs = _int8_kv(gen, (B, S, H, D), cuda)
+        kpos = torch.full((B, S), -1, dtype=torch.int32, device=cuda)
+        for b, n in enumerate(lens):
+            kpos[b, :n] = torch.arange(n, dtype=torch.int32, device=cuda)
+
+        def call():
+            return fa.attend_partial(q, k8, v8, qpos, kpos, scale=D ** -0.5,
+                                     k_scale=ks, v_scale=vs)
+        counter = fa
+    before = (counter.LAUNCHES, counter.LAUNCHES_INT8_KV)
+    ref = call()
+    assert (counter.LAUNCHES, counter.LAUNCHES_INT8_KV) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(call(), ref):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = call()
+    torch.cuda.current_stream().wait_stream(side)
+    for a, b in zip(on_side, ref):
+        assert torch.equal(a, b)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        captured = call()
+    g.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, ref):
+        assert torch.equal(a, b)
 
 
 def _latent_pool(gen, cuda, Dk, Dv, dtype, P, S, lens):

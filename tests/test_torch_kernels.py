@@ -226,17 +226,22 @@ SPLIT_SHAPES = [(4, 2, 7, 1024), (4, 20, 10, 1024), (4, 20, 10, 10),
                 (5, 3, 33, 999)]
 
 
-@pytest.mark.parametrize("B,H,R,S", SPLIT_SHAPES)
-def test_split_plan_covers_every_key_tile_once(B, H, R, S):
+@pytest.mark.parametrize(
+    "B,H,R,S,int8", [(*sh, False) for sh in SPLIT_SHAPES]
+    + [(*sh, True) for sh in SPLIT_SHAPES],
+    ids=["-".join(map(str, sh)) for sh in SPLIT_SHAPES]
+    + ["int8-" + "-".join(map(str, sh)) for sh in SPLIT_SHAPES])
+def test_split_plan_covers_every_key_tile_once(B, H, R, S, int8):
     """The blocks of a cluster walk spans of whole 32-key tiles, in rank
     order, that cover the S logical keys exactly once, as the kernel
     numbers them (rank r's i-th tile is (r + n (i // span)) span +
     i % span); the span comes from the grid alone, never from S, and
     meets the block target at the reference capacity unless the cluster
-    limit stops it."""
-    n, span = fa.plan_splits(B, H, R, S)
+    limit stops it: for the GQA form and the int8 K/V form (its row tile
+    from R, its own target)."""
+    n, span = fa.plan_splits(B, H, R, S, False, int8)
     assert 1 <= n <= fa.MAX_SPLIT and n & (n - 1) == 0 and span >= 1
-    assert span == fa.plan_splits(B, H, R, 4 * S + 7)[1]
+    assert span == fa.plan_splits(B, H, R, 4 * S + 7, False, int8)[1]
     n_tiles = -(-S // fa.KEY_TILE)
     ranges = fa.split_ranges(S, n, span)
     assert len(ranges) == n
@@ -250,24 +255,58 @@ def test_split_plan_covers_every_key_tile_once(B, H, R, S):
         tiles += mine
     assert sorted(tiles) == list(range(n_tiles))
     n_ref = fa.SPLIT_REF_KEYS // fa.KEY_TILE // span
-    assert (B * H * -(-R // fa.ROW_TILE) * n_ref >= fa.SPLIT_TARGET_BLOCKS
+    rows = fa.tiling(False, int8, R)[2]
+    target = fa.INT8_SPLIT_TARGET_BLOCKS if int8 else fa.SPLIT_TARGET_BLOCKS
+    assert (B * H * -(-R // rows) * n_ref >= target
             or n_ref >= fa.MAX_SPLIT)
+
+
+# phase K's int8 K/V reads (chip_smoke.py): (B, Hkv, R) of the target
+# (Hkv 20, G 1) and the drafters (Hkv 2, G 7) at decode, the tree's cache
+# pass (T 10), a T = 6 commit and a T = 512 prefill, over a 1024-key pool,
+# with the (n_split, span, row tile) each gets
+INT8_PLANS = [((4, 20, 1), (1, 32, 16)), ((4, 20, 10), (1, 32, 16)),
+              ((4, 20, 6), (1, 32, 16)), ((1, 20, 512), (1, 32, 64)),
+              ((4, 2, 7), (8, 4, 16)), ((4, 2, 70), (4, 8, 64)),
+              ((4, 2, 42), (8, 4, 64)), ((1, 2, 3584), (1, 32, 64))]
+
+
+@pytest.mark.parametrize("grid,plan", INT8_PLANS)
+def test_int8_plan_at_phase_k_shapes(grid, plan):
+    """The int8 K/V form's plan at the serving shapes: 16 query rows a
+    block up to R = 16, else 64; its own block target (one 8-warp block
+    fills an SM); the same span for a page pool's view of 128 keys, so
+    pools of other capacities sum the same spans in the same order."""
+    B, H, R = grid
+    n, span = fa.plan_splits(B, H, R, fa.SPLIT_REF_KEYS, False, True)
+    rows = fa.tiling(False, True, R)[2]
+    assert (n, span, rows) == plan
+    assert B * H * -(-R // rows) * n >= fa.INT8_SPLIT_TARGET_BLOCKS or \
+        n * span * fa.KEY_TILE >= fa.SPLIT_REF_KEYS
+    assert fa.plan_splits(B, H, R, 128, False, True)[1] == span
 
 
 def test_attention_kernel_smem_in_budget():
     """Every instantiation's dynamic shared memory fits a block on the
     H100 and holds the merge's (row tile, Dv) f32 rows, at every (Dk, Dv)
-    pair the kernels are built for: the GQA form's K/V double buffer
-    (int8: with the bf16 view of a tile) and the latent form's 64 rows of
-    q, two tile buffers and score tiles, at f32 and bf16 q (a `gpu` test
-    holds it, with the static part, against the compiled kernels)."""
+    pair the kernels are built for: the GQA form's K/V double buffer,
+    the int8 form's ring of int8 tiles and bf16 views (holding the
+    merge's rows of its largest row tile, 64) and the latent form's 64
+    rows of q, two
+    tile buffers and score tiles, at f32 and bf16 q (a `gpu` test holds
+    it, with the static part, against the compiled kernels)."""
     assert (576, 512) in fa.SUPPORTED_PAIRS
     for Dk, Dv in fa.SUPPORTED_PAIRS:
-        rows = fa.tiling(Dk != Dv)[2]
         for size in ((1, 2, 4) if Dk == Dv else (2, 4)):
+            rows = fa.tiling(Dk != Dv, size == 1, 64)[2]
             for q_size in (2, 4):
                 dynamic = fa.kernel_smem(Dk, Dv, size, q_size)
                 assert rows * Dv * 4 <= dynamic <= SMEM_LIMIT
+    # the int8 form: 8 stages of 32 int8 K and V rows, and 8 bf16 views
+    # of 32 K and V rows (2 D + 16 bytes a row)
+    assert fa.kernel_smem(128, 128, 1) == 8 * 64 * 128 + 8 * 64 * 272
+    assert fa.kernel_smem(64, 64, 1) == 8 * 64 * 64 + 8 * 64 * 144
+    assert fa.kernel_smem(16, 16, 1) == 8 * 64 * 16 + 8 * 64 * 48
 
 
 def _split_merged(q, k, v, qpos, kpos, mask, scale, window, slot_idx):

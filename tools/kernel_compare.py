@@ -1,0 +1,260 @@
+#!/usr/bin/env python3
+"""Time this checkout's kernels beside another checkout's on one card.
+
+`chip_smoke.py` times each kernel of the port at the serving shapes in
+one run of one tree. To compare two trees (a change and its parent) the
+numbers must come from one card in one call, in turns. This script runs
+each tree's own `chip_smoke.py` kernel phases in a process of its own,
+in the order other, this, this, other, and prints per shape both trees'
+times (the mean of their two runs) and their ratio:
+
+  kernels  kernels 1 and 2 (f32 / bf16 K/V), their latent form (MLA),
+           the int8 GEMV at phase D's default row counts and the SSD
+           scan (`kernel_phase`, `paged_kernel_phase`, `mla_kernel_phase`,
+           `int8_kernel_phase`, `ssd_kernel_phase`);
+  int8kv   the int8 K/V forms of kernels 1 and 2 (`int8kv_kernel_phase`);
+  profile  a `torch.profiler` window over 5 iterations of phase K (int8
+           KV caches) on each tree's package, measured by this checkout's
+           `profile_int8kv_window`: the int8 forms' share of the device's
+           busy time;
+  sass     the SASS of every kernel both trees' attention libraries
+           (kernels 1 and 2) define under one (mangled) name, compared
+           function by function (`cuobjdump -sass`): which compiled to
+           the same instructions.
+
+    python3 tools/kernel_compare.py --other DIR [--phases int8kv,...]
+
+DIR is another checkout with its own `chip_smoke.py` and `src/` (e.g. the
+parent commit unpacked by `git archive` into a git-ignored directory);
+each tree builds its kernels into its own `build/kernels/`. Needs a CUDA
+card; the report also goes to `chiprun_out/kernel_compare.json`.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("kernels", "int8kv", "profile", "sass")
+#: the row counts `chip_smoke.py` gives the int8 GEMV when phase D has
+#: not run (its defaults)
+GEMV_ROWS = (4, 24, 512)
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _time_keys(row):
+    """A row's measured times: `ms` and every other number named *_ms
+    (yardsticks, the plain version, V out of K)."""
+    return {k: v for k, v in row.items()
+            if k.endswith("ms") and isinstance(v, (int, float))}
+
+
+def _sass(lib: Path) -> dict:
+    """{mangled function name: its SASS instructions} of a library (the
+    instruction text without its address comments)."""
+    cuobjdump = Path("/usr/local/cuda/bin/cuobjdump")
+    out = subprocess.run([str(cuobjdump if cuobjdump.exists()
+                              else "cuobjdump"), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None and "/*" in line:
+            text = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).strip()
+            text = re.sub(r"/\*.*?\*/", "", text).strip()
+            if text:
+                funcs[name].append(text)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def worker(tree: Path, phases, out: Path) -> None:
+    """One tree's run: its own `chip_smoke.py` phases on its own package."""
+    import numpy as np
+    import torch
+
+    smoke = _load(tree / "chip_smoke.py", "tree_smoke")
+    own = _load(ROOT / "chip_smoke.py", "own_smoke")
+    # both modules put their tree's src first: the package is the tree's
+    for p in (str(ROOT / "src"), str(tree / "src")):
+        while p in sys.path:
+            sys.path.remove(p)
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.int8_gemv import ops as ig
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models import attention as attn
+    from repro_torch.models import quantize
+    assert Path(fa.__file__).resolve().is_relative_to(tree.resolve()), \
+        fa.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    libraries = [fa.LIBRARY, pa.LIBRARY, ig.LIBRARY, sd.LIBRARY]
+    build.build_all(libraries)
+    res = dict(tree=str(tree), device=smoke.nvidia_smi_line(), rows={})
+
+    def keep(group, rows):
+        for r in rows:
+            res["rows"][f"{group}/{r['name']}"] = _time_keys(r)
+
+    if "kernels" in phases:
+        keep("kernel1", smoke.kernel_phase(torch, fa)[0])
+        keep("kernel2", smoke.paged_kernel_phase(torch, fa, pa))
+        fam, pam, _ = smoke.mla_kernel_phase(torch, fa, pa)
+        keep("kernel1-mla", fam)
+        keep("kernel2-mla", pam)
+        keep("int8_gemv", smoke.int8_kernel_phase(torch, ig, quantize,
+                                                  GEMV_ROWS)[0])
+        keep("ssd", smoke.ssd_kernel_phase(torch, sd)[0])
+    if "int8kv" in phases:
+        r8, p8, _ = smoke.int8kv_kernel_phase(torch, fa, pa, attn)
+        keep("kernel1-int8kv", r8)
+        keep("kernel2-int8kv", p8)
+    if "profile" in phases:
+        from repro_torch.configs import QWEN1_5_4B, QWEN2_0_5B
+        from repro_torch.models import model as M
+        kcfg = QWEN1_5_4B.with_overrides(kv_dtype="int8")
+        kdcfg = QWEN2_0_5B.with_overrides(kv_dtype="int8")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, kcfg.vocab, n).tolist()
+                   for n in own.PROMPT_LENS]
+        target = (kcfg, M.init_params(QWEN1_5_4B, seed=0, device="cuda"))
+        drafters = [(kdcfg, M.init_params(QWEN2_0_5B, seed=1 + i,
+                                          device="cuda"), f"d{i}")
+                    for i in range(2)]
+
+        def int8kv(name):
+            # the int8 form is `int8_kernel`, or (in trees where it is an
+            # instantiation of the GQA kernel) `partial_kernel` over
+            # signed char K/V
+            return own.is_int8kv_kernel(name) or (
+                "partial_kernel" in name and "signed char" in name)
+
+        res["profile"] = own.profile_int8kv_window(torch, target, drafters,
+                                                   prompts, match=int8kv)
+    if "sass" in phases:
+        res["sass"] = {lib.name: _sass(lib.library_path())
+                       for lib in (fa.LIBRARY, pa.LIBRARY)}
+    out.write_text(json.dumps(res))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, help="the other checkout")
+    ap.add_argument("--phases", default="int8kv",
+                    help=f"comma-separated, of {', '.join(PHASES)}")
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--json", type=Path, help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    phases = a.phases.split(",")
+    if any(p not in PHASES for p in phases):
+        ap.error(f"--phases takes {PHASES}")
+    if a.worker is not None:
+        worker(a.worker, phases, a.json)
+        return 0
+    if a.other is None:
+        ap.error("--other DIR is required")
+    trees = {"other": a.other.resolve(), "this": ROOT}
+    runs = {"other": [], "this": []}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for i, who in enumerate(("other", "this", "this", "other")):
+            out = Path(tmp) / f"{i}.json"
+            # the SASS and the profiler window once per tree
+            ph = [p for p in phases
+                  if p in ("kernels", "int8kv") or len(runs[who]) == 0]
+            if not ph:
+                continue
+            print(f"run {i}: {who} ({trees[who]}): {','.join(ph)}",
+                  flush=True)
+            rc = subprocess.run([sys.executable, __file__, "--worker",
+                                 str(trees[who]), "--phases", ",".join(ph),
+                                 "--json", str(out)]).returncode
+            if rc != 0:
+                print(f"run {i} ({who}) failed: exit {rc}", file=sys.stderr)
+                return 1
+            runs[who].append(json.loads(out.read_text()))
+    report = dict(device=[r["device"] for r in runs["this"]],
+                  rows={}, profile={}, sass={})
+    names = [k for k in runs["this"][0]["rows"]
+             if k in runs["other"][0]["rows"]]
+    for name in names:
+        cell = {}
+        for key in runs["this"][0]["rows"][name]:
+            vals = {who: [r["rows"][name][key] for r in runs[who]
+                          if key in r["rows"].get(name, {})]
+                    for who in runs}
+            if not all(vals.values()):
+                continue
+            o = sum(vals["other"]) / len(vals["other"])
+            t = sum(vals["this"]) / len(vals["this"])
+            cell[key] = dict(other=vals["other"], this=vals["this"],
+                             ratio=t / o if o else None)
+        report["rows"][name] = cell
+        c = cell.get("ms")
+        if c:
+            print(f"{name:70s} other {c['other']} this {c['this']} "
+                  f"this/other {c['ratio']:.4f}", flush=True)
+    groups = sorted({n.split("/")[0] for n in names})
+    for g in groups:
+        o = sum(sum(report["rows"][n]["ms"]["other"]) /
+                len(report["rows"][n]["ms"]["other"])
+                for n in names if n.startswith(g + "/"))
+        t = sum(sum(report["rows"][n]["ms"]["this"]) /
+                len(report["rows"][n]["ms"]["this"])
+                for n in names if n.startswith(g + "/"))
+        report.setdefault("sums", {})[g] = dict(other=o, this=t,
+                                                ratio=t / o)
+        print(f"sum {g}: other {o:.4f} ms, this {t:.4f} ms, this/other "
+              f"{t / o:.4f}", flush=True)
+    for who in runs:
+        if "profile" in runs[who][0]:
+            report["profile"][who] = runs[who][0]["profile"]
+            print(f"profile {who}: {runs[who][0]['profile']}", flush=True)
+    if "sass" in phases:
+        for lib, funcs in runs["this"][0]["sass"].items():
+            theirs = runs["other"][0]["sass"].get(lib, {})
+            same = sorted(f for f in funcs if theirs.get(f) == funcs[f])
+            diff = sorted(f for f in funcs if f in theirs
+                          and theirs[f] != funcs[f])
+            for f in diff:
+                a, b = theirs[f].splitlines(), funcs[f].splitlines()
+                k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                print(f"  {f}: {len(a)} / {len(b)} instructions, first "
+                      f"difference at {k}: {a[k:k + 1]} / {b[k:k + 1]}",
+                      flush=True)
+            report["sass"][lib] = dict(
+                same=same, differ=diff,
+                only_this=sorted(set(funcs) - set(theirs)),
+                only_other=sorted(set(theirs) - set(funcs)))
+            print(f"sass {lib}: {len(same)} functions the same, "
+                  f"{len(diff)} differ {diff}, only here "
+                  f"{len(set(funcs) - set(theirs))}, only there "
+                  f"{len(set(theirs) - set(funcs))}", flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "kernel_compare.json").write_text(json.dumps(report,
+                                                           indent=1))
+    print(f"device: {report['device']}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
