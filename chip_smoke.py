@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's four hand-written Hopper kernels (kernels 1 and 2 with
-their f32, bf16 and int8 K/V forms and their latent form for MLA) from
-the sources
+their f32, bf16 and int8 K/V forms, their latent form for MLA and their
+(120, 120) instantiation; kernel 1's non-causal form for cross-attention
+and the Whisper encoder) from the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
@@ -92,7 +93,27 @@ wrappers), then serves the CoSine path end to end through
   phase L-f32  phase L with f32 activations: the greedy streams committed
            exactly; then a `torch.profiler` window over a few of phase
            L's iterations (the latent kernels' and the MoE layer's share
-           of the device's busy time).
+           of the device's busy time);
+  phase M  (after L's weights are released) an h2o-danube3-4b target at
+           full width and depth (24 layers, d_model 3840, GQA 32/8 of
+           head width 120, SWA 4096; ~16 GB of random f32 weights) with
+           two llama-68m drafters (seeds 1 and 2): every cache read of
+           the target on the kernels' (120, 120) instantiation;
+  phase M-paged  phase M on the paged pool: streams equal phase M's;
+  phase N  llama-3.2-vision-11b at full width and depth (40 layers,
+           d_model 4096, GQA 32/8 of 128, cross-attention layers 3, 8,
+           ..., 38 over 1601 frontend rows; ~41 GB of f32 weights): first
+           the image check (`image_check`: a seeded (4, 1601, 4096)
+           frontend prefilled with the prompts, 16 batched greedy decodes
+           reading the cross rows on kernel 1's non-causal form, held
+           against `apply(frontend=...)` over each whole sequence), then
+           a text-only serve (no frontend, as the reference's serving)
+           with two drafters sharing its weights;
+  phase O  whisper-small at full width and depth (12 encoder and 12
+           decoder layers, d_model 768, MHA 12 x 64, 1500 encoder rows,
+           LayerNorm, GELU, learned positions): the image check with
+           seeded (4, 1500, 768) frames (the encoder on kernel 1,
+           non-causal, T = S = 1500), then the text-only serve.
 
 Before the serving phases the int8 K/V forms of kernels 1 and 2 (a
 kernel of their own, `int8_kernel`, whose compiled registers and spills
@@ -108,7 +129,12 @@ prefill; f32 and bf16 K/V) beside SDPA over K/V expanded to 128 heads
 (the backend it takes is printed), with a V of its own and with V = K's
 first 512 columns (the served case, read out of K's tile: bitwise equal
 to a clone of those columns, both timed), and its compiled shared memory
-against `kernel_smem`.
+against `kernel_smem`. Kernels 1 and 2 at head width 120 are held the same
+way at phase M's target shapes (Hkv 8, G 4; decode, the tree's cache pass
+and segment, a T = 6 commit, a T = 512 prefill; f32 and bf16 K/V; paged
+bitwise kernel 1), and kernel 1's non-causal form at phases N and O's
+reads (one token over 1601 and 1500 cross rows, the encoder's T = S =
+1500) beside SDPA with is_causal=False.
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
@@ -194,6 +220,19 @@ KERNEL_SOURCES = {
     "paged_flash_decode_mla": (
         "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:127"),
+    # kernels 1 and 2 at head width 120 (h2o-danube3-4b: the (120, 120)
+    # instantiation; launches also counted above)
+    "flash_attention_partial_d120": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
+    "paged_flash_decode_d120": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:127"),
+    # kernel 1 without the causal mask: cross-attention reads and the
+    # Whisper encoder (launches also counted above)
+    "flash_attention_partial_noncausal": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
 }
 
 
@@ -360,40 +399,49 @@ def kernel_phase(torch, fa):
         cases += _hybrid_attention_cases(torch, rnd, pool_pos, lens,
                                          slot_idx, cur, dn, dtype)
 
-    rows = []
-    host = None
-    for c in cases:
-        kw = dict(scale=c["q"].shape[-1] ** -0.5, causal=c["causal"],
-                  window=0, mask=c["mask"], slot_idx=c["slot_idx"])
-        args = (c["q"], c["k"], c["v"], c["q_pos"], c["k_pos"])
-        got = fa.attend_partial(*args, **kw)
-        want = fa.attend_partial_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = _check_partials(torch, fa, c["name"], got, want)
-        ms = _graph_ms(torch, lambda: fa.attend_partial(*args, **kw))
-        plain_ms = _graph_ms(torch, lambda: fa.attend_partial_plain(
-            *args, **kw), reps=3)
-        lib_ms = _library_ms(torch, c["q"], c["k"], c["v"], c["q_pos"],
-                             c["k_pos"], c["slot_idx"], c["mask"])
-        nbytes, flops = _work(torch, *args, c["slot_idx"], c["mask"],
-                              c["causal"])
-        kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
-        bound, by = _bound(nbytes, flops, kv_type)
-        rows.append(dict(name=c["name"], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                         library_ms=lib_ms, bytes=nbytes, flops=flops,
-                         dtype=kv_type))
-        print(f"kernel {c['name']}: splits {fa.plan_splits(*_bhrs(c))}  "
-              f"max|err| {err:.2e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
-              f"sdpa {lib_ms:.4f} ms", flush=True)
-        if host is None:      # the first case: drafter decode, f32 K/V
-            host = dict(shape=c["name"], attend_partial_us=_host_us(
-                torch, lambda: fa.attend_partial(*args, **kw)))
-            print(f"host cost per call ({c['name']}): attend_partial "
-                  f"{host['attend_partial_us']:.1f} us (enqueue only)",
-                  flush=True)
+    rows = [kernel1_row(torch, fa, c) for c in cases]
+    # host cost of a call at the first case: drafter decode, f32 K/V
+    c = cases[0]
+    host = dict(shape=c["name"], attend_partial_us=_host_us(
+        torch, lambda: fa.attend_partial(*_args(c), **_kw(c))))
+    print(f"host cost per call ({c['name']}): attend_partial "
+          f"{host['attend_partial_us']:.1f} us (enqueue only)", flush=True)
     return rows, host
+
+
+def _args(c):
+    return c["q"], c["k"], c["v"], c["q_pos"], c["k_pos"]
+
+
+def _kw(c):
+    return dict(scale=c["q"].shape[-1] ** -0.5, causal=c["causal"],
+                window=0, mask=c["mask"], slot_idx=c["slot_idx"])
+
+
+def kernel1_row(torch, fa, c):
+    """Kernel 1 at one case: held against its plain version, timed beside
+    it, its bound and one SDPA call; returns the row."""
+    args, kw = _args(c), _kw(c)
+    got = fa.attend_partial(*args, **kw)
+    want = fa.attend_partial_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = _check_partials(torch, fa, c["name"], got, want)
+    ms = _graph_ms(torch, lambda: fa.attend_partial(*args, **kw))
+    plain_ms = _graph_ms(torch, lambda: fa.attend_partial_plain(
+        *args, **kw), reps=3)
+    lib_ms = _library_ms(torch, *args, c["slot_idx"], c["mask"],
+                         causal=c["causal"])
+    nbytes, flops = _work(torch, *args, c["slot_idx"], c["mask"],
+                          c["causal"])
+    kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
+    bound, by = _bound(nbytes, flops, kv_type)
+    print(f"kernel {c['name']}: splits {fa.plan_splits(*_bhrs(c))}  "
+          f"max|err| {err:.2e}  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+          f"sdpa {lib_ms:.4f} ms", flush=True)
+    return dict(name=c["name"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                bytes=nbytes, flops=flops, dtype=kv_type)
 
 
 def _bhrs(c):
@@ -490,32 +538,38 @@ def _check_partials(torch, fa, name, got, want):
     return err
 
 
-def _sdpa_call(torch, q, k, v, q_pos, k_pos, slot_idx, mask, scale=None):
+def _sdpa_call(torch, q, k, v, q_pos, k_pos, slot_idx, mask, scale=None,
+               causal=True):
     """One scaled_dot_product_attention call computing the normalised
     output on the same inputs, as a callable: gathered K/V expanded over
-    the query heads and a boolean mask, all prepared outside the call."""
+    the query heads and a boolean mask, all prepared outside the call (a
+    non-causal read of keys that are all valid takes no mask,
+    is_causal=False)."""
     import torch.nn.functional as F
     B, T, H, G, D = q.shape
     kp = k_pos
     if slot_idx is not None:
         idx = slot_idx.long()
         k, v, kp = k[idx], v[idx], kp[idx]
-    valid = (kp >= 0)[:, None, :] & (kp[:, None, :] <= q_pos[:, :, None])
+    valid = (kp >= 0)[:, None, :].expand(B, T, kp.shape[1])
+    if causal:
+        valid = valid & (kp[:, None, :] <= q_pos[:, :, None])
     if mask is not None:
         valid = valid & mask
     qs = q.to(k.dtype).reshape(B, T, H * G, D).transpose(1, 2).contiguous()
     ks = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
-    am = valid[:, None].expand(B, H * G, T, kp.shape[1]).contiguous()
+    am = (None if not causal and bool(valid.all()) else
+          valid[:, None].expand(B, H * G, T, kp.shape[1]).contiguous())
     scale = D ** -0.5 if scale is None else scale
     return lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=am,
                                                   scale=scale)
 
 
-def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask):
+def _library_ms(torch, q, k, v, q_pos, k_pos, slot_idx, mask, causal=True):
     """The time of `_sdpa_call`: a yardstick only."""
     return _graph_ms(torch, _sdpa_call(torch, q, k, v, q_pos, k_pos,
-                                       slot_idx, mask))
+                                       slot_idx, mask, causal=causal))
 
 
 def _paged_pool(torch, gen, perm, H, D, held, Dv=None):
@@ -611,44 +665,164 @@ def paged_kernel_phase(torch, fa, pa):
                                      generator=gen, device="cuda"),
             k=k, v=v, pos=pos, tbl=tbl, q_pos=rows_from(start, rows)))
 
-    rows = []
-    for c in cases:
-        D = c["q"].shape[-1]
-        args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"], c["tbl"])
-        kw = dict(scale=D ** -0.5)
-        got = pa.paged_attend_partial(*args, **kw)
-        want = pa.paged_attend_partial_plain(*args, **kw)
-        kv = pa.gather_view(c["k"], c["tbl"])
-        vv = pa.gather_view(c["v"], c["tbl"])
-        kpv = pa.gather_view(c["pos"], c["tbl"])
-        k1_args = (c["q"], kv, vv, c["q_pos"], kpv)
-        k1 = fa.attend_partial(*k1_args, **kw)
-        torch.cuda.synchronize()
-        err = _check_partials(torch, fa, c["name"], got, want)
-        vs_k1 = max(float((a - b).abs().max()) for a, b in zip(got, k1))
-        ms = _graph_ms(torch, lambda: pa.paged_attend_partial(*args, **kw))
-        plain_ms = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
-            *args, **kw), reps=3)
-        k1_ms = _graph_ms(torch, lambda: fa.attend_partial(*k1_args, **kw))
-        lib_ms = _library_ms(torch, c["q"], kv, vv, c["q_pos"], kpv, None,
-                             None)
-        nbytes, flops = _work(torch, *k1_args, None, None, True)
-        nbytes += c["tbl"].numel() * 4
-        bound, by = _bound(nbytes, flops, "float32")
-        rows.append(dict(name=c["name"], max_abs_err=err,
-                         max_abs_diff_vs_kernel1=vs_k1, ms=ms,
-                         plain_ms=plain_ms, kernel1_gathered_ms=k1_ms,
-                         bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                         bytes=nbytes, flops=flops, dtype="float32"))
-        B_, T_, H_, G_, _ = c["q"].shape
-        print(f"kernel paged {c['name']}: splits "
-              f"{fa.plan_splits(B_, H_, T_ * G_, kv.shape[1])}  "
-              f"max|err| {err:.2e}  |paged - "
-              f"kernel 1 on the gathered view| {vs_k1:.3g}  kernel "
-              f"{ms:.4f} ms  plain {plain_ms:.4f} ms  kernel 1 gathered "
-              f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
-              f"{lib_ms:.4f} ms", flush=True)
-    return rows
+    return [paged_row(torch, fa, pa, c) for c in cases]
+
+
+def paged_row(torch, fa, pa, c):
+    """The paged kernel at one case: held against its plain version and,
+    bit for bit, against kernel 1 on the gathered view, timed beside
+    both, its bound and one SDPA call; returns the row."""
+    D = c["q"].shape[-1]
+    args = (c["q"], c["k"], c["v"], c["q_pos"], c["pos"], c["tbl"])
+    kw = dict(scale=D ** -0.5)
+    got = pa.paged_attend_partial(*args, **kw)
+    want = pa.paged_attend_partial_plain(*args, **kw)
+    kv = pa.gather_view(c["k"], c["tbl"])
+    vv = pa.gather_view(c["v"], c["tbl"])
+    kpv = pa.gather_view(c["pos"], c["tbl"])
+    k1_args = (c["q"], kv, vv, c["q_pos"], kpv)
+    k1 = fa.attend_partial(*k1_args, **kw)
+    torch.cuda.synchronize()
+    err = _check_partials(torch, fa, c["name"], got, want)
+    vs_k1 = max(float((a - b).abs().max()) for a, b in zip(got, k1))
+    ms = _graph_ms(torch, lambda: pa.paged_attend_partial(*args, **kw))
+    plain_ms = _graph_ms(torch, lambda: pa.paged_attend_partial_plain(
+        *args, **kw), reps=3)
+    k1_ms = _graph_ms(torch, lambda: fa.attend_partial(*k1_args, **kw))
+    lib_ms = _library_ms(torch, c["q"], kv, vv, c["q_pos"], kpv, None, None)
+    nbytes, flops = _work(torch, *k1_args, None, None, True)
+    nbytes += c["tbl"].numel() * 4
+    kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
+    bound, by = _bound(nbytes, flops, kv_type)
+    B_, T_, H_, G_, _ = c["q"].shape
+    print(f"kernel paged {c['name']}: splits "
+          f"{fa.plan_splits(B_, H_, T_ * G_, kv.shape[1])}  "
+          f"max|err| {err:.2e}  |paged - "
+          f"kernel 1 on the gathered view| {vs_k1:.3g}  kernel "
+          f"{ms:.4f} ms  plain {plain_ms:.4f} ms  kernel 1 gathered "
+          f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
+          f"{lib_ms:.4f} ms", flush=True)
+    return dict(name=c["name"], max_abs_err=err,
+                max_abs_diff_vs_kernel1=vs_k1, ms=ms, plain_ms=plain_ms,
+                kernel1_gathered_ms=k1_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, bytes=nbytes, flops=flops, dtype=kv_type)
+
+
+# phase M's target (h2o-danube3-4b): 8 KV heads, 4 query heads each, of
+# width 120
+D120_H, D120_G, D120_D = 8, 4, 120
+
+
+def d120_kernel_phase(torch, fa, pa):
+    """Kernels 1 and 2 at head width 120, phase M's target shapes, f32 and
+    bf16 K/V: decode, the tree's cache pass (T = 10) and (kernel 1) its
+    segment pass under the tree mask, a commit of T = 6 rows, a 512-row
+    prefill; the paged kernel also bit for bit against kernel 1 on the
+    gathered view. Returns (kernel 1 rows, paged rows)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(120)
+    perm = torch.Generator().manual_seed(120)
+    H, G, D, C = D120_H, D120_G, D120_D, CHAIN_T
+    lens = [0, 80, 230, 380, 630, 0, 0, 0, 0]    # phase A's mid-run slots
+    slot_idx = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    cur = torch.tensor(lens, device="cuda")[slot_idx.long()]
+    T = len(TREE_PARENT)
+    tree = _tree_mask(torch)
+    qtree = (cur[:, None] + torch.tensor(TREE_DEPTH, device="cuda")[None]
+             ).to(torch.int32)
+    qcommit = (cur[:, None] + torch.arange(C, device="cuda")[None]).to(
+        torch.int32)
+    qpre = torch.arange(512, dtype=torch.int32, device="cuda")[None]
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def pool_pos(held):
+        pos = torch.full((9, MAX_LEN), -1, dtype=torch.int32, device="cuda")
+        for slot, n in enumerate(held):
+            pos[slot, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+        return pos
+
+    k1_cases, paged_cases = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = "f32" if dtype == torch.float32 else "bf16"
+        tag = f"H{H}_G{G}_D{D}_{dn}"
+        k, v = rnd((9, MAX_LEN, H, D), dtype), rnd((9, MAX_LEN, H, D), dtype)
+        common = dict(k=k, v=v, mask=None, causal=True)
+        k1_cases += [
+            dict(name=f"d120_decode_B4_T1_{tag}", q=rnd((4, 1, H, G, D)),
+                 q_pos=(cur - 1)[:, None].to(torch.int32),
+                 k_pos=pool_pos(lens), slot_idx=slot_idx, **common),
+            dict(name=f"d120_verify_cache_B4_T{T}_{tag}",
+                 q=rnd((4, T, H, G, D)), q_pos=qtree, k_pos=pool_pos(lens),
+                 slot_idx=slot_idx, **common),
+            dict(name=f"d120_verify_segment_B4_T{T}_{tag}",
+                 q=rnd((4, T, H, G, D)), k=rnd((4, T, H, D), dtype),
+                 v=rnd((4, T, H, D), dtype), q_pos=qtree,
+                 k_pos=qtree.clone(), slot_idx=None,
+                 mask=tree.expand(4, T, T).contiguous(), causal=True),
+            dict(name=f"d120_commit_B4_T{C}_{tag}", q=rnd((4, C, H, G, D)),
+                 q_pos=qcommit,
+                 k_pos=pool_pos([n + C if n else 0 for n in lens]),
+                 slot_idx=slot_idx, **common),
+            dict(name=f"d120_prefill_B1_T512_{tag}",
+                 q=rnd((1, 512, H, G, D)), q_pos=qpre,
+                 k_pos=pool_pos([0, 512] + [0] * 7),
+                 slot_idx=slot_idx[:1].clone(), **common)]
+        req = lens[1:5]
+        for name, held, q_pos in (
+                (f"d120_decode_B4_T1_{tag}", [n + 1 for n in req],
+                 cur[:, None].to(torch.int32)),
+                (f"d120_verify_cache_B4_T{T}_{tag}", req, qtree),
+                (f"d120_commit_B4_T{C}_{tag}", [n + C for n in req],
+                 qcommit),
+                (f"d120_prefill_B1_T512_{tag}", [512], qpre)):
+            kp, vp, pos, tbl = _paged_pool(torch, gen, perm, H, D, held)
+            paged_cases.append(dict(
+                name=name, q=rnd((len(held), q_pos.shape[1], H, G, D)),
+                k=kp.to(dtype), v=vp.to(dtype), pos=pos, tbl=tbl,
+                q_pos=q_pos))
+    return ([kernel1_row(torch, fa, c) for c in k1_cases],
+            [paged_row(torch, fa, pa, c) for c in paged_cases])
+
+
+# the non-causal reads phases N and O serve: a cross read of one token over
+# llama-3.2-vision's 1601 image rows (Hkv 8, G 4, D 128) and over
+# whisper-small's 1500 audio rows (Hkv 12, G 1, D 64), each in a slot pool
+# through slot_idx, and whisper's encoder self-attention, T = S = 1500
+NONCAUSAL_SHAPES = (("vision_cross_decode_B4_T1_S1601_H8_G4_D128", 4, 1,
+                     8, 4, 128, 1601),
+                    ("whisper_cross_decode_B4_T1_S1500_H12_G1_D64", 4, 1,
+                     12, 1, 64, 1500),
+                    ("whisper_encoder_B1_T1500_S1500_H12_G1_D64", 1, 1500,
+                     12, 1, 64, 1500))
+
+
+def noncausal_kernel_phase(torch, fa):
+    """Kernel 1 without the causal mask at phases N and O's shapes (f32
+    K/V, as the cross caches and the encoder hold them); returns rows."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1601)
+    cases = []
+    for name, B, T, H, G, D, S in NONCAUSAL_SHAPES:
+        pool = T == 1                  # a cross read of a slot pool
+        P = 9 if pool else B
+        cases.append(dict(
+            name=f"{name}_f32",
+            q=torch.randn((B, T, H, G, D), generator=gen, device="cuda"),
+            k=torch.randn((P, S, H, D), generator=gen, device="cuda"),
+            v=torch.randn((P, S, H, D), generator=gen, device="cuda"),
+            # a cross read's queries sit at position 0; the encoder's at
+            # arange(T): neither is compared
+            q_pos=(torch.zeros((B, T), dtype=torch.int32, device="cuda")
+                   if pool else
+                   torch.arange(T, dtype=torch.int32, device="cuda")[None]),
+            k_pos=torch.arange(S, dtype=torch.int32,
+                               device="cuda").repeat(P, 1),
+            slot_idx=(torch.arange(1, B + 1, dtype=torch.int32,
+                                   device="cuda") if pool else None),
+            mask=None, causal=False))
+    return [kernel1_row(torch, fa, c) for c in cases]
 
 
 # the int8 K/V forms of kernels 1 and 2 at phases A and C's shapes
@@ -1513,6 +1687,11 @@ class PathCounters:
         self.resident_int8, self.paged_int8 = {}, {}
         # reads of a latent K/V pair (Dk != Dv: MLA, the latent form)
         self.resident_latent, self.paged_latent = {}, {}
+        # reads of heads of width 120 (h2o-danube3-4b)
+        self.resident_d120, self.paged_d120 = 0, 0
+        # cross layers in the forwards' params (each reads its cross
+        # cache once a forward, non-causal: form "cross")
+        self.cross_layer_calls = 0
         # MoE layers: in the forwards' params, calls of apply_moe (and
         # the host seconds spent in them) and group-size reads
         self.moe_layer_calls = 0
@@ -1569,12 +1748,14 @@ class PathCounters:
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
-            form = ("segment" if kw.get("extra_mask") is not None
+            form = ("cross" if not kw.get("causal", True)
+                    else "segment" if kw.get("extra_mask") is not None
                     else "snapshot" if kw.get("slot_idx") is None
                     else "decode" if T == 1
                     else "prefill" if T > 64 else "commit/verify")
             with lock:
                 self.resident[form] = self.resident.get(form, 0) + 1
+                self.resident_d120 += q.shape[-1] == 120
                 if k.dtype == int8_dtype:
                     self.resident_int8[form] = \
                         self.resident_int8.get(form, 0) + 1
@@ -1589,6 +1770,7 @@ class PathCounters:
                     else "commit/verify")
             with lock:
                 self.paged[form] = self.paged.get(form, 0) + 1
+                self.paged_d120 += q.shape[-1] == 120
                 if k.dtype == int8_dtype:
                     self.paged_int8[form] = self.paged_int8.get(form, 0) + 1
                 if k.shape[-1] != v.shape[-1]:
@@ -1601,6 +1783,7 @@ class PathCounters:
             n_ssm = sum("A_log" in layer["mixer"] for layer in params["layers"])
             n_moe = sum("router" in layer.get("ffn", {})
                         for layer in params["layers"])
+            n_cross = sum("cross" in layer for layer in params["layers"])
             where = (self._thread().name, cuda.current_stream().cuda_stream)
             with lock:
                 self.int8_products += n_int8
@@ -1608,6 +1791,7 @@ class PathCounters:
                 self.ssm_layer_calls += n_ssm
                 self.attn_layer_calls += len(params["layers"]) - n_ssm
                 self.moe_layer_calls += n_moe
+                self.cross_layer_calls += n_cross
                 self.streams[where] = self.streams.get(where, 0) + 1
             return orig_apply(params, *a, **kw)
 
@@ -1680,6 +1864,9 @@ class PathCounters:
         self.sd.LAUNCHES = 0
         self.fa.LAUNCHES_INT8_KV = self.pa.LAUNCHES_INT8_KV = 0
         self.fa.LAUNCHES_LATENT = self.pa.LAUNCHES_LATENT = 0
+        self.fa.LAUNCHES_NONCAUSAL = 0
+        self.fa.LAUNCHES_BY_PAIR.clear()
+        self.pa.LAUNCHES_BY_PAIR.clear()
         return self
 
     def __exit__(self, *exc):
@@ -1691,24 +1878,47 @@ class PathCounters:
             flash_attention_partial_int8_kv=self.fa.LAUNCHES_INT8_KV,
             paged_flash_decode_int8_kv=self.pa.LAUNCHES_INT8_KV,
             flash_attention_partial_mla=self.fa.LAUNCHES_LATENT,
-            paged_flash_decode_mla=self.pa.LAUNCHES_LATENT)
+            paged_flash_decode_mla=self.pa.LAUNCHES_LATENT,
+            flash_attention_partial_d120=self.fa.LAUNCHES_BY_PAIR.get(
+                (120, 120), 0),
+            paged_flash_decode_d120=self.pa.LAUNCHES_BY_PAIR.get(
+                (120, 120), 0),
+            flash_attention_partial_noncausal=self.fa.LAUNCHES_NONCAUSAL)
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
 
     def check(self, label, paged_path: bool, int8_path: bool,
               attention: bool = True, ssm: bool = False,
-              int8_kv: bool = False, moe: bool = False, mla: bool = False):
+              int8_kv: bool = False, moe: bool = False, mla: bool = False,
+              d120: bool = False):
         """Launch counters against the model's calls; each kernel of the
         phase's path launched at least once, the others never. Every
         forward reads each attention layer's cache once (the resident or
-        the paged kernel); verification adds a segment pass. With
+        the paged kernel); verification adds a segment pass; each cross
+        layer reads its cross cache once (kernel 1, non-causal, through
+        slot_idx on either pool). With
         `int8_kv` every cache read (snapshots too) is the kernels' int8
         form and only segment passes read bf16/f32 K/V; with `moe` every
         MoE layer of every forward ran `apply_moe` with one group-size
         read; with `mla` every attention call (cache reads and segment
-        passes) is the kernels' latent form, and without it none is."""
+        passes) is the kernels' latent form, and without it none is; with
+        `d120` some reads are of heads of width 120, each launched on the
+        kernels' (120, 120) instantiation, and without it none is."""
         res, pag = sum(self.resident.values()), sum(self.paged.values())
         L = self.launches
+        cross = self.resident.get("cross", 0)
+        if L["flash_attention_partial_noncausal"] != cross \
+                or cross != self.cross_layer_calls:
+            fail(f"{label}: {L['flash_attention_partial_noncausal']} "
+                 f"non-causal launches and {cross} cross reads for "
+                 f"{self.cross_layer_calls} cross layers of "
+                 f"{self.forwards} forwards")
+        if L["flash_attention_partial_d120"] != self.resident_d120 \
+                or L["paged_flash_decode_d120"] != self.paged_d120 \
+                or (self.resident_d120 > 0) != d120:
+            fail(f"{label}: (120, 120) launches {L} for "
+                 f"{self.resident_d120} resident and {self.paged_d120} pool "
+                 "reads of heads of width 120")
         res_l, pag_l = (sum(self.resident_latent.values()),
                         sum(self.paged_latent.values()))
         if L["flash_attention_partial_mla"] != res_l \
@@ -1745,7 +1955,7 @@ class PathCounters:
         if L["paged_flash_decode"] != pag or (pag > 0) != paged_path:
             fail(f"{label}: {L['paged_flash_decode']} paged launches for "
                  f"{pag} pool reads")
-        cache_reads = res - self.resident.get("segment", 0) + pag
+        cache_reads = res - self.resident.get("segment", 0) - cross + pag
         if cache_reads != self.attn_layer_calls:
             fail(f"{label}: {cache_reads} attention cache reads for "
                  f"{self.attn_layer_calls} attention layers of "
@@ -1758,9 +1968,11 @@ class PathCounters:
         if sum(self.ssd_forms.values()) != L["ssd_scan_pallas"]:
             fail(f"{label}: SSD scan calls by form {self.ssd_forms} for "
                  f"{L['ssd_scan_pallas']} launches")
-        if paged_path and set(self.resident) - {"segment", "snapshot"}:
+        if paged_path and set(self.resident) - {"segment", "snapshot",
+                                                "cross"}:
             fail(f"{label}: resident reads {self.resident} on the paged "
-                 "path (only segment passes and snapshots may use kernel 1)")
+                 "path (only segment passes, snapshots and the slot-indexed "
+                 "cross caches may use kernel 1)")
         if L["int8_gemv_call"] != self.int8_products \
                 or (self.int8_products > 0) != int8_path:
             fail(f"{label}: {L['int8_gemv_call']} int8 GEMV launches for "
@@ -1903,7 +2115,7 @@ def make_engine(target, drafters, paged=False, backend=None):
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                 paged=False, int8=False, observe=None, attention=True,
                 ssm=False, backend=None, overlap=True, int8_kv=False,
-                moe=False, mla=False):
+                moe=False, mla=False, d120=False):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel). With
     `backend="async"` the run is also held to the wall-clock backend's
@@ -1932,7 +2144,7 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     calls.check(label, paged, int8, attention=attention, ssm=ssm,
-                int8_kv=int8_kv, moe=moe, mla=mla)
+                int8_kv=int8_kv, moe=moe, mla=mla, d120=d120)
     if backend == "async":
         wallclock = check_async_run(torch, label, eng, stats, calls,
                                     syncs_in_run, overlap)
@@ -2009,6 +2221,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                            pool=calls.paged_int8),
         latent_reads=dict(resident=calls.resident_latent,
                           pool=calls.paged_latent),
+        d120_reads=dict(resident=calls.resident_d120, pool=calls.paged_d120),
+        cross_layer_calls=calls.cross_layer_calls,
         moe_layer_calls=calls.moe_calls,
         group_size_reads=calls.group_size_reads,
         moe_forwards=calls.moe_layer_calls // max(1, moe_layers(target[0])),
@@ -2662,6 +2876,179 @@ def deepseek_phases(torch, M, attn, cfg, run, references, make_prompts, err,
     return sum_l, sum_l32
 
 
+# greedy decodes of the image check (phases N and O)
+IMAGE_STEPS = 16
+
+
+def image_check(torch, M, fa, cfg, params, prompts, fe, label, tie_tol,
+                device="cuda", max_len=MAX_LEN):
+    """The cross layers at the model level with a frontend `fe` (B, S, d):
+    each prompt prefilled into its slot with its frontend (`slot_extend`
+    writes the cross rows in place; an encoder-decoder encodes first),
+    then IMAGE_STEPS greedy `slot_decode_step`s of all slots at once that
+    read those rows (kernel 1, non-causal, through slot_idx); every
+    served logit row held against `apply(frontend=...)` over the whole
+    sequence. A token may differ from the full forward's argmax only
+    where that forward's top-1/top-2 gap is under `tie_tol`. On the card
+    the non-causal launches of the prefills and the decodes are counted
+    (`device="cpu"` rehearses the rest at tiny widths and a short
+    `max_len`). Returns the
+    check's summary."""
+    B = len(prompts)
+    n_cross = sum(s_.cross for s_ in M.layer_specs(cfg))
+    cache = M.init_cache(cfg, B + 1, max_len, dtype=torch.float32,
+                         device=device)
+    fa.LAUNCHES_NONCAUSAL = 0
+    rows = [[] for _ in prompts]
+    t0 = time.perf_counter()
+    for b, p in enumerate(prompts):
+        idx = torch.tensor([b + 1], dtype=torch.int32, device=device)
+        lg, _, _ = M.slot_extend(params, cfg, torch.tensor([p], device=device),
+                                 cache, idx, frontend=fe[b: b + 1])
+        rows[b].append(lg[0, -1, : cfg.vocab].clone())
+    prefill_nc = fa.LAUNCHES_NONCAUSAL
+    idx = torch.arange(1, B + 1, dtype=torch.int32, device=device)
+    toks = [[] for _ in prompts]
+    for _ in range(IMAGE_STEPS):
+        nxt = torch.stack([r[-1] for r in rows]).argmax(-1)
+        for b, t in enumerate(nxt.tolist()):
+            toks[b].append(t)
+        lg, _, _ = M.slot_decode_step(params, cfg, nxt[:, None].to(
+            torch.int32), cache, idx)
+        for b in range(B):
+            rows[b].append(lg[b, 0, : cfg.vocab])
+    decode_nc = fa.LAUNCHES_NONCAUSAL - prefill_nc
+    if device == "cuda":
+        torch.cuda.synchronize()
+    served_s = time.perf_counter() - t0
+    want_prefill = B * (n_cross + cfg.encoder_layers)
+    if device == "cuda" and (prefill_nc, decode_nc) != (
+            want_prefill, IMAGE_STEPS * n_cross):
+        fail(f"{label} image check: {prefill_nc} / {decode_nc} non-causal "
+             f"launches at prefill / decode, expected {want_prefill} / "
+             f"{IMAGE_STEPS * n_cross}")
+    gaps, ties = [], []
+    for b, p in enumerate(prompts):
+        full, _, _ = M.apply(params, cfg, torch.tensor(
+            [p + toks[b][:-1]], device=device), frontend=fe[b: b + 1])
+        ref = full[0, len(p) - 1:, : cfg.vocab]
+        got = torch.stack(rows[b][:IMAGE_STEPS])
+        gaps.append(float((got - ref).abs().max()))
+        for i, t in enumerate(toks[b]):
+            below = float(ref[i].max() - ref[i, t])
+            if below > 0.0:
+                if below >= tie_tol:
+                    fail(f"{label} image check: prompt {len(p)} token {i} "
+                         f"is {below:.4g} below the full forward's argmax "
+                         f"(tolerance {tie_tol:.4g})")
+                ties.append(dict(prompt_len=len(p), token=i, gap=below))
+        del full
+    out = dict(frontend_shape=list(fe.shape), steps=IMAGE_STEPS,
+               max_logit_gap_vs_full=max(gaps),
+               logit_gap_by_request=gaps, near_tie_tokens=ties,
+               tie_tol=tie_tol, noncausal_launches_prefill=prefill_nc,
+               noncausal_launches_decode=decode_nc, served_s=served_s)
+    print(f"{label} image check: frontend {tuple(fe.shape)}; {B} prompts "
+          f"prefilled with it, {IMAGE_STEPS} batched decodes reading the "
+          f"cross rows; largest logit gap to apply(frontend) over the whole "
+          f"sequence {max(gaps):.4g} (by request "
+          f"{[round(g, 4) for g in gaps]}); {len(ties)} tokens at near-ties "
+          f"of the full forward (tolerance {tie_tol:.4g}); non-causal "
+          f"launches {prefill_nc} at prefill ({n_cross} cross + "
+          f"{cfg.encoder_layers} encoder layers a prompt), {decode_nc} at "
+          f"decode; {served_s:.2f} s", flush=True)
+    del cache
+    return out
+
+
+def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
+                          kernel_err, paged_d120_exact, cfgs, drafter_cfg):
+    """Phases M, M-paged, N and O, after phase L's weights are released:
+    h2o-danube3-4b with two llama-68m drafters (every cache read of the
+    target on the (120, 120) instantiation), resident and paged; then
+    llama-3.2-vision-11b and whisper-small, each with the image check
+    (`image_check`) and a text-only serve with two drafters sharing its
+    weights. Each model's weights are freed before the next. Returns the
+    phases' summaries and the image checks."""
+    danube, vision, whisper = cfgs
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"device memory held before phase M: {held_gb:.2f} GB", flush=True)
+    if held_gb > 4.0:
+        fail(f"phase M: {held_gb:.2f} GB still allocated after phase L")
+    out = {}
+
+    def weights(cfg, seed, what):
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        gb = torch.cuda.memory_allocated() / 1e9
+        print(f"{cfg.name} weights ({what}, f32) {time.perf_counter() - t0:.1f}"
+              f" s, {gb:.2f} GB held", flush=True)
+        return params, gb
+
+    # ---- phases M and M-paged: h2o-danube3-4b, full width and depth
+    mprompts = make_prompts(danube)
+    mparams, gb = weights(danube, 50, f"{danube.n_layers} layers")
+    mdraft = [M.init_params(drafter_cfg, seed=1 + i, device="cuda")
+              for i in range(2)]
+    mrefs = references(danube, mparams, mprompts)
+    dense = dict(target=(danube, mparams), prompts=mprompts, refs=mrefs,
+                 err=kernel_err, d120=True,
+                 drafters=[(drafter_cfg, mdraft[i], f"d{i}")
+                           for i in range(2)])
+    sum_m, streams_m = run("phase M", **dense)
+    _, streams_mp = run("phase M-paged", paged=True,
+                        observe=lambda e: observe_pools(e, "phase M-paged"),
+                        **dense)
+    same = sum(a == b for a, b in zip(streams_m, streams_mp))
+    print(f"phase M-paged: {same}/{len(mprompts)} committed streams equal "
+          f"phase M's token for token (paged kernel bitwise kernel 1 at "
+          f"(120, 120): {paged_d120_exact})", flush=True)
+    if not paged_d120_exact or same != len(mprompts):
+        fail("phase M-paged: the paged pool committed other tokens than the "
+             "resident pool")
+    sum_m["weights_gb"] = gb
+    del mparams, mdraft, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase N: llama-3.2-vision-11b; phase O: whisper-small
+    for label, cfg, seed in (("phase N", vision, 60), ("phase O", whisper,
+                                                       70)):
+        prompts = make_prompts(cfg)
+        params, gb = weights(cfg, seed, f"{cfg.n_layers} layers"
+                             + (f" + {cfg.encoder_layers} encoder layers"
+                                if cfg.is_encdec else ""))
+        refs = references(cfg, params, prompts)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        fe = 0.1 * torch.randn((len(prompts), M.cross_len(cfg), cfg.d_model),
+                               generator=gen, device="cuda")
+        tie_tol = max(4.0 * max(r["noise"] for r in refs),
+                      100.0 * kernel_err)
+        check = image_check(torch, M, fa, cfg, params, prompts, fe, label,
+                            tie_tol)
+        del fe
+        sm, _ = run(label, target=(cfg, params),
+                    drafters=[(cfg, params, f"x{i}") for i in range(2)],
+                    prompts=prompts, refs=refs, err=kernel_err)
+        if not sm["mean_acceptance"] > 1.0:
+            fail(f"{label} mean acceptance {sm['mean_acceptance']:.3f} <= 1")
+        n_cross = sum(s_.cross for s_ in M.layer_specs(cfg))
+        print(f"{label}: kernel 1 read each of the {n_cross} cross layers' "
+              f"(empty) cross cache once a forward, non-causal: "
+              f"{sm['kernel_launches']['flash_attention_partial_noncausal']}"
+              f" launches over {sm['forwards']} forwards; peak device GB "
+              f"{sm['peak_mem_gb']:.2f}", flush=True)
+        sm["weights_gb"] = gb
+        sm["image_check"] = check
+        out[label] = sm
+        del params, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase M"] = sum_m
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2670,10 +3057,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from repro_torch.configs import (DEEPSEEK_V3_671B, JAMBA_V0_1_52B,
+        from repro_torch.configs import (DEEPSEEK_V3_671B, H2O_DANUBE3_4B,
+                                         JAMBA_V0_1_52B, LLAMA_3_2_VISION_11B,
                                          MAMBA2_130M, QWEN1_5_4B, QWEN2_0_5B,
-                                         QWEN2_MOE_A2_7B)
-        from repro_torch.configs.drafters import int8_variant
+                                         QWEN2_MOE_A2_7B, WHISPER_SMALL)
+        from repro_torch.configs.drafters import LLAMA_68M, int8_variant
         from repro_torch.kernels import build
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.int8_gemv import ops as ig
@@ -2708,6 +3096,7 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"{lib.name}: {line.strip()}", flush=True)
     int8kv_compiled = {}
+    d120_compiled = {}
     for lib in libraries[:2]:
         if lib.build_log is None:   # built by an earlier run: no report
             print(f"{lib.name}: built before this run, registers not "
@@ -2722,16 +3111,27 @@ def main() -> int:
         if not any(k.startswith(f"{lib.name}:") for k in int8kv_compiled):
             fail(f"{lib.name}: the build log names no int8_kernel "
                  "instantiation")
+        for fn, st in ptxas_report(lib.build_log).items():
+            if "partial_kernelILi120ELi120E" in fn:
+                d120_compiled[f"{lib.name}:{fn}"] = st
+                print(f"{lib.name}: (120, 120) form {fn}: "
+                      f"{st['registers']} registers, spill stores "
+                      f"{st['spill_stores']} B, spill loads "
+                      f"{st['spill_loads']} B", flush=True)
 
     fa_rows, fa_host = kernel_phase(torch, fa)
     pa_rows = paged_kernel_phase(torch, fa, pa)
     fa8_rows, pa8_rows, kv_write_host = int8kv_kernel_phase(torch, fa, pa,
                                                             attn)
     fam_rows, pam_rows, mla_smem = mla_kernel_phase(torch, fa, pa)
+    fa120_rows, pa120_rows = d120_kernel_phase(torch, fa, pa)
+    nc_rows = noncausal_kernel_phase(torch, fa)
     sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
     kernel_err = max(r["max_abs_err"]
                      for r in fa_rows + pa_rows + fa8_rows + pa8_rows)
     mla_kernel_err = max(r["max_abs_err"] for r in fam_rows + pam_rows)
+    new_kernel_err = max(r["max_abs_err"]
+                         for r in fa120_rows + pa120_rows + nc_rows)
     ssm_kernel_err = max(kernel_err, max(r["max_abs_err"] for r in sd_rows))
     paged_exact = all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa_rows)
     gc.collect()
@@ -3002,8 +3402,26 @@ def main() -> int:
                     all(r["max_abs_diff_vs_kernel1"] == 0.0
                         for r in pam_rows), sum_a["wall_tokens_per_s"])
 
+    # ---- phases M, M-paged, N and O: h2o-danube3-4b (head width 120),
+    # llama-3.2-vision-11b and whisper-small, L's weights released first
+    arch = remaining_arch_phases(
+        torch, M, fa, run, references, make_prompts,
+        max(kernel_err, new_kernel_err),
+        all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa120_rows),
+        (H2O_DANUBE3_4B, LLAMA_3_2_VISION_11B, WHISPER_SMALL), LLAMA_68M)
+
     print(json.dumps({"serving": summaries}), flush=True)
     print(json.dumps({"wallclock": wallclock}), flush=True)
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        fail(f"kernels never launched by the serving phases: {missing}")
+
+    def by_phase(name):
+        """The serving phases that launched kernel row `name`, and how
+        often."""
+        return {sm["phase"]: sm["kernel_launches"][name] for sm in summaries
+                if sm["kernel_launches"][name]}
+
     kernels = []
     extra = {"flash_attention_partial": dict(host=fa_host),
              "int8_gemv_call": dict(host=ig_host, crossover=crossover,
@@ -3025,7 +3443,20 @@ def main() -> int:
                  **_latent_sums(fam_rows)),
              "paged_flash_decode_mla": dict(
                  sdpa_backends=sorted({r["sdpa_backend"] for r in pam_rows}),
-                 **_latent_sums(pam_rows))}
+                 **_latent_sums(pam_rows)),
+             "flash_attention_partial_d120": dict(
+                 launches_by_phase=by_phase("flash_attention_partial_d120"),
+                 compiled=d120_compiled),
+             "paged_flash_decode_d120": dict(
+                 launches_by_phase=by_phase("paged_flash_decode_d120")),
+             "flash_attention_partial_noncausal": dict(
+                 launches_by_phase=by_phase(
+                     "flash_attention_partial_noncausal"),
+                 image_check_launches={
+                     label: arch[label]["image_check"][
+                         "noncausal_launches_prefill"]
+                     + arch[label]["image_check"]["noncausal_launches_decode"]
+                     for label in ("phase N", "phase O")})}
     # why a kernel has no library call (library_ms null)
     no_library = {
         "ssd_scan_pallas": "no PyTorch call computes the scan",
@@ -3040,7 +3471,10 @@ def main() -> int:
                        ("flash_attention_partial_int8_kv", fa8_rows),
                        ("paged_flash_decode_int8_kv", pa8_rows),
                        ("flash_attention_partial_mla", fam_rows),
-                       ("paged_flash_decode_mla", pam_rows)):
+                       ("paged_flash_decode_mla", pam_rows),
+                       ("flash_attention_partial_d120", fa120_rows),
+                       ("paged_flash_decode_d120", pa120_rows),
+                       ("flash_attention_partial_noncausal", nc_rows)):
         source, replaces = KERNEL_SOURCES[name]
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]

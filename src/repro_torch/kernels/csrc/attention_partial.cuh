@@ -14,8 +14,8 @@
 //
 // Three kernels share the key addressing, the split and the merge, chosen
 // by the head widths (Dk, Dv) and the K/V storage:
-//   * `partial_kernel`, Dk == Dv in {16, 32, 64, 128}: GQA heads with f32
-//     or bf16 K/V. Described below.
+//   * `partial_kernel`, Dk == Dv in {16, 32, 64, 120, 128}: GQA heads
+//     with f32 or bf16 K/V. Described below.
 //   * `int8_kernel`, the same heads with int8 K/V and an f32 scale per
 //     (row, head) (`kv_dtype="int8"` caches): a ring of int8 tiles in
 //     flight, each tile converted once to bf16 in shared memory by the
@@ -72,7 +72,12 @@
 //     FMA, broadcast to the warp's rows), then a fixed butterfly over the
 //     row's lanes hands each lane the full dot products of KT/TPR keys.
 //     Strips are interleaved in chunks of up to 16 bytes (lane + TPR c),
-//     so a row's reads cover contiguous bytes.
+//     so a row's reads cover contiguous bytes. At D = 120 (h2o-danube3)
+//     a strip is 15 values, so its chunks are single values (q and acc
+//     in 15 scalar registers a thread), while a key row stays a whole
+//     number of 16-byte copies (480 B at f32, 240 at bf16). The int8
+//     form does not take D = 120 (its k-step is 16): the wrappers refuse
+//     it and the dispatch has no int8 instantiation for it.
 //
 // Key addressing is the one difference between the two instantiations:
 // logical key s of request b lives in pool row (page, row) =
@@ -2213,8 +2218,10 @@ int dispatch_kv(const Params& p, int B, int kv, int row_tile,
       case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
       case KV_BF16:
         return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
-      case KV_INT8:
-        return launch_int8<DK, QT, PAGED>(p, B, row_tile, stream);
+      case KV_INT8:   // Int8Form's heads: multiples of 16 (not 120)
+        if constexpr (DK % 16 == 0)
+          return launch_int8<DK, QT, PAGED>(p, B, row_tile, stream);
+        return static_cast<int>(cudaErrorInvalidValue);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -2231,7 +2238,8 @@ int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv, int row_tile,
 
 // The instantiated head widths (Dk, Dv): `ops.py::SUPPORTED_PAIRS`.
 #define ATTN_PARTIAL_PAIRS(X) \
-  X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(40, 32) X(576, 512)
+  X(16, 16) X(32, 32) X(64, 64) X(120, 120) X(128, 128) X(40, 32) \
+  X(576, 512)
 
 // Launch on `stream` for head widths (Dk, Dv) of ATTN_PARTIAL_PAIRS and
 // K/V storage `kv` (KV_F32, KV_BF16, or KV_INT8 with scales where Dk ==
@@ -2274,7 +2282,7 @@ int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
       return smem_kv<DK, DV, QT, __nv_bfloat16, PAGED>(dynamic, static_bytes,
                                                       limit);
     case KV_INT8:
-      if constexpr (DK == DV)
+      if constexpr (DK == DV && DK % 16 == 0)
         return smem_report(int8_kernel<DK, QT, PAGED>, Int8Form<DK>::BYTES,
                            dynamic, static_bytes, limit);
       return static_cast<int>(cudaErrorInvalidValue);

@@ -14,7 +14,7 @@ blocked online-softmax attention and returns the unnormalised partials
          scale per (row, head) (`kv_dtype="int8"` caches)
   -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
 
-Dk == Dv is a GQA head (16, 32, 64 or 128 wide). Dk != Dv is the latent
+Dk == Dv is a GQA head (16, 32, 64, 120 or 128 wide). Dk != Dv is the latent
 form: MLA's absorbed attention, one KV head of c_kv ++ k_pe (Dk = 576,
 Dv = 512 at DeepSeek-V3's widths; (40, 32) for tests) with every query
 head folded into G. Its kernel shares each 16-key tile over 64 query rows
@@ -57,10 +57,16 @@ from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
                                       cuda_stream)
 
 NEG_INF = -1e30
-#: the (Dk, Dv) head widths the kernels are instantiated for: GQA heads,
-#: then the latent form's tiny pair (tests) and DeepSeek-V3's
-SUPPORTED_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (40, 32),
-                   (576, 512))
+#: the (Dk, Dv) head widths the kernels are instantiated for: GQA heads
+#: (120: h2o-danube3-4b), then the latent form's tiny pair (tests) and
+#: DeepSeek-V3's
+SUPPORTED_PAIRS = ((16, 16), (32, 32), (64, 64), (120, 120), (128, 128),
+                   (40, 32), (576, 512))
+#: the int8 K/V form's head widths: whole 16-deep `mma` k-steps and whole
+#: 16-byte copies of an int8 row (`attention_partial.cuh::Int8Form`)
+INT8_HEAD_MULTIPLE = 16
+INT8_ROADMAP = ("int8 K/V at head width {D} has no kernel form (the int8 "
+                "form takes multiples of 16; ROADMAP queue 2 item 1c)")
 #: keys per tile of the kernel; the model's cache reads run the plain
 #: version with the same tile on the CPU
 KEY_TILE = 32
@@ -105,6 +111,12 @@ LAUNCHES = 0
 LAUNCHES_INT8_KV = 0
 #: the launches of them in the latent form (Dk != Dv: MLA)
 LAUNCHES_LATENT = 0
+#: the launches of them without the causal mask (cross-attention reads,
+#: the encoder's bidirectional self-attention)
+LAUNCHES_NONCAUSAL = 0
+#: the launches of them by head widths (Dk, Dv) (clear it before a run
+#: whose launches should be counted)
+LAUNCHES_BY_PAIR = {}
 
 
 def _declare(lib):
@@ -365,13 +377,16 @@ def kv_aligned(t, strides) -> bool:
 
 def check_pair(check, Dk, Dv, kv_dtype):
     """The head widths a kernel is instantiated for (`SUPPORTED_PAIRS`);
-    the latent form (Dk != Dv) reads f32 or bf16 K/V only."""
+    the latent form (Dk != Dv) reads f32 or bf16 K/V only, the int8 K/V
+    form heads of a multiple of 16 (D 120 refused: `INT8_ROADMAP`)."""
     check((Dk, Dv) in SUPPORTED_PAIRS, lambda: (
         f"head widths (Dk, Dv) = ({Dk}, {Dv}); supported pairs "
         f"{SUPPORTED_PAIRS}"))
     check(Dk == Dv or kv_dtype in _KV_DTYPES, lambda: (
         f"the latent form (Dk != Dv) reads float32 / bfloat16 K/V, got "
         f"{kv_dtype}"))
+    check(kv_dtype != torch.int8 or Dk % INT8_HEAD_MULTIPLE == 0,
+          lambda: INT8_ROADMAP.format(D=Dk))
 
 
 def check_kv(check, k, v, k_scale, v_scale, lead, Hkv, dev):
@@ -465,6 +480,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
         qs = q.stride()
 
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
+    global LAUNCHES_NONCAUSAL
     if _FN is None:
         _FN = LIBRARY.load().fa_partial_launch
     int8 = kv == KV_KIND[torch.int8]
@@ -493,6 +509,9 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
             LAUNCHES_INT8_KV += 1
         if Dk != Dv:
             LAUNCHES_LATENT += 1
+        if not causal:
+            LAUNCHES_NONCAUSAL += 1
+        LAUNCHES_BY_PAIR[Dk, Dv] = LAUNCHES_BY_PAIR.get((Dk, Dv), 0) + 1
     return m, l, acc
 
 

@@ -42,6 +42,9 @@ LAUNCHES = 0
 LAUNCHES_INT8_KV = 0
 #: the launches of them in the latent form (Dk != Dv: MLA's latent pools)
 LAUNCHES_LATENT = 0
+#: the launches of them by head widths (Dk, Dv) (clear it before a run
+#: whose launches should be counted)
+LAUNCHES_BY_PAIR = {}
 
 
 def _declare(lib):
@@ -179,6 +182,7 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
             LAUNCHES_INT8_KV += 1
         if Dk != Dv:
             LAUNCHES_LATENT += 1
+        LAUNCHES_BY_PAIR[Dk, Dv] = LAUNCHES_BY_PAIR.get((Dk, Dv), 0) + 1
     return m, l, acc
 
 

@@ -1,5 +1,5 @@
-"""GQA and MLA attention over slot caches and page pools (port of
-`repro.models.attention`; cross-attention is not ported).
+"""GQA, MLA and cross-attention over slot caches and page pools (port of
+`repro.models.attention`).
 
 Reads of a resident cache go through
 `kernels.flash_attention.ops.attend_partial`, reads of a page pool through
@@ -39,8 +39,14 @@ leaves are written from the same c_kv, so V is K's first kv_lora
 columns: MLA reads pass `k[..., :kv_lora]` as v (`cache_partial`'s
 `v_in_k`), which the latent kernel reads out of K's tile.
 
-Cross-attention is not ported yet and raises `NotImplementedError`
-naming its ROADMAP item.
+Cross-attention (`cross_attention`: a VLM's image layers, an
+encoder-decoder's decoder) attends non-causally over frontend or encoder
+states. Given them (`kv_src`), it projects K/V, attends over those fresh
+projections and writes them into its cross cache (columns 0..S-1,
+slot_pos = arange(S)); without them it reads the cross cache in place
+(through `slot_idx` on a slot pool), which stays slot-indexed on a paged
+cache too and is never int8. Its reads and the encoder's bidirectional
+self-attention go to kernel 1 with `causal=False`.
 """
 from __future__ import annotations
 
@@ -54,9 +60,6 @@ from repro_torch.models.quantize import _promote, qdot
 
 NEG_INF = -1e30
 RING_MARGIN = 128  # extra ring slots beyond the window (max verify segment)
-
-CROSS_ROADMAP = ("cross-attention and encoders are not ported yet "
-                 "(ROADMAP queue 1 item 11)")
 
 
 # =====================================================================
@@ -273,9 +276,10 @@ def _attend_cached(qg, k_new, v_new, cache, positions, *, scale, window,
 # GQA attention layer
 # =====================================================================
 
-def gqa_params(gen, cfg: ModelConfig, device, cross: bool = False):
-    if cross:
-        raise NotImplementedError(CROSS_ROADMAP)
+def gqa_params(gen, cfg: ModelConfig, device):
+    """Q, K, V and output projections (+ QKV biases, qk-norm scales): a
+    self-attention mixer's, and a cross-attention sub-block's (the
+    reference builds both with this function)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -354,6 +358,59 @@ def gqa_attention(p, cfg: ModelConfig, x, positions, *, cache=None,
             token_mask=token_mask, page_view=page_view)
     out = out.reshape(B, T, hq * hd)
     return qdot(out, p["wo"]), new_cache
+
+
+def cross_attention(p, cfg: ModelConfig, x, kv_src=None, cache=None,
+                    block=None, slot_idx=None, write=True):
+    """Cross-attention to frontend or encoder states, non-causal.
+
+    kv_src: (B, S, d) states: K/V are projected from them, attended over
+            as they are (uncast) and, with `write` and a cache, written
+            into the cache's columns 0..S-1 in its dtype, slot_pos
+            arange(S), in place (rows slot_idx[b] of a slot pool).
+    cache:  {"k", "v", "slot_pos"} cross cache: without kv_src its rows
+            (slot_idx[b], or b) are read in place; empty rows (slot_pos
+            -1, as a request served without a frontend holds) give 0.
+    Returns (out, cache | None)."""
+    B, T, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = qdot(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    qg = q.reshape(B, T, hkv, hq // hkv, hd)
+    # non-causal: the query positions are never compared
+    q_pos = torch.zeros((B, T), dtype=torch.int32, device=x.device)
+    scale = hd ** -0.5
+    if kv_src is not None:
+        S = kv_src.shape[1]
+        k = qdot(kv_src, p["wk"])
+        v = qdot(kv_src, p["wv"])
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(B, S, hkv, hd)
+        v = v.reshape(B, S, hkv, hd)
+        k_pos = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+        if cache is not None and write:
+            rows = (torch.arange(B, device=x.device) if slot_idx is None
+                    else slot_idx.long())
+            cache["k"][rows, :S] = k.to(cache["k"].dtype)
+            cache["v"][rows, :S] = v.to(cache["v"].dtype)
+            cache["slot_pos"][rows, :S] = k_pos
+        else:
+            cache = None
+        part = attend_partial(qg, k, v, q_pos, k_pos, scale=scale,
+                              causal=False, block=block)
+    else:
+        if cache is None:
+            raise ValueError("cross_attention needs kv_src or a cross cache")
+        part = attend_partial(qg, cache["k"], cache["v"], q_pos,
+                              cache["slot_pos"], scale=scale, causal=False,
+                              block=block or fa.KEY_TILE,
+                              slot_idx=slot_idx)
+        cache = None                      # a read writes nothing
+    out = finalize_partial(part, qg.dtype).reshape(B, T, hq * hd)
+    return qdot(out, p["wo"]), cache
 
 
 # =====================================================================

@@ -7,9 +7,12 @@ along a leading `reps` axis (its `lax.scan` layout):
 `params_from_numpy` splits that axis into one dict per layer, in layer
 order, and moves every leaf to a tensor on `device`; a MoE layer's FFN
 comes across as its dict of `router` (d, E), `w_gate` / `w_up` (E, d, f),
-`w_down` (E, f, d) and the `shared` expert's MLP; DeepSeek-V3's `mtp`
-subtree (not stacked: {"proj", "norm_h", "norm_e", "layer"}) comes across
-as it is. Quantized leaves
+`w_down` (E, f, d) and the `shared` expert's MLP; a cross layer's
+`ln_cross` and `cross` come with its dict; an encoder-decoder's
+`encoder` subtree ({"stage": (one stacked layer dict,), "final_norm",
+"pos"}) becomes {"layers": [one dict per encoder layer], "final_norm",
+"pos"}; DeepSeek-V3's `mtp` subtree (not stacked: {"proj", "norm_h",
+"norm_e", "layer"}) comes across as it is. Quantized leaves
 (``{"w8": int8, "scale": f32}`` of `repro.models.quantize`, the `reps`
 axis on both) come across as the same dicts of tensors, so quantizing in
 JAX and converting gives the bits of converting and quantizing with
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import layer_plan, layer_specs
+from repro_torch.models.model import layer_plan
 
 
 def _to_tensor(a, device):
@@ -39,17 +42,20 @@ def _tree(x, fn):
     return fn(x)
 
 
+def _unstack(stage, reps, dev):
+    """One dict per layer of a stage: (sublayer dicts with a leading
+    `reps` axis) -> [layer dicts], repeat-major."""
+    return [_tree(sub, lambda a, r=r: _to_tensor(a[r], dev))
+            for r in range(reps) for sub in stage]
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Port parameters from the reference's `init_params` tree (numpy
     leaves); the per-stage `reps` axis becomes per-layer tensors."""
     dev = resolve_device(device)
-    layer_specs(cfg)                       # refuse unported layer kinds
     layers = []
-    for (pattern, reps), stage in zip(layer_plan(cfg), tree["stages"]):
-        for r in range(reps):
-            for j in range(len(pattern)):
-                layers.append(_tree(stage[j],
-                                    lambda a, r=r: _to_tensor(a[r], dev)))
+    for (_pattern, reps), stage in zip(layer_plan(cfg), tree["stages"]):
+        layers += _unstack(stage, reps, dev)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.n_layers}")
@@ -60,4 +66,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     for key in ("final_norm", "head", "pos", "mtp"):
         if key in tree:
             out[key] = _tree(tree[key], conv)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": _unstack(enc["stage"], cfg.encoder_layers, dev),
+            "final_norm": _tree(enc["final_norm"], conv),
+            "pos": conv(enc["pos"])}
     return out

@@ -1,12 +1,15 @@
 """Model assembly (port of `repro.models.model`): dense attention, MLA,
-SSM and hybrid (SSM + attention) layer plans.
+SSM and hybrid (SSM + attention) layer plans, cross-attention layers
+(VLMs) and encoder-decoders (Whisper).
 
 Parameters and caches are plain dicts of tensors, one entry per layer
 (the reference's `lax.scan` over stacked stages is a Python loop here):
 
-  params = {"embed": (Vp, d), "layers": [{"ln1", "mixer", "ln2", "ffn"}],
-            "final_norm": {...}, "head": (d, Vp) unless tied}
-  cache  = {"layers": [{"self": kv cache | ssm state}],
+  params = {"embed": (Vp, d), "layers": [{"ln1", "mixer", "ln_cross"?,
+            "cross"?, "ln2", "ffn"}], "final_norm": {...},
+            "head": (d, Vp) unless tied, "pos" (learned positions),
+            "encoder": {"layers": [...], "final_norm", "pos"} (enc-dec)}
+  cache  = {"layers": [{"self": kv cache | ssm state, "cross"?: kv cache}],
             "lengths": (B,) int32}
 
 An attention layer's "self" cache is a KV cache ({"k", "v", "slot_pos"});
@@ -35,9 +38,17 @@ output, as the reference does. With `cfg.kv_dtype == "int8"` every KV
 cache and page pool stores int8 K/V with an f32 scale per (row, head)
 (`models/attention.py`), read in place by the attention kernels.
 
-Cross-attention is not ported yet and raises `NotImplementedError`
-naming its ROADMAP item. MLA has no int8 KV layout: `kv_dtype="int8"`
-with MLA raises ValueError where a cache is made, as the reference.
+A cross layer (`cfg.is_cross_layer`, or every decoder layer of an
+encoder-decoder) adds a cross-attention sub-block after its mixer; its
+"cross" cache holds the projected frontend (VLM) or encoder (Whisper)
+states, written by a forward given `frontend` and read by the others.
+Its capacity is `n_frontend_tokens` (`encoder_seq` for enc-dec), it is
+never int8 and it stays slot-indexed on a paged cache. Serving passes no
+frontend, as in the reference, so the engine's cross rows stay empty and
+every cross read gives 0.
+
+MLA has no int8 KV layout: `kv_dtype="int8"` with MLA raises ValueError
+where a cache is made, as the reference.
 """
 from __future__ import annotations
 
@@ -114,12 +125,13 @@ def layer_plan(cfg: ModelConfig) -> list:
 
 
 def layer_specs(cfg: ModelConfig) -> list:
-    """Per-layer specs; raises on the layer kinds not ported yet."""
-    specs = [_spec_for(cfg, i) for i in range(cfg.n_layers)]
-    for s in specs:
-        if s.cross:
-            raise NotImplementedError(attn.CROSS_ROADMAP)
-    return specs
+    """Per-layer specs, in layer order."""
+    return [_spec_for(cfg, i) for i in range(cfg.n_layers)]
+
+
+#: an encoder layer: bidirectional attention (no rope, no cache), no
+#: cross block, a dense FFN
+ENCODER_SPEC = LayerSpec(mixer="attn", cross=False, ffn="dense")
 
 
 def effective_window(cfg: ModelConfig) -> int:
@@ -148,6 +160,9 @@ def _layer_params(gen, spec: LayerSpec, cfg: ModelConfig, dev):
     else:
         mixer = attn.gqa_params(gen, cfg, dev)
     p = {"ln1": norm_params(cfg, cfg.d_model, dev), "mixer": mixer}
+    if spec.cross:
+        p["ln_cross"] = norm_params(cfg, cfg.d_model, dev)
+        p["cross"] = attn.gqa_params(gen, cfg, dev)
     if spec.ffn != "none":
         p["ln2"] = norm_params(cfg, cfg.d_model, dev)
         p["ffn"] = (moe_mod.moe_params(gen, cfg, cfg.moe, dev)
@@ -169,6 +184,15 @@ def init_params(cfg: ModelConfig, seed=0, device=None):
         params["head"] = embed_init(gen, (cfg.d_model, cfg.padded_vocab), dev)
     if cfg.pos_embed == "learned":
         params["pos"] = embed_init(gen, (cfg.max_position, cfg.d_model), dev)
+    if cfg.is_encdec:
+        # the Whisper-style encoder (frontend embeddings in, states out)
+        params["encoder"] = {
+            "layers": [_layer_params(gen, ENCODER_SPEC, cfg, dev)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": norm_params(cfg, cfg.d_model, dev),
+            "pos": embed_init(gen, (max(cfg.encoder_seq, 1), cfg.d_model),
+                              dev),
+        }
     if cfg.mtp:
         # DeepSeek-V3's depth-1 multi-token-prediction module, built as
         # the reference builds it (trained, never served)
@@ -208,21 +232,38 @@ def _kv_pool(spec: LayerSpec, cfg: ModelConfig, rows: int, cols: int, dt,
                               quantized=cfg.kv_dtype == "int8", device=dev)
 
 
+def cross_len(cfg: ModelConfig) -> int:
+    """Rows of a cross cache: the frontend's tokens, or the encoder's
+    states for an encoder-decoder."""
+    return cfg.encoder_seq if cfg.is_encdec else cfg.n_frontend_tokens
+
+
+def _cross_cache(cfg: ModelConfig, batch: int, dt, dev):
+    """A cross layer's slot-indexed cache: `cross_len` rows (at least
+    one), the cache dtype, never int8 (the reference's)."""
+    hd = cfg.resolved_head_dim
+    return attn.make_kv_cache(batch, max(cross_len(cfg), 1), cfg.n_kv_heads,
+                              hd, hd, dt, device=dev)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     """Decode/prefill cache: a KV cache per attention layer (int8 K/V
     with f32 scales when cfg.kv_dtype == "int8", whatever `dtype`), a
-    latent cache per MLA layer, an SSM state (float32) per SSM layer,
-    plus `lengths`."""
+    latent cache per MLA layer, an SSM state (float32) per SSM layer, a
+    cross cache per cross layer, plus `lengths`."""
     dev = resolve_device(device)
-    specs = layer_specs(cfg)
     window = effective_window(cfg)
     cap = attn.cache_capacity(cfg, max_len, window)
     dt = torch_dtype(dtype)
-    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
-               if spec.mixer == "ssm" else
-               _kv_pool(spec, cfg, batch, cap, dt, dev)}
-              for spec in specs]
+    layers = []
+    for spec in layer_specs(cfg):
+        layer = {"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)
+                 if spec.mixer == "ssm" else
+                 _kv_pool(spec, cfg, batch, cap, dt, dev)}
+        if spec.cross:
+            layer["cross"] = _cross_cache(cfg, batch, dt, dev)
+        layers.append(layer)
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
@@ -327,39 +368,58 @@ def slot_verify_chunk(params, cfg: ModelConfig, tokens, cache, slot_idx,
 # (n_pages, page_size) instead of per-slot reserved rows. A request owns
 # an ordered list of physical pages (its block table, kept on the host by
 # the runner's manager); the slot steps read and write through a
-# (B, n_view) `page_view` built from the block tables. SSM state and
-# `lengths` stay slot-indexed: they are O(1) per request already. The
-# helpers take `cfg`, as the reference's do, because only the layer plan
-# says which "self" caches are pools.
+# (B, n_view) `page_view` built from the block tables. SSM state, cross
+# caches and `lengths` stay slot-indexed: they are O(1) per request
+# already. The helpers take `cfg`, as the reference's do, because only
+# the layer plan says which "self" caches are pools.
 
 def _pooled(cfg: ModelConfig, cache):
-    """(is-a-page-pool, layer cache) for every layer."""
+    """(whether its "self" cache is a page pool, layer cache) for every
+    layer; every other leaf of a layer ("cross", an SSM state) is
+    slot-indexed."""
     return [(spec.mixer != "ssm", layer)
             for spec, layer in zip(layer_specs(cfg), cache["layers"])]
 
 
-def init_slot_leaves(cfg: ModelConfig, batch: int, device=None):
+def _slot_subs(cfg: ModelConfig, cache):
+    """(layer, key) of every slot-indexed sub-cache of a paged cache: SSM
+    states and cross caches."""
+    return [(layer, key) for pooled, layer in _pooled(cfg, cache)
+            for key in layer if not (pooled and key == "self")]
+
+
+def init_slot_leaves(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None):
     """The slot-indexed leaves of a paged cache for `batch` fresh slots:
-    an SSM state per SSM layer (an empty dict in each pool's place) and
-    `lengths`. What `concat_slots_paged` appends on slot growth."""
+    an SSM state per SSM layer, a cross cache per cross layer (in
+    `dtype`) and `lengths`; a pooled layer holds no "self" here. What
+    `concat_slots_paged` appends on slot growth."""
     dev = resolve_device(device)
-    layers = [{"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)}
-              if spec.mixer == "ssm" else {} for spec in layer_specs(cfg)]
+    dt = torch_dtype(dtype)
+    layers = []
+    for spec in layer_specs(cfg):
+        layer = ({"self": ssm_mod.make_ssm_state(batch, cfg, device=dev)}
+                 if spec.mixer == "ssm" else {})
+        if spec.cross:
+            layer["cross"] = _cross_cache(cfg, batch, dt, dev)
+        layers.append(layer)
     return {"layers": layers,
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev)}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, *,
                      page_size: int = 64, n_pages: int = 16, device=None):
-    """Paged decode cache: attention KV in page pools, SSM state and
-    `lengths` for `batch` slots. There is no per-slot max_len: the
-    attention capacity of a request is whatever its block table maps."""
+    """Paged decode cache: attention KV in page pools, SSM state, cross
+    caches and `lengths` for `batch` slots. There is no per-slot max_len:
+    the attention capacity of a request is whatever its block table
+    maps."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
-    cache = init_slot_leaves(cfg, batch, device=dev)
+    cache = init_slot_leaves(cfg, batch, dtype=dt, device=dev)
     # a pool is a slot cache of n_pages "slots" of page_size rows each
     cache["layers"] = [
-        layer or {"self": _kv_pool(spec, cfg, n_pages, page_size, dt, dev)}
+        layer if spec.mixer == "ssm" else
+        {"self": _kv_pool(spec, cfg, n_pages, page_size, dt, dev), **layer}
         for spec, layer in zip(layer_specs(cfg), cache["layers"])]
     return cache
 
@@ -376,19 +436,18 @@ def gather_paged_slots(cfg: ModelConfig, cache, slot_idx, page_view):
     """A plain batch cache copied from a paged pool (speculative
     snapshots): each attention layer's view pages gathered into
     (B, n_view * ps, ...), the layout of `gather_slots` with capacity
-    n_view * ps, and each SSM layer's rows `slot_idx`, so drafting,
-    rollback and `extend` run on it unchanged. Unmapped view entries are
-    NULL pages (slot_pos -1, masked)."""
+    n_view * ps, and every slot-indexed leaf (SSM state, cross cache) at
+    rows `slot_idx`, so drafting, rollback and `extend` run on it
+    unchanged. Unmapped view entries are NULL pages (slot_pos -1,
+    masked)."""
     idx = slot_idx.long()
     layers = []
     for pooled, layer in _pooled(cfg, cache):
-        if pooled:
-            layers.append({key: attn.take_rows(sub, None, page_view)
-                           for key, sub in layer.items()})
-        else:
-            layers.append({key: {f: t.index_select(0, idx)
-                                 for f, t in sub.items()}
-                           for key, sub in layer.items()})
+        layers.append({
+            key: (attn.take_rows(sub, None, page_view)
+                  if pooled and key == "self" else
+                  {f: t.index_select(0, idx) for f, t in sub.items()})
+            for key, sub in layer.items()})
     return {"layers": layers,
             "lengths": cache["lengths"].index_select(0, idx)}
 
@@ -405,12 +464,15 @@ def reset_pages(cfg: ModelConfig, cache, page_ids):
 
 def reset_slot_state(cfg: ModelConfig, cache, slot_idx):
     """Reset the slot-indexed leaves of a paged cache on (re-)admission,
-    in place: SSM state, conv and pos zeroed, `lengths` zeroed (the pools
-    are recycled by `reset_pages`)."""
+    in place: SSM state, conv and pos zeroed, cross rows emptied
+    (slot_pos -1), `lengths` zeroed (the pools are recycled by
+    `reset_pages`)."""
     idx = slot_idx.long()
-    for pooled, layer in _pooled(cfg, cache):
-        if not pooled:
-            for t in layer["self"].values():
+    for layer, key in _slot_subs(cfg, cache):
+        if key == "cross":
+            layer[key]["slot_pos"][idx] = -1
+        else:
+            for t in layer[key].values():
                 t[idx] = 0
     cache["lengths"][idx] = 0
     return cache
@@ -418,14 +480,14 @@ def reset_slot_state(cfg: ModelConfig, cache, slot_idx):
 
 def concat_slots_paged(cfg: ModelConfig, cache, extra):
     """Slot-capacity growth: `extra`'s slot-indexed leaves (SSM state,
-    `lengths`; `init_slot_leaves` or a paged cache) are appended; the
-    shared page pools stay (their growth is `grow_pages`). The layer list
-    and dicts are the argument's, updated, as `grow_pages` keeps them."""
-    for (pooled, layer), e in zip(_pooled(cfg, cache), extra["layers"]):
-        if not pooled:
-            for key, sub in layer.items():
-                layer[key] = {f: torch.cat([t, e[key][f]], dim=0)
-                              for f, t in sub.items()}
+    cross caches, `lengths`; `init_slot_leaves` or a paged cache) are
+    appended; the shared page pools stay (their growth is `grow_pages`).
+    The layer list and dicts are the argument's, updated, as
+    `grow_pages` keeps them."""
+    for (layer, key), (e, _) in zip(_slot_subs(cfg, cache),
+                                    _slot_subs(cfg, extra)):
+        layer[key] = {f: torch.cat([t, e[key][f]], dim=0)
+                      for f, t in layer[key].items()}
     return {"layers": cache["layers"],
             "lengths": torch.cat([cache["lengths"], extra["lengths"]])}
 
@@ -449,11 +511,16 @@ def grow_pages(cfg: ModelConfig, cache, extra_pages: int):
 # ====================================================== apply
 
 def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
-                 *, seg_mask, write, slot_idx=None, token_mask=None,
-                 page_view=None):
+                 *, seg_mask, write, kv_src=None, causal=True, slot_idx=None,
+                 token_mask=None, page_view=None):
+    """One layer: mixer, the cross sub-block (cross layers), the FFN,
+    each a residual rounded to x's dtype. `causal=False` is an encoder
+    layer (bidirectional attention, no cache)."""
     h = apply_norm(p["ln1"], x, cfg)
     self_cache = cache["self"] if cache is not None else None
-    if spec.mixer == "ssm":
+    if not causal:
+        out = _bidir_attention(p["mixer"], cfg, h)
+    elif spec.mixer == "ssm":
         # a recurrence sees no seg_mask (chain-only verification) and
         # keeps its state slot-indexed on a paged cache too
         out, _ = ssm_mod.ssm_mixer(p["mixer"], cfg, h, state=self_cache,
@@ -469,6 +536,15 @@ def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
             page_view=page_view)
     # the reference rounds the residual stream to cfg.dtype after a block
     x = (x + out).to(x.dtype)
+    if spec.cross:
+        # given states (kv_src) the block projects them and writes its
+        # cross cache; else it reads that cache
+        h = apply_norm(p["ln_cross"], x, cfg)
+        out, _ = attn.cross_attention(
+            p["cross"], cfg, h, kv_src=kv_src,
+            cache=cache.get("cross") if cache is not None else None,
+            slot_idx=slot_idx, write=write)
+        x = (x + out).to(x.dtype)
     aux = None
     if spec.ffn != "none":
         h = apply_norm(p["ln2"], x, cfg)
@@ -478,6 +554,35 @@ def _apply_layer(spec: LayerSpec, p, cache, x, positions, cfg: ModelConfig,
             out = apply_mlp(p["ffn"], h, cfg)
         x = (x + out).to(x.dtype)
     return x, aux
+
+
+def _bidir_attention(p, cfg: ModelConfig, h):
+    """Encoder self-attention: bidirectional, no rope (the learned
+    positions are already added), no window, no cache; on CUDA kernel 1
+    with causal=False and T = S."""
+    B, T, _ = h.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = quantize.qdot(h, p["wq"])
+    k = quantize.qdot(h, p["wk"])
+    v = quantize.qdot(h, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    pos = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
+    out = attn.blocked_attention(
+        q.reshape(B, T, hkv, hq // hkv, hd), k.reshape(B, T, hkv, hd),
+        v.reshape(B, T, hkv, hd), pos, pos, scale=hd ** -0.5, causal=False)
+    return quantize.qdot(out.reshape(B, T, hq * hd), p["wo"])
+
+
+def _encode(params, cfg: ModelConfig, frontend):
+    """Whisper encoder: frontend embeddings (B, S, d) -> encoder states
+    (learned positions added, promoting as the reference does)."""
+    enc = params["encoder"]
+    x = frontend + enc["pos"][: frontend.shape[1]]
+    for lp in enc["layers"]:
+        x, _ = _apply_layer(ENCODER_SPEC, lp, None, x, None, cfg,
+                            seg_mask=None, write=False, causal=False)
+    return apply_norm(enc["final_norm"], x, cfg)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -502,6 +607,10 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
     write:     commit new KV and SSM state into the cache (in place)
     slot_idx:  (B,) — `cache` is a resident slot pool; row b of tokens
                lives in pool slot slot_idx[b]
+    frontend:  (B, S, d) frontend embeddings: a VLM's projected image
+               patches, an encoder-decoder's audio frames (encoded
+               first); the cross layers attend over them and write their
+               cross caches. Without it they read those caches.
     token_mask: (B, T) bool — real tokens True, suffix padding False
                (slot path only)
     page_view: (B, n_view) int32 — the cache's attention KV is paged
@@ -510,8 +619,6 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
                Requires slot_idx.
     Returns (logits (B,T,Vp) f32, cache, aux_loss); the returned cache
     is the argument, updated in place."""
-    if frontend is not None:
-        raise NotImplementedError(attn.CROSS_ROADMAP)
     if (token_mask is not None or page_view is not None) and slot_idx is None:
         raise ValueError("token_mask and page_view require the slot path")
     specs = layer_specs(cfg)
@@ -524,12 +631,18 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
     x = quantize.embed_lookup(params["embed"], tokens, dtype)
     if cfg.pos_embed == "learned":
         x = x + params["pos"][positions.long()].to(dtype)
+    kv_src = None
+    if frontend is not None:
+        if cfg.is_encdec:
+            kv_src = _encode(params, cfg, frontend.to(dtype))
+        elif cfg.cross_attn_period:
+            kv_src = frontend.to(dtype)
 
     layer_caches = cache["layers"] if cache is not None else [None] * len(specs)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for spec, lp, lc in zip(specs, params["layers"], layer_caches):
         x, aux = _apply_layer(spec, lp, lc, x, positions, cfg,
-                              seg_mask=seg_mask, write=write,
+                              seg_mask=seg_mask, write=write, kv_src=kv_src,
                               slot_idx=slot_idx, token_mask=token_mask,
                               page_view=page_view)
         if aux is not None:

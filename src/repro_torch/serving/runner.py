@@ -258,7 +258,8 @@ class PagedSlotCacheManager(SlotCacheManager):
             self._free_pages.extend(reversed(pids))
 
     def _grow(self):
-        extra = M.init_slot_leaves(self.cfg, self.n_slots, device=self.device)
+        extra = M.init_slot_leaves(self.cfg, self.n_slots, dtype=self.dtype,
+                                   device=self.device)
         self.cache = M.concat_slots_paged(self.cfg, self.cache, extra)
         self._free.extend(range(2 * self.n_slots, self.n_slots, -1))
         self.n_slots *= 2

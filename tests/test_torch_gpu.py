@@ -39,12 +39,15 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,G,T", [(64, 7, 1), (128, 1, 10), (32, 2, 40),
-                                   (16, 4, 3), (128, 4, 6)])
+                                   (16, 4, 3), (128, 4, 6), (120, 4, 1),
+                                   (120, 4, 10), (120, 4, 6)])
 def test_cuda_kernel_matches_plain(cuda, D, G, T, dtype):
     """The Hopper kernel against its plain version: a slot pool read in
     place (with a repeated scratch row), plain causal, a mask, a window
-    and a fully masked row. Same f32 arithmetic in another summation
-    order, so rtol = atol = 1e-4."""
+    and a fully masked row; 300 keys, which the split plan cuts into 5
+    spans of a cluster of 8 (the last one short). Head width 120
+    (h2o-danube3) is served by 15-value strips of 1-value chunks. Same
+    f32 arithmetic in another summation order, so rtol = atol = 1e-4."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     B, H, P, C = 3, 2, 5, 300
     q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
@@ -203,8 +206,13 @@ def test_attention_smem_matches_compiled_kernels(cuda):
         for Dk, Dv in fa.SUPPORTED_PAIRS:
             for q_bf16 in (0, 1):
                 for kv_dtype, kv in fa.KV_KIND.items():
-                    if Dk != Dv and kv_dtype == torch.int8:
-                        continue          # the latent form has no int8 K/V
+                    if kv_dtype == torch.int8 and (
+                            Dk != Dv or Dk % fa.INT8_HEAD_MULTIPLE):
+                        # no int8 form: the latent pairs, and D 120
+                        out = [ctypes.c_int() for _ in range(3)]
+                        assert f(Dk, Dv, q_bf16, kv,
+                                 *(ctypes.byref(o) for o in out)) != 0
+                        continue
                     dynamic, static, limit = _smem(f, Dk, Dv, q_bf16, kv)
                     case = (f.__name__, Dk, Dv, q_bf16, kv, dynamic, static)
                     assert limit == SMEM_LIMIT
@@ -263,6 +271,82 @@ def test_attention_kernels_refuse_unaligned_kv(cuda):
     fa.attend_partial(q, v, v, qpos, kpos, scale=D ** -0.5)
     pa.paged_attend_partial(q, vp, vp, qpos, pos, tbl, scale=D ** -0.5)
     assert (fa.LAUNCHES, pa.LAUNCHES) == (fa_before + 1, pa_before + 1)
+
+
+@pytest.mark.gpu
+def test_d120_smem_is_the_double_buffered_tiles(cuda):
+    """At head width 120 a block stages two 32-key K and V tiles of 480
+    bytes a row (f32): 2 x 2 x 32 x 120 x 4 = 61,440 bytes, half that at
+    bf16, as the compiled kernels ask."""
+    for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
+        for kv, size in ((0, 4), (1, 2)):
+            dynamic, static, limit = _smem(f, 120, 120, 0, kv)
+            assert dynamic == 2 * 2 * 32 * 120 * size == fa.kernel_smem(
+                120, 120, size)
+            assert dynamic + static <= limit
+
+
+@pytest.mark.gpu
+def test_int8_kv_at_d120_is_refused(cuda):
+    """The int8 K/V form takes heads of a multiple of 16 (its k-step): at
+    D 120 both wrappers raise ValueError naming the ROADMAP item, and
+    launch nothing (no padded copy runs in its place)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, T, H, G, D, S, ps = 2, 1, 2, 4, 120, 64, 16
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    k8, ks = _int8_kv(gen, (B, S, H, D), cuda)
+    v8, vs = _int8_kv(gen, (B, S, H, D), cuda)
+    before = (fa.LAUNCHES, pa.LAUNCHES)
+    with pytest.raises(ValueError, match="queue 2 item 1c"):
+        fa.attend_partial(q, k8, v8, qpos, kpos, scale=D ** -0.5,
+                          k_scale=ks, v_scale=vs)
+    n = B * S // ps
+    tbl = torch.arange(n, dtype=torch.int32, device=cuda).reshape(B, -1)
+    with pytest.raises(ValueError, match="queue 2 item 1c"):
+        pa.paged_attend_partial(
+            q, k8.reshape(n, ps, H, D), v8.reshape(n, ps, H, D), qpos,
+            kpos.reshape(n, ps), tbl, scale=D ** -0.5,
+            k_scale=ks.reshape(n, ps, H), v_scale=vs.reshape(n, ps, H))
+    assert (fa.LAUNCHES, pa.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["vision_cross", "whisper_cross",
+                                  "whisper_encoder"])
+def test_noncausal_reads_match_plain(cuda, case, dtype):
+    """Kernel 1's non-causal form at the served shapes: a cross read of
+    one token over 1601 image rows (Hkv 8, G 4, D 128) and over 1500
+    audio rows (Hkv 12, G 1, D 64), each of a slot pool through slot_idx
+    (one slot empty: l = 0), and the Whisper encoder's bidirectional
+    self-attention, T = S = 1500 with no pool. Neither 1601 nor 1500 is a
+    whole number of 32-key tiles. rtol = atol = 1e-4 against plain."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    H, G, D, S = {"vision_cross": (8, 4, 128, 1601),
+                  "whisper_cross": (12, 1, 64, 1500),
+                  "whisper_encoder": (12, 1, 64, 1500)}[case]
+    if case == "whisper_encoder":
+        B, T, P, slot_idx = 1, S, 1, None
+    else:
+        B, T, P = 3, 1, 5
+        slot_idx = torch.tensor([4, 2, 1], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    k = torch.randn((P, S, H, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((P, S, H, D), generator=gen, device=cuda).to(dtype)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(P, 1)
+    if slot_idx is not None:
+        kpos[2] = -1                          # a slot with no frontend
+    qpos = torch.zeros((B, T), dtype=torch.int32, device=cuda)
+    kw = dict(scale=D ** -0.5, causal=False, slot_idx=slot_idx)
+    got = fa.attend_partial(q, k, v, qpos, kpos, **kw)
+    want = fa.attend_partial_plain(q, k, v, qpos, kpos, **kw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if slot_idx is not None:
+        assert float(got[1][1].abs().max()) == 0.0
+        assert float(fa.finalize(got)[1].abs().max()) == 0.0
 
 
 def _split_case(cuda, case, dtype):
@@ -399,7 +483,7 @@ def test_paged_kernel_bitwise_kernel1_at_split_shapes(cuda, ps, nv, T, G):
 @pytest.mark.gpu
 @pytest.mark.parametrize("ps", [16, 64, 128])
 @pytest.mark.parametrize("T,G,D", [(1, 7, 64), (10, 1, 128), (40, 2, 32),
-                                   (6, 4, 128)])
+                                   (6, 4, 128), (1, 4, 120), (6, 4, 120)])
 def test_paged_kernel_matches_plain_and_kernel1(cuda, ps, T, G, D):
     """The paged kernel against its plain version (rtol = atol = 1e-4),
     and bit for bit against the flash-attention kernel on the gathered
@@ -885,6 +969,59 @@ def test_cuda_engine_mla_is_greedy_exact(cuda, paged):
         assert eng.target.slots.n_page_growths > 0
     for r, p in zip(reqs, prompts):
         assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["cross", "encdec", "d120"])
+def test_cuda_cross_encdec_and_d120_models(cuda, arch):
+    """Tiny cross-attention, encoder-decoder and head-width-120 (SWA)
+    models on the card: `apply(frontend=...)` within 1e-4 of the same
+    weights on the CPU (the encoder's and the cross reads on kernel 1's
+    non-causal form), then a `cosine` engine (a random drafter and one
+    sharing the target's weights) commits the greedy streams."""
+    base = ModelConfig(name="t-x", family="dense", n_layers=2, d_model=64,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                       vocab=300, tie_embeddings=True, dtype="float32")
+    tcfg = {"cross": base.with_overrides(cross_attn_period=2,
+                                         n_frontend_tokens=40),
+            "encdec": base.with_overrides(
+                family="audio", n_kv_heads=4, norm_type="layer",
+                mlp_type="gelu", pos_embed="learned", max_position=256,
+                encoder_layers=2, encoder_seq=50, n_frontend_tokens=50),
+            "d120": base.with_overrides(head_dim=120, attention="swa",
+                                        sliding_window=24)}[arch]
+    tp = M.init_params(tcfg, 0)
+    if arch != "d120":
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        toks = torch.randint(0, 300, (2, 9), generator=gen, device=cuda)
+        fe = 0.1 * torch.randn((2, tcfg.n_frontend_tokens, 64),
+                               generator=gen, device=cuda)
+        fa.LAUNCHES = 0
+        got, _, _ = M.apply(tp, tcfg, toks, frontend=fe)
+        assert fa.LAUNCHES > 0
+        want, _, _ = M.apply(_to(tp, "cpu"), tcfg, toks.cpu(),
+                             frontend=fe.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    cos = CoSineConfig(n_drafters=2, page_size=16, pool_pages=4)
+    eng = SpeculativeEngine((tcfg, tp), [(tcfg, M.init_params(tcfg, 1), "a"),
+                                         (tcfg, tp, "b")],
+                            cos, max_len=128, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 300, n).tolist() for n in (5, 17, 40)]
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    fa.LAUNCHES = 0
+    stats = eng.run()
+    assert fa.LAUNCHES > 0 and stats.mean_acceptance > 1.0
+    for r, p in zip(reqs, prompts):
+        assert list(map(int, r.generated)) == _greedy(tcfg, tp, p, 16, cuda)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 @pytest.mark.gpu

@@ -21,6 +21,11 @@ port against the JAX package, on the same numpy inputs.
   the JAX engine's, on the simulated backend and on `backend="async"`.
 * kv_dtype="int8" with MLA raises ValueError at both cache constructors,
   as the reference does.
+* V read out of K: `v_in_k` holds for K's first Dv columns of a slot
+  pool, a page pool and a fresh segment, and for nothing else; every
+  write mode (masked prefill, decode, commit, a seg_mask read that
+  writes, page-pool growth, snapshots) keeps "v" equal to "k"[..., :Dv]
+  bit for bit, so the served reads may pass that view as v.
 """
 import dataclasses
 
@@ -43,7 +48,8 @@ from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import SpeculativeEngine
-from repro_torch.serving.runner import ModelRunner
+from repro_torch.serving.runner import (ModelRunner, PagedSlotCacheManager,
+                                       SlotCacheManager)
 from test_torch_paged import _drive
 
 MAX_LEN = 96
@@ -273,6 +279,93 @@ def test_mla_attention_matches_reference_in_every_mode(mla):
          (8 + np.arange(5, dtype=np.int32))[None].repeat(B, 0),
          token_mask=tm)
     assert int(tc["slot_pos"][1, 11]) == -1 and int(tc["slot_pos"][0, 12]) == 12
+
+
+# ------------------------------------------------- V read out of K
+
+def test_v_in_k_detects_k_prefix_views():
+    """`v_in_k` is true for `k[..., :Dv]` of a slot pool, a page pool and
+    a fresh latent segment (as `mla_attention` builds it), and false for
+    a V of its own with the same values, for other views of K (another
+    offset, fewer keys, another layout) and for another dtype."""
+    R, rope = 32, 8
+    for k in (torch.randn(5, 24, 1, R + rope),         # slot pool
+              torch.randn(6, 16, 1, R + rope),         # page pool
+              torch.cat([torch.randn(2, 7, R), torch.randn(2, 7, rope)],
+                        dim=-1)[:, :, None, :]):       # fresh segment
+        v = k[..., :R]
+        assert fa.v_in_k(k, v)
+        assert not fa.v_in_k(k, v.clone())
+        assert not fa.v_in_k(k, k[..., 1: R + 1])
+        assert not fa.v_in_k(k, k[:, 1:, ..., :R])
+        assert not fa.v_in_k(k, k.transpose(0, 1)[..., :R])
+        assert not fa.v_in_k(k.double(), k.double()[..., :R].float())
+    # a GQA cache's own V is not read out of K
+    gqa = TA.make_kv_cache(2, 8, 2, 16, dtype=torch.float32)
+    assert not fa.v_in_k(gqa["k"], gqa["v"])
+
+
+def _v_is_k_prefix(cache, where):
+    for i, layer in enumerate(cache["layers"]):
+        c = layer["self"]
+        assert torch.equal(c["v"], c["k"][..., : c["v"].shape[-1]]), (
+            where, i)
+
+
+def test_mla_caches_hold_v_as_k_prefix(mla):
+    """Both latent leaves are written from the same c_kv, so "v" equals
+    "k"[..., :Dv] bit for bit after every write: a prefill with a
+    token_mask, decodes, a commit, a seg_mask read that writes, page-pool
+    growth, and in the snapshots of both pools."""
+    _, tcfg, _, tp = mla
+    rng = np.random.default_rng(21)
+    res = SlotCacheManager(tcfg, MAX_LEN, n_slots=2, dtype=torch.float32,
+                           device="cpu")
+    pag = PagedSlotCacheManager(tcfg, MAX_LEN, n_slots=2,
+                                dtype=torch.float32, device="cpu",
+                                page_size=16, pool_pages=4)
+    rids = [0, 1]
+    for mgr in (res, pag):
+        for r in rids:
+            mgr.admit(r)
+    idx = res.padded_idx(rids)
+
+    def steps(t, real=None, **kw):
+        toks = torch.tensor(t)
+        for mgr, name in ((res, "resident"), (pag, "paged")):
+            pv = mgr.prepare(rids, write=toks.shape[1])
+            if "seg_mask" in kw:
+                pos = (mgr.cache["lengths"][idx.long()][:, None]
+                       + torch.arange(toks.shape[1], dtype=torch.int32))
+                TM.apply(tp, tcfg, toks, pos, cache=mgr.cache, write=True,
+                         slot_idx=idx, page_view=pv, **kw)
+            else:
+                TM.slot_extend(tp, tcfg, toks, mgr.cache, idx,
+                               page_view=pv, **kw)
+            for r, n in zip(rids, real or [toks.shape[1]] * 2):
+                mgr.advance(r, n)
+            _v_is_k_prefix(mgr.cache, name)
+
+    tm = np.ones((2, 16), bool)
+    tm[1, 11:] = False                       # a padded prefill chunk
+    steps(rng.integers(0, tcfg.vocab, (2, 16)), real=[16, 11],
+          token_mask=torch.tensor(tm))
+    for _ in range(2):                       # decodes
+        steps(rng.integers(0, tcfg.vocab, (2, 1)))
+    steps(rng.integers(0, tcfg.vocab, (2, 4)))             # a commit
+    G = 3
+    mk = np.broadcast_to(np.array([[1, 0, 0], [1, 1, 0], [1, 0, 1]], bool),
+                         (2, G, G)).copy()
+    steps(rng.integers(0, tcfg.vocab, (2, G)), seg_mask=torch.tensor(mk))
+    assert pag.n_page_growths >= 1           # the pool grew on the way
+    snaps = {"resident": TM.gather_slots(res.cache, idx),
+             "paged": TM.gather_paged_slots(tcfg, pag.cache, idx,
+                                            pag.snapshot_view(rids))}
+    for name, snap in snaps.items():
+        _v_is_k_prefix(snap, f"{name} snapshot")
+        TM.decode_step(tp, tcfg, torch.tensor(rng.integers(
+            0, tcfg.vocab, (2, 1))), snap)
+        _v_is_k_prefix(snap, f"{name} snapshot after a decode")
 
 
 # ------------------------------------------------------- the model

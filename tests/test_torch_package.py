@@ -8,8 +8,8 @@
   is mapped back, and so do its public names and dataclass fields.
 * The entry points run on CUDA by default: without CUDA they raise unless
   the caller asks for the CPU.
-* Branches not ported yet raise `NotImplementedError` naming their
-  ROADMAP item instead of quietly doing something else.
+* The plans the port once refused (cross-attention blocks, on attention
+  and on SSM layers) now build their parameters and run `apply`.
 """
 import ast
 import dataclasses
@@ -29,7 +29,9 @@ PORT = ROOT / "src" / "repro_torch"
 COPIED = ["config", "configs.drafters", "configs.qwen1_5_4b",
           "configs.qwen2_0_5b", "configs.mamba2_130m",
           "configs.jamba_v0_1_52b", "configs.qwen2_moe_a2_7b",
-          "configs.qwen3_32b", "configs.deepseek_v3_671b", "core.tree", "core.request_pool",
+          "configs.qwen3_32b", "configs.deepseek_v3_671b",
+          "configs.h2o_danube3_4b", "configs.llama_3_2_vision_11b",
+          "configs.whisper_small", "core.tree", "core.request_pool",
           "core.latency_model", "core.routing", "core.scheduler",
           "core.admission", "obs.metrics", "obs.trace", "obs.export",
           "obs.summarize", "data.synthetic", "serving.events",
@@ -109,11 +111,13 @@ def test_copied_module_equals_original(name):
 
 @pytest.mark.parametrize("name", ["mamba2_130m", "jamba_v0_1_52b",
                                   "qwen2_moe_a2_7b", "qwen3_32b",
-                                  "deepseek_v3_671b"])
+                                  "deepseek_v3_671b", "h2o_danube3_4b",
+                                  "llama_3_2_vision_11b", "whisper_small"])
 def test_copied_config_fields_equal_original(name):
-    """The SSM, hybrid, MoE, qwen3 and DeepSeek-V3 configs the port serves
-    hold the reference's values, field by field (nested SSM, MoE and MLA
-    configs included, each of the port's own class)."""
+    """The SSM, hybrid, MoE, qwen3, DeepSeek-V3, h2o-danube3,
+    llama-3.2-vision and whisper configs the port serves hold the
+    reference's values, field by field (nested SSM, MoE and MLA configs
+    included, each of the port's own class)."""
     port = importlib.import_module(f"repro_torch.configs.{name}").CONFIG
     orig = importlib.import_module(f"repro.configs.{name}").CONFIG
     assert dataclasses.asdict(port) == dataclasses.asdict(orig)
@@ -162,21 +166,18 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     assert eng.run().total_committed == 4
 
 
-def _refusals():
+def _formerly_refused():
+    """The calls that refused cross-attention plans before it was ported:
+    each config and the frontend its `apply` takes."""
     from repro_torch.config import SSMConfig
-    from repro_torch.models import model as M
 
     cfg = _tiny()
     return {
-        # SSM, hybrid, MoE and MLA plans and int8 KV caches are served;
-        # what an SSM plan may still carry that is not ported is refused:
         # cross-attention blocks on SSM layers
-        "ssm": (lambda: M.init_params(cfg.with_overrides(
-            family="ssm", ssm=SSMConfig(), cross_attn_period=1,
-            n_frontend_tokens=4), 0, device="cpu"), "queue 1 item 11"),
-        "cross-attention": (lambda: M.init_params(cfg.with_overrides(
-            cross_attn_period=1, n_frontend_tokens=4), 0, device="cpu"),
-            "queue 1 item 11"),
+        "ssm": cfg.with_overrides(family="ssm", ssm=SSMConfig(),
+                                  cross_attn_period=1, n_frontend_tokens=4),
+        "cross-attention": cfg.with_overrides(cross_attn_period=1,
+                                              n_frontend_tokens=4),
     }
 
 
@@ -184,7 +185,20 @@ BRANCHES = ["ssm", "cross-attention"]
 
 
 @pytest.mark.parametrize("branch", BRANCHES)
-def test_unported_branches_refuse(branch):
-    call, item = _refusals()[branch]
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
-        call()
+def test_formerly_refused_branches_build_and_apply(branch):
+    """`init_params` builds the cross sub-blocks the reference builds and
+    `apply` with a frontend gives finite logits that depend on it."""
+    from repro_torch.models import model as M
+
+    cfg = _formerly_refused()[branch]
+    params = M.init_params(cfg, 0, device="cpu")
+    assert all({"ln_cross", "cross"} <= set(layer)
+               for layer in params["layers"])
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (2, 5), generator=gen)
+    fe = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=gen)
+    logits, _, _ = M.apply(params, cfg, toks, frontend=fe)
+    assert logits.shape == (2, 5, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    other, _, _ = M.apply(params, cfg, toks, frontend=fe * 2)
+    assert not torch.equal(logits, other)

@@ -1,10 +1,12 @@
 """`chip_smoke.py`'s accounting on the CPU: the latent form's work and
-bound, and the profiler attribution of device time to a host range (the
-script itself needs the card)."""
+bound, the profiler attribution of device time to a host range, and the
+image check of phases N and O rehearsed at tiny widths (the script itself
+needs the card)."""
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
 
+import pytest
 import torch
 from torch.autograd import DeviceType
 
@@ -37,6 +39,33 @@ def test_latent_work_and_bound():
                              smoke.LATENT_FLOPS["float32"])
     assert by == "operations" and bound == flops / smoke.TF32X3_FLOPS * 1e3
     assert smoke._bound(0, flops, "float32")[0] == flops / 67e12 * 1e3
+
+
+@pytest.mark.parametrize("arch", ["cross", "encdec"])
+def test_image_check_rehearsed_on_the_cpu(arch):
+    """Phases N and O's image check at tiny widths in f32: the decodes
+    that read the cross rows the prefills wrote give the full forward's
+    logits (gap far under 1e-4) and its greedy tokens."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import model as M
+    base = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                       n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
+                       vocab=40, tie_embeddings=True, dtype="float32")
+    cfg = (base.with_overrides(cross_attn_period=2, n_frontend_tokens=7)
+           if arch == "cross" else
+           base.with_overrides(n_kv_heads=2, norm_type="layer",
+                               mlp_type="gelu", pos_embed="learned",
+                               max_position=64, encoder_layers=2,
+                               encoder_seq=9, n_frontend_tokens=9))
+    params = M.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8]]
+    fe = 0.1 * torch.randn((2, M.cross_len(cfg), 32), generator=gen)
+    out = smoke.image_check(torch, M, fa, cfg, params, prompts, fe, "t",
+                            tie_tol=1e-4, device="cpu", max_len=32)
+    assert out["steps"] == smoke.IMAGE_STEPS
+    assert out["max_logit_gap_vs_full"] < 1e-4 and not out["near_tie_tokens"]
 
 
 def _ev(name, thread, start, end, kernels=(), dev=DeviceType.CPU):
