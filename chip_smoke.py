@@ -6,9 +6,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's four hand-written Hopper kernels (kernels 1 and 2 with
-their f32, bf16 and int8 K/V forms, their latent form for MLA and their
-(120, 120) instantiation; kernel 1's non-causal form for cross-attention
-and the Whisper encoder) from the sources
+their f32, bf16 and int8 K/V forms, their many-row form for f32 / bf16
+K/V from `R_MMA` query rows a (request, KV head), their latent form for
+MLA and their (120, 120) instantiation; kernel 1's non-causal form for
+cross-attention and the Whisper encoder) from the sources
 in the checkout (one `nvcc` each, in parallel), holds each against its
 plain PyTorch version at the serving path's own shapes (timing both, with
 the work's lower bound and, where one PyTorch call computes the same
@@ -100,6 +101,9 @@ wrappers), then serves the CoSine path end to end through
            two llama-68m drafters (seeds 1 and 2): every cache read of
            the target on the kernels' (120, 120) instantiation;
   phase M-paged  phase M on the paged pool: streams equal phase M's;
+  phase M-int8  phase M with int8 KV caches for the target and both
+           drafters (resident): every D 120 cache read of the target on
+           the kernels' int8 form, streams under the tie rule;
   phase N  llama-3.2-vision-11b at full width and depth (40 layers,
            d_model 4096, GQA 32/8 of 128, cross-attention layers 3, 8,
            ..., 38 over 1601 frontend rows; ~41 GB of f32 weights): first
@@ -122,7 +126,8 @@ dequantized bf16 view) at phases K and K-paged's shapes and timed beside
 their bound (int8 K/V and two 4-byte scales per row and head; the
 operations at the bf16 tensor-core rate their products run at) and a
 dequantize + SDPA yardstick; the paged int8 form must equal kernel 1's
-int8 form on the gathered view bit for bit. The latent form of both kernels (MLA's one KV
+int8 form on the gathered view bit for bit; phase M-int8's target shapes
+(Hkv 8, G 4, D 120) are held the same way. The latent form of both kernels (MLA's one KV
 head: Dk 576, Dv 512, G 128) is held the same way at phase L's shapes
 (decode, the tree's cache pass and segment, a T = 6 commit, a T = 512
 prefill; f32 and bf16 K/V) beside SDPA over K/V expanded to 128 heads
@@ -134,7 +139,13 @@ way at phase M's target shapes (Hkv 8, G 4; decode, the tree's cache pass
 and segment, a T = 6 commit, a T = 512 prefill; f32 and bf16 K/V; paged
 bitwise kernel 1), and kernel 1's non-causal form at phases N and O's
 reads (one token over 1601 and 1500 cross rows, the encoder's T = S =
-1500) beside SDPA with is_causal=False.
+1500) beside SDPA with is_causal=False. Every kernel row prints the form
+it launched (`launch_form`: the GQA form, the many-row form, int8,
+latent); the many-row rows of all kernel phases make the kernels line's
+`*_many_rows` entries, whose launches the serving phases count against
+the model's reads at R >= R_MMA. The GQA rows' bound counts their
+operations at the tensor-core rate of their K/V dtype (3xTF32 for f32,
+bf16), beside the f32 CUDA-core rate (`bound_cuda_core_ms`).
 
 Each committed stream is held against the port's own greedy reference
 (`prefill` + `decode_step`), and each kernel's launch counter must equal
@@ -170,6 +181,10 @@ TF32X3_FLOPS = 495e12 / 3
 # the latent form's operations bound, by K/V dtype: f32 at the 3xTF32 rate
 # of the unit its products run on, bf16 at the bf16 rate
 LATENT_FLOPS = {"float32": TF32X3_FLOPS, "bfloat16": PEAK_FLOPS["bfloat16"]}
+# kernels 1 and 2's GQA heads: the bound at the tensor-core rate of the
+# K/V dtype (the many-row form's units: 3xTF32 for f32, bf16), beside the
+# one at the f32 CUDA-core rate (the GQA form's FMAs)
+GQA_TC_FLOPS = LATENT_FLOPS
 # kernel vs plain version on the same inputs: the kernel sums keys in
 # tiles of 32 and the plain version in one block, both in f32 with K/V
 # converted exactly from their stored dtype, so the only difference is
@@ -233,6 +248,15 @@ KERNEL_SOURCES = {
     "flash_attention_partial_noncausal": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/common.py:139"),
+    # the many-row form of kernels 1 and 2 (f32 / bf16 K/V from R_MMA
+    # query rows a (request, KV head): `rows_kernel`, 64 rows a tile on
+    # tensor cores; the same sources, launches also counted above)
+    "flash_attention_partial_many_rows": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/common.py:139"),
+    "paged_flash_decode_many_rows": (
+        "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:127"),
 }
 
 
@@ -418,9 +442,31 @@ def _kw(c):
                 window=0, mask=c["mask"], slot_idx=c["slot_idx"])
 
 
+def launch_form(fa, q, k, v, S, mask=None):
+    """The form kernels 1 and 2 launch for these inputs and their (n_split,
+    span, row tile) (`ops.py::launch_plan`, S logical keys)."""
+    B, T, H, G, Dk = q.shape
+    n, span, rows, many = fa.launch_plan(B, H, T, G, S, Dk, v.shape[-1],
+                                         k.dtype, mask is not None)
+    form = ("latent" if Dk != v.shape[-1] else "int8" if k.element_size() == 1
+            else "many-row" if many else "gqa")
+    return form, (n, span, rows)
+
+
+def _gqa_bounds(nbytes, flops, kv_type):
+    """A GQA row's bounds: at the tensor-core rate of its K/V dtype (the
+    row's bound) and at the f32 CUDA-core rate."""
+    bound, by = _bound(nbytes, flops, kv_type, GQA_TC_FLOPS[kv_type])
+    cc, _ = _bound(nbytes, flops, kv_type, PEAK_FLOPS["float32"])
+    return dict(bound_ms=bound, bound_by=by, bound_cuda_core_ms=cc,
+                ops_ms=flops / GQA_TC_FLOPS[kv_type] * 1e3,
+                cuda_core_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+
+
 def kernel1_row(torch, fa, c):
     """Kernel 1 at one case: held against its plain version, timed beside
-    it, its bound and one SDPA call; returns the row."""
+    it, its bounds and one SDPA call; returns the row (with the form it
+    launched)."""
     args, kw = _args(c), _kw(c)
     got = fa.attend_partial(*args, **kw)
     want = fa.attend_partial_plain(*args, **kw)
@@ -434,20 +480,17 @@ def kernel1_row(torch, fa, c):
     nbytes, flops = _work(torch, *args, c["slot_idx"], c["mask"],
                           c["causal"])
     kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
-    bound, by = _bound(nbytes, flops, kv_type)
-    print(f"kernel {c['name']}: splits {fa.plan_splits(*_bhrs(c))}  "
-          f"max|err| {err:.2e}  kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({by})  "
+    bd = _gqa_bounds(nbytes, flops, kv_type)
+    form, plan = launch_form(fa, c["q"], c["k"], c["v"], c["k"].shape[1],
+                             c["mask"])
+    print(f"kernel {c['name']}: form {form}, (splits, span, row tile) "
+          f"{plan}  max|err| {err:.2e}  kernel {ms:.4f} ms  "
+          f"plain {plain_ms:.4f} ms  bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}; CUDA cores {bd['bound_cuda_core_ms']:.4f})  "
           f"sdpa {lib_ms:.4f} ms", flush=True)
-    return dict(name=c["name"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                bytes=nbytes, flops=flops, dtype=kv_type)
-
-
-def _bhrs(c):
-    """(B, Hkv, R, S) of a kernel-1 case, as `plan_splits` takes them."""
-    B, T, H, G, _ = c["q"].shape
-    return B, H, T * G, c["k"].shape[1]
+    return dict(name=c["name"], form=form, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                flops=flops, dtype=kv_type, **bd)
 
 
 # phases F and G's attention layer (jamba widths: Hkv 8, G 4, D 128) and
@@ -693,19 +736,19 @@ def paged_row(torch, fa, pa, c):
     nbytes, flops = _work(torch, *k1_args, None, None, True)
     nbytes += c["tbl"].numel() * 4
     kv_type = "bfloat16" if c["k"].dtype == torch.bfloat16 else "float32"
-    bound, by = _bound(nbytes, flops, kv_type)
-    B_, T_, H_, G_, _ = c["q"].shape
-    print(f"kernel paged {c['name']}: splits "
-          f"{fa.plan_splits(B_, H_, T_ * G_, kv.shape[1])}  "
-          f"max|err| {err:.2e}  |paged - "
+    bd = _gqa_bounds(nbytes, flops, kv_type)
+    form, plan = launch_form(fa, c["q"], c["k"], c["v"], kv.shape[1])
+    print(f"kernel paged {c['name']}: form {form}, (splits, span, row "
+          f"tile) {plan}  max|err| {err:.2e}  |paged - "
           f"kernel 1 on the gathered view| {vs_k1:.3g}  kernel "
           f"{ms:.4f} ms  plain {plain_ms:.4f} ms  kernel 1 gathered "
-          f"{k1_ms:.4f} ms  bound {bound:.4f} ms ({by})  sdpa "
-          f"{lib_ms:.4f} ms", flush=True)
-    return dict(name=c["name"], max_abs_err=err,
+          f"{k1_ms:.4f} ms  bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}; CUDA cores {bd['bound_cuda_core_ms']:.4f})  "
+          f"sdpa {lib_ms:.4f} ms", flush=True)
+    return dict(name=c["name"], form=form, max_abs_err=err,
                 max_abs_diff_vs_kernel1=vs_k1, ms=ms, plain_ms=plain_ms,
-                kernel1_gathered_ms=k1_ms, bound_ms=bound, bound_by=by,
-                library_ms=lib_ms, bytes=nbytes, flops=flops, dtype=kv_type)
+                kernel1_gathered_ms=k1_ms, library_ms=lib_ms, bytes=nbytes,
+                flops=flops, dtype=kv_type, **bd)
 
 
 # phase M's target (h2o-danube3-4b): 8 KV heads, 4 query heads each, of
@@ -826,12 +869,25 @@ def noncausal_kernel_phase(torch, fa):
 
 
 # the int8 K/V forms of kernels 1 and 2 at phases A and C's shapes
-# (target Hkv 20, G 1, D 128; drafter Hkv 2, G 7, D 64): decode, the
+# (target Hkv 20, G 1, D 128; drafter Hkv 2, G 7, D 64) and phase
+# M-int8's target (h2o-danube3-4b: Hkv 8, G 4, D 120): decode, the
 # tree's cache pass (T = 10), a commit of T = 6 rows, a 512-row prefill
-INT8KV_SHAPES = ((20, 1, 128, "target"), (2, 7, 64, "drafter"))
+INT8KV_SHAPES = ((20, 1, 128, "target"), (2, 7, 64, "drafter"),
+                 (D120_H, D120_G, D120_D, "danube"))
 INT8KV_NO_LIBRARY = ("no one PyTorch call attends over int8 K/V with "
                      "scales; yardstick_ms times the dequantized bf16 view "
                      "and one scaled_dot_product_attention (two calls)")
+
+
+def _d120_int8_sums(rows):
+    """The int8 K/V rows at head width 120 (phase M-int8's shapes):
+    summed times, bound and yardstick."""
+    d = [r for r in rows if r["name"].startswith("danube_")]
+    return dict(shapes=len(d), ms=sum(r["ms"] for r in d),
+                plain_ms=sum(r["plain_ms"] for r in d),
+                yardstick_ms=sum(r["yardstick_ms"] for r in d),
+                bound_ms=max(sum(r["bytes"] for r in d) / HBM_BYTES_PER_S
+                             * 1e3, sum(r["ops_ms"] for r in d)))
 
 
 def _int8kv_forms(torch, lens):
@@ -1245,7 +1301,8 @@ def mla_kernel_phase(torch, fa, pa):
         for q_bf16 in (0, 1):
             for kv_name, kv in (("float32", 0), ("bfloat16", 1)):
                 out = [ctypes.c_int() for _ in range(3)]
-                rc = f(Dk, Dv, q_bf16, kv, *(ctypes.byref(o) for o in out))
+                rc = f(Dk, Dv, q_bf16, kv, fa.LATENT_ROW_TILE,
+                       *(ctypes.byref(o) for o in out))
                 dyn, sta, lim = (o.value for o in out)
                 want = fa.kernel_smem(Dk, Dv, 4 if kv == 0 else 2,
                                       2 if q_bf16 else 4)
@@ -1687,8 +1744,13 @@ class PathCounters:
         self.resident_int8, self.paged_int8 = {}, {}
         # reads of a latent K/V pair (Dk != Dv: MLA, the latent form)
         self.resident_latent, self.paged_latent = {}, {}
-        # reads of heads of width 120 (h2o-danube3-4b)
+        # reads of heads of width 120 (h2o-danube3-4b), and of them the
+        # int8 K/V ones and the segment passes
         self.resident_d120, self.paged_d120 = 0, 0
+        self.d120_int8, self.d120_segment = 0, 0
+        # unmasked reads of f32 / bf16 K/V heads at R >= R_MMA query rows
+        # a (request, KV head): the many-row form's
+        self.resident_many, self.paged_many = 0, 0
         # cross layers in the forwards' params (each reads its cross
         # cache once a forward, non-causal: form "cross")
         self.cross_layer_calls = 0
@@ -1745,6 +1807,16 @@ class PathCounters:
         orig_sizes = self.moe.group_sizes_host
         lock, cuda = self._lock, self._torch.cuda
         int8_dtype = self._torch.int8
+        r_mma, mma_heads = self.fa.R_MMA, self.fa.MMA_HEADS
+
+        def many(q, k, v, mask=None):
+            """Whether an unmasked read has R_MMA rows a (request, KV
+            head) or more over f32 / bf16 K/V of a head width the form
+            takes."""
+            return (mask is None and k.shape[-1] == v.shape[-1]
+                    and k.element_size() in (2, 4)
+                    and q.shape[-1] in mma_heads
+                    and q.shape[1] * q.shape[3] >= r_mma)
 
         def attend(q, k, v, q_pos, k_pos, **kw):
             T = q.shape[1]
@@ -1756,6 +1828,10 @@ class PathCounters:
             with lock:
                 self.resident[form] = self.resident.get(form, 0) + 1
                 self.resident_d120 += q.shape[-1] == 120
+                if q.shape[-1] == 120:
+                    self.d120_int8 += k.dtype == int8_dtype
+                    self.d120_segment += form == "segment"
+                self.resident_many += many(q, k, v, kw.get("extra_mask"))
                 if k.dtype == int8_dtype:
                     self.resident_int8[form] = \
                         self.resident_int8.get(form, 0) + 1
@@ -1771,6 +1847,9 @@ class PathCounters:
             with lock:
                 self.paged[form] = self.paged.get(form, 0) + 1
                 self.paged_d120 += q.shape[-1] == 120
+                if q.shape[-1] == 120:
+                    self.d120_int8 += k.dtype == int8_dtype
+                self.paged_many += many(q, k, v)
                 if k.dtype == int8_dtype:
                     self.paged_int8[form] = self.paged_int8.get(form, 0) + 1
                 if k.shape[-1] != v.shape[-1]:
@@ -1865,6 +1944,7 @@ class PathCounters:
         self.fa.LAUNCHES_INT8_KV = self.pa.LAUNCHES_INT8_KV = 0
         self.fa.LAUNCHES_LATENT = self.pa.LAUNCHES_LATENT = 0
         self.fa.LAUNCHES_NONCAUSAL = 0
+        self.fa.LAUNCHES_MANY_ROWS = self.pa.LAUNCHES_MANY_ROWS = 0
         self.fa.LAUNCHES_BY_PAIR.clear()
         self.pa.LAUNCHES_BY_PAIR.clear()
         return self
@@ -1883,7 +1963,9 @@ class PathCounters:
                 (120, 120), 0),
             paged_flash_decode_d120=self.pa.LAUNCHES_BY_PAIR.get(
                 (120, 120), 0),
-            flash_attention_partial_noncausal=self.fa.LAUNCHES_NONCAUSAL)
+            flash_attention_partial_noncausal=self.fa.LAUNCHES_NONCAUSAL,
+            flash_attention_partial_many_rows=self.fa.LAUNCHES_MANY_ROWS,
+            paged_flash_decode_many_rows=self.pa.LAUNCHES_MANY_ROWS)
         for mod, name, fn in reversed(self._saved):
             setattr(mod, name, fn)
 
@@ -1903,7 +1985,11 @@ class PathCounters:
         read; with `mla` every attention call (cache reads and segment
         passes) is the kernels' latent form, and without it none is; with
         `d120` some reads are of heads of width 120, each launched on the
-        kernels' (120, 120) instantiation, and without it none is."""
+        kernels' (120, 120) instantiation, and without it none is (with
+        `int8_kv` too, every D 120 cache read, resident or pool, on the
+        int8 form); every unmasked read of f32 / bf16 K/V at R >= R_MMA
+        query rows a (request, KV head) is a many-row launch of its
+        kernel, and no other read is."""
         res, pag = sum(self.resident.values()), sum(self.paged.values())
         L = self.launches
         cross = self.resident.get("cross", 0)
@@ -1919,6 +2005,17 @@ class PathCounters:
             fail(f"{label}: (120, 120) launches {L} for "
                  f"{self.resident_d120} resident and {self.paged_d120} pool "
                  "reads of heads of width 120")
+        if d120 and int8_kv and self.d120_int8 != (
+                self.resident_d120 - self.d120_segment + self.paged_d120):
+            fail(f"{label}: {self.d120_int8} int8 K/V reads of heads of "
+                 f"width 120 for {self.resident_d120} resident (of them "
+                 f"{self.d120_segment} segment passes) and "
+                 f"{self.paged_d120} pool reads")
+        if L["flash_attention_partial_many_rows"] != self.resident_many \
+                or L["paged_flash_decode_many_rows"] != self.paged_many:
+            fail(f"{label}: many-row launches {L} for {self.resident_many}"
+                 f" resident and {self.paged_many} pool reads at R >= "
+                 "R_MMA")
         res_l, pag_l = (sum(self.resident_latent.values()),
                         sum(self.paged_latent.values()))
         if L["flash_attention_partial_mla"] != res_l \
@@ -2221,7 +2318,10 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                            pool=calls.paged_int8),
         latent_reads=dict(resident=calls.resident_latent,
                           pool=calls.paged_latent),
-        d120_reads=dict(resident=calls.resident_d120, pool=calls.paged_d120),
+        d120_reads=dict(resident=calls.resident_d120, pool=calls.paged_d120,
+                        int8=calls.d120_int8),
+        many_row_reads=dict(resident=calls.resident_many,
+                            pool=calls.paged_many),
         cross_layer_calls=calls.cross_layer_calls,
         moe_layer_calls=calls.moe_calls,
         group_size_reads=calls.group_size_reads,
@@ -2963,9 +3063,10 @@ def image_check(torch, M, fa, cfg, params, prompts, fe, label, tie_tol,
 
 def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
                           kernel_err, paged_d120_exact, cfgs, drafter_cfg):
-    """Phases M, M-paged, N and O, after phase L's weights are released:
-    h2o-danube3-4b with two llama-68m drafters (every cache read of the
-    target on the (120, 120) instantiation), resident and paged; then
+    """Phases M, M-paged, M-int8, N and O, after phase L's weights are
+    released: h2o-danube3-4b with two llama-68m drafters (every cache read
+    of the target on the (120, 120) instantiation), resident and paged,
+    then resident with int8 KV caches for all three models; then
     llama-3.2-vision-11b and whisper-small, each with the image check
     (`image_check`) and a text-only serve with two drafters sharing its
     weights. Each model's weights are freed before the next. Returns the
@@ -3007,6 +3108,21 @@ def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
     if not paged_d120_exact or same != len(mprompts):
         fail("phase M-paged: the paged pool committed other tokens than the "
              "resident pool")
+    # phase M-int8: the same weights with int8 KV caches for the target
+    # and both drafters, resident: every D 120 cache read on the int8 form
+    m8 = danube.with_overrides(kv_dtype="int8")
+    d8 = drafter_cfg.with_overrides(kv_dtype="int8")
+    sum_m8, _ = run("phase M-int8", target=(m8, mparams), prompts=mprompts,
+                    refs=references(m8, mparams, mprompts), err=kernel_err,
+                    d120=True, int8_kv=True,
+                    drafters=[(d8, mdraft[i], f"d{i}") for i in range(2)])
+    print(f"phase M-int8: {sum_m8['d120_reads']['int8']} int8 K/V reads of "
+          f"heads of width 120 (every cache read of the target), "
+          f"{sum_m8['kernel_launches']['flash_attention_partial_int8_kv']} "
+          f"int8-form launches in all; peak device GB "
+          f"{sum_m8['peak_mem_gb']:.2f} (phase M "
+          f"{sum_m['peak_mem_gb']:.2f})", flush=True)
+    out["phase M-int8"] = sum_m8
     sum_m["weights_gb"] = gb
     del mparams, mdraft, dense
     gc.collect()
@@ -3097,6 +3213,7 @@ def main() -> int:
                 print(f"{lib.name}: {line.strip()}", flush=True)
     int8kv_compiled = {}
     d120_compiled = {}
+    many_compiled = {}
     for lib in libraries[:2]:
         if lib.build_log is None:   # built by an earlier run: no report
             print(f"{lib.name}: built before this run, registers not "
@@ -3110,6 +3227,15 @@ def main() -> int:
                       f"spill loads {st['spill_loads']} B", flush=True)
         if not any(k.startswith(f"{lib.name}:") for k in int8kv_compiled):
             fail(f"{lib.name}: the build log names no int8_kernel "
+                 "instantiation")
+        for fn, st in ptxas_report(lib.build_log).items():
+            if "rows_kernel" in fn:
+                many_compiled[f"{lib.name}:{fn}"] = st
+                print(f"{lib.name}: many-row form {fn}: {st['registers']} "
+                      f"registers, spill stores {st['spill_stores']} B, "
+                      f"spill loads {st['spill_loads']} B", flush=True)
+        if not any(k.startswith(f"{lib.name}:") for k in many_compiled):
+            fail(f"{lib.name}: the build log names no rows_kernel "
                  "instantiation")
         for fn, st in ptxas_report(lib.build_log).items():
             if "partial_kernelILi120ELi120E" in fn:
@@ -3127,6 +3253,13 @@ def main() -> int:
     fa120_rows, pa120_rows = d120_kernel_phase(torch, fa, pa)
     nc_rows = noncausal_kernel_phase(torch, fa)
     sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
+    many_rows = [r for r in fa_rows + fa120_rows + nc_rows
+                 if r["form"] == "many-row"]
+    paged_many_rows = [r for r in pa_rows + pa120_rows
+                       if r["form"] == "many-row"]
+    print(f"many-row form: {len(many_rows)} kernel-1 and "
+          f"{len(paged_many_rows)} paged shapes of the kernel phases "
+          f"(R_MMA {fa.R_MMA})", flush=True)
     kernel_err = max(r["max_abs_err"]
                      for r in fa_rows + pa_rows + fa8_rows + pa8_rows)
     mla_kernel_err = max(r["max_abs_err"] for r in fam_rows + pam_rows)
@@ -3434,9 +3567,11 @@ def main() -> int:
              "flash_attention_partial_int8_kv": dict(
                  yardstick_ms=sum(r["yardstick_ms"] for r in fa8_rows),
                  host_kv_write_us=kv_write_host,
-                 compiled=int8kv_compiled, phase_k_profile=sum_k["profile"]),
+                 compiled=int8kv_compiled, phase_k_profile=sum_k["profile"],
+                 d120=_d120_int8_sums(fa8_rows)),
              "paged_flash_decode_int8_kv": dict(
-                 yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows)),
+                 yardstick_ms=sum(r["yardstick_ms"] for r in pa8_rows),
+                 d120=_d120_int8_sums(pa8_rows)),
              "flash_attention_partial_mla": dict(
                  smem=mla_smem, sdpa_backends=sorted(
                      {r["sdpa_backend"] for r in fam_rows}),
@@ -3449,6 +3584,13 @@ def main() -> int:
                  compiled=d120_compiled),
              "paged_flash_decode_d120": dict(
                  launches_by_phase=by_phase("paged_flash_decode_d120")),
+             "flash_attention_partial_many_rows": dict(
+                 launches_by_phase=by_phase(
+                     "flash_attention_partial_many_rows"),
+                 r_mma=fa.R_MMA, heads=fa.MMA_HEADS,
+                 compiled=many_compiled),
+             "paged_flash_decode_many_rows": dict(
+                 launches_by_phase=by_phase("paged_flash_decode_many_rows")),
              "flash_attention_partial_noncausal": dict(
                  launches_by_phase=by_phase(
                      "flash_attention_partial_noncausal"),
@@ -3474,7 +3616,9 @@ def main() -> int:
                        ("paged_flash_decode_mla", pam_rows),
                        ("flash_attention_partial_d120", fa120_rows),
                        ("paged_flash_decode_d120", pa120_rows),
-                       ("flash_attention_partial_noncausal", nc_rows)):
+                       ("flash_attention_partial_noncausal", nc_rows),
+                       ("flash_attention_partial_many_rows", many_rows),
+                       ("paged_flash_decode_many_rows", paged_many_rows)):
         source, replaces = KERNEL_SOURCES[name]
         tot = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms")}
         lib = [r["library_ms"] for r in rows]
@@ -3483,13 +3627,18 @@ def main() -> int:
         # the unit they run on: `ops_ms`)
         t_ops = sum(r.get("ops_ms", r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3)
                     for r in rows)
+        # (GQA rows: the bound at the tensor-core rate, beside the one at
+        # the f32 CUDA-core rate)
+        cc = ({} if not all("cuda_core_ops_ms" in r for r in rows) else
+              dict(bound_cuda_core_ms=max(t_bytes, sum(
+                  r["cuda_core_ops_ms"] for r in rows))))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_by="bytes" if t_bytes >= t_ops else "operations", **cc,
             library_ms=None if None in lib else sum(lib),
             **extra.get(name, {}),
             note="times are sums over one call of each shape below"

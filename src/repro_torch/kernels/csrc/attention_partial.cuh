@@ -12,15 +12,24 @@
 // window) and by an optional bool mask; a masked key scores NEG_INF =
 // -1e30 and contributes p = 0, so a fully masked row leaves l = 0.
 //
-// Three kernels share the key addressing, the split and the merge, chosen
-// by the head widths (Dk, Dv) and the K/V storage:
+// Four kernels share the key addressing, the split and the merge, chosen
+// by the head widths (Dk, Dv), the K/V storage and R, the query rows of
+// one (request, KV head) (`ops.py::tiling`, from these alone):
 //   * `partial_kernel`, Dk == Dv in {16, 32, 64, 120, 128}: GQA heads
-//     with f32 or bf16 K/V. Described below.
-//   * `int8_kernel`, the same heads with int8 K/V and an f32 scale per
-//     (row, head) (`kv_dtype="int8"` caches): a ring of int8 tiles in
-//     flight, each tile converted once to bf16 in shared memory by the
-//     warps that read it, both products on tensor cores, 16 or 64 query
-//     rows a block: see the comment above `int8_kernel`.
+//     with f32 or bf16 K/V below `ops.py::R_MMA` rows (decode and the
+//     other few-row reads), 16 rows a block on CUDA cores. Described
+//     below.
+//   * `rows_kernel`, the many-row form: the same heads at D 64, 120 and
+//     128 with f32 or bf16 K/V from R_MMA rows (prefill chunks, commits,
+//     cache passes and segments at G 4, cross reads of a frontend
+//     prefill, the Whisper encoder): 64 rows a block share each key tile,
+//     both products on tensor cores (3xTF32 / bf16 `mma.sync`): see the
+//     comment above `rows_kernel`.
+//   * `int8_kernel`, the same heads (D 120 included) with int8 K/V and an
+//     f32 scale per (row, head) (`kv_dtype="int8"` caches): a ring of
+//     int8 tiles in flight, each tile converted once to bf16 in shared
+//     memory by the warps that read it, both products on tensor cores,
+//     16 or 64 query rows a block: see the comment above `int8_kernel`.
 //   * `latent_kernel`, Dk != Dv: MLA's absorbed attention (DeepSeek-V3:
 //     one KV head holding c_kv ++ k_pe, Dk = 512 + 64 = 576, Dv = 512,
 //     all 128 query heads folded onto it as G = 128 rows a token), and a
@@ -29,13 +38,14 @@
 //     K's first Dv columns, and both products run on tensor cores: see
 //     the comment above `latent_kernel`.
 //
-// What bounds the GQA form on the H100: at decode, verification's cache
-// pass and commit (a handful of query rows per KV head) it reads each K/V
-// byte of the keys a request holds once for a few rows: bound by those
-// bytes over 3.35 TB/s, a few microseconds, so latency decides — how many
-// blocks share the keys and how many round trips to HBM each block waits
-// for. Only the 512-row prefill has enough rows per key to approach the
-// f32 FMA rate.
+// What bounds the GQA form on the H100: at decode and the other reads of
+// a handful of query rows per KV head it reads each K/V byte of the keys
+// a request holds once for a few rows: bound by those bytes over 3.35
+// TB/s, a few microseconds, so latency decides — how many blocks share
+// the keys and how many round trips to HBM each block waits for. Reads of
+// many rows a KV head are bound by their products and go to the many-row
+// form (`R_MMA`, measured: from R = 17, where this form needs a second
+// 16-row block per key tile).
 //
 // What the design does about it:
 //   * Split-K (flash-decoding). A cluster of `n_split` blocks owns
@@ -75,9 +85,11 @@
 //     so a row's reads cover contiguous bytes. At D = 120 (h2o-danube3)
 //     a strip is 15 values, so its chunks are single values (q and acc
 //     in 15 scalar registers a thread), while a key row stays a whole
-//     number of 16-byte copies (480 B at f32, 240 at bf16). The int8
-//     form does not take D = 120 (its k-step is 16): the wrappers refuse
-//     it and the dispatch has no int8 instantiation for it.
+//     number of 16-byte copies (480 B at f32, 240 at bf16). That is the
+//     right shape where a block has a handful of rows; with hundreds a
+//     KV head each staged key would be read again by every 16-row block
+//     and no tensor core used, which is why those reads go to
+//     `rows_kernel`.
 //
 // Key addressing is the one difference between the two instantiations:
 // logical key s of request b lives in pool row (page, row) =
@@ -229,6 +241,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(bytes));
+}
+
+// an 8-byte copy (an int8 row of 120 bytes is 8-byte aligned only)
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
 }
 
 // One key's metadata, read by thread `j` (< KT) of the block: position
@@ -1564,6 +1583,20 @@ int launch_latent(const Params& p, int B, cudaStream_t stream) {
 //   * The grid runs the heaviest blocks first: row tiles are the slowest
 //     grid dimension, last rows (the most keys under the causal mask)
 //     first, so a prefill's second wave is its lightest blocks.
+//   * Head width 120 (h2o-danube3-4b). A 120-byte int8 row is 8-byte
+//     aligned only (head h starts 120 h bytes into a key row), so it is
+//     staged by 8-byte `cp.async.ca` copies, 15 a row (the warp walks the
+//     tile's 480 copies, each lane's row offsets shuffled from the lane
+//     that fetched them), and converted 8 bytes at a time. The bf16 view
+//     is 128 values wide: its columns 120-127 are zeros written once
+//     (never converted into) and q's last 16-deep k-step carries zeros in
+//     its upper half, so q·k is exact over 120; P·V's fifteenth 8-wide
+//     column tile is loaded alone (`ldmatrix` x2) and no column past 120
+//     is computed or stored. Padding was chosen over a last m16n8k8 step:
+//     q's zero half is a compile-time zero, so it holds no register, and
+//     the k loop keeps one fragment shape (the m16n8k8 variant was not
+//     built). No padded copy of the cache is made: the layout stays the
+//     reference's (P, S, H, 120) int8 with (P, S, H) f32 scales.
 //   * Everything else is the GQA form's: the split plan from the grid
 //     alone (with its own target, `ops.py::INT8_SPLIT_TARGET_BLOCKS`),
 //     the cluster's ranks merged in a fixed order through distributed
@@ -1582,11 +1615,14 @@ struct Int8Form {
   static constexpr int MAX_SPLIT = 16;            // blocks a cluster
   static constexpr int MAX_ROWS = 64;             // row tile 16 or 64
   static constexpr int STAGE = 2 * KT * D;        // an int8 K and V tile
+  // the bf16 view's width: D in whole 16-deep k-steps (D 120: 128, its
+  // columns 120-127 zeros written once)
+  static constexpr int DP = (D + 15) / 16 * 16;
   // a team's bf16 view of one K and V tile: rows padded by 16 bytes, so
   // that the 8 rows an `ldmatrix` reads lie in distinct banks
-  static constexpr int VROW = 2 * D + 16;
+  static constexpr int VROW = 2 * DP + 16;
   static constexpr int VIEW = 2 * KT * VROW;
-  static constexpr int KSTEPS = D / 16;           // 16-deep steps of q·k
+  static constexpr int KSTEPS = DP / 16;          // 16-deep steps of q·k
   static constexpr int NT = D / 8;                // 8-wide n-tiles of O
   // the ring of int8 tiles and one view per team (at most WARPS teams);
   // after the key loop the same bytes hold the warps' (o, m, l) handed to
@@ -1598,7 +1634,7 @@ struct Int8Form {
       (MAX_ROWS * D + 2 * MAX_ROWS + MAX_ROWS * MAX_SPLIT * 2) * 4;
   static constexpr int BYTES = STAGED > MERGE && STAGED > XCH ? STAGED
                                : MERGE > XCH ? MERGE : XCH;
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "int8 head width");
+  static_assert(D % 8 == 0 && D >= 16 && D <= 128, "int8 head width");
   static_assert(STAGES % WARPS == 0, "the first tiles' producers");
 };
 
@@ -1730,8 +1766,9 @@ int8_kernel(const Params p, const int RT) {
     for (int m = 0; m < KSTEPS; ++m)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        qv[x][m][e] = row_ok[x] ? qrow[16 * m + 8 * (e >> 1) + (e & 1)]
-                                : QT(0.f);
+        qv[x][m][e] = row_ok[x] && (D % 16 == 0 || 16 * m + 8 * (e >> 1) < D)
+                          ? qrow[16 * m + 8 * (e >> 1) + (e & 1)]
+                          : QT(0.f);   // (D 120: the k-step's zero half)
   }
 
   // the block's query-position range (every warp: no barrier needed)
@@ -1794,19 +1831,37 @@ int8_kernel(const Params p, const int RT) {
       if (lane == 0) mbar_arrive(&full_s[st], KT + 1);
       return;
     }
-    // 16-byte copies: each instruction of the warp covers 32 / CPR whole
-    // rows (CPR copies a row), row j's offsets from lane j
-    constexpr int CPR = D / 16, RPI = 32 / CPR;
     uint8_t* dst = i8sm + st * F::STAGE;
-    const int part = 16 * (lane % CPR);
+    if constexpr (D % 16 == 0) {
+      // 16-byte copies: each instruction of the warp covers 32 / CPR whole
+      // rows (CPR copies a row), row j's offsets from lane j
+      constexpr int CPR = D / 16, RPI = 32 / CPR;
+      const int part = 16 * (lane % CPR);
 #pragma unroll
-    for (int it = 0; it < CPR; ++it) {
-      const int j = it * RPI + lane / CPR;
-      const int64_t kj = __shfl_sync(0xffffffffu, f.ko, j);
-      const int64_t vj = __shfl_sync(0xffffffffu, f.vo, j);
-      if (s0 + j < p.S) {
-        cp_async16(dst + j * D + part, kb + kj + part, 16);
-        cp_async16(dst + (KT + j) * D + part, vb + vj + part, 16);
+      for (int it = 0; it < CPR; ++it) {
+        const int j = it * RPI + lane / CPR;
+        const int64_t kj = __shfl_sync(0xffffffffu, f.ko, j);
+        const int64_t vj = __shfl_sync(0xffffffffu, f.vo, j);
+        if (s0 + j < p.S) {
+          cp_async16(dst + j * D + part, kb + kj + part, 16);
+          cp_async16(dst + (KT + j) * D + part, vb + vj + part, 16);
+        }
+      }
+    } else {
+      // D 120: a row is 8-byte aligned only, so 8-byte copies, CPR a row;
+      // the warp walks the tile's KT CPR copies (a whole number of
+      // instructions), copy c of row c / CPR, offsets from that lane
+      constexpr int CPR = D / 8;
+      static_assert(KT * CPR % 32 == 0, "whole instructions");
+#pragma unroll
+      for (int it = 0; it < KT * CPR / 32; ++it) {
+        const int c = it * 32 + lane, j = c / CPR, part = 8 * (c % CPR);
+        const int64_t kj = __shfl_sync(0xffffffffu, f.ko, j);
+        const int64_t vj = __shfl_sync(0xffffffffu, f.vo, j);
+        if (s0 + j < p.S) {
+          cp_async8(dst + j * D + part, kb + kj + part);
+          cp_async8(dst + (KT + j) * D + part, vb + vj + part);
+        }
       }
     }
     cp_async_arrive(&full_s[st]);   // KT arrivals as the copies land
@@ -1819,6 +1874,14 @@ int8_kernel(const Params p, const int RT) {
       mbar_init(&full_s[st], KT + 1);
       mbar_init(&empty_s[st], RG);
     }
+  }
+  if constexpr (F::DP != D) {
+    // the views' columns D .. DP - 1 (16 bytes a K or V row): zeros,
+    // written once and never converted into, so q's zero half meets 0
+    static_assert(2 * (F::DP - D) == 16, "one 16-byte store a row");
+    for (int r = tid; r < WARPS * 2 * KT; r += THREADS)
+      *reinterpret_cast<uint4*>(i8sm + NST * F::STAGE + r * VROW + 2 * D) =
+          make_uint4(0u, 0u, 0u, 0u);
   }
   __syncthreads();
   {  // this warp's first NST / WARPS tiles: every fetch in flight at once
@@ -1884,25 +1947,45 @@ int8_kernel(const Params p, const int RT) {
       // bit (once the team's warps are done with the previous view)
       team_sync();
       const uint8_t* src = i8sm + st * F::STAGE;
-      for (int c = tt; c < 4 * D; c += team) {   // 2D chunks of K, of V
-        const int row = c / (D / 16);            // 0..31 K, 32..63 V
-        const int col = c % (D / 16);
-        const float sc = row < KT ? ksc_s[st][row] : vsc_s[st][row - KT];
-        const uint4 w = *reinterpret_cast<const uint4*>(src + row * D +
-                                                        16 * col);
-        const uint32_t ww[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
-                                w.z ^ 0x80808080u, w.w ^ 0x80808080u};
-        uint32_t hv[8];
+      if constexpr (D % 16 == 0) {
+        for (int c = tt; c < 4 * D; c += team) {   // 2D chunks of K, of V
+          const int row = c / (D / 16);            // 0..31 K, 32..63 V
+          const int col = c % (D / 16);
+          const float sc = row < KT ? ksc_s[st][row] : vsc_s[st][row - KT];
+          const uint4 w = *reinterpret_cast<const uint4*>(src + row * D +
+                                                          16 * col);
+          const uint32_t ww[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
+                                  w.z ^ 0x80808080u, w.w ^ 0x80808080u};
+          uint32_t hv[8];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          hv[2 * k] = bf16x2(dequant_byte(ww[k], 0, sc),
-                             dequant_byte(ww[k], 1, sc));
-          hv[2 * k + 1] = bf16x2(dequant_byte(ww[k], 2, sc),
-                                 dequant_byte(ww[k], 3, sc));
+          for (int k = 0; k < 4; ++k) {
+            hv[2 * k] = bf16x2(dequant_byte(ww[k], 0, sc),
+                               dequant_byte(ww[k], 1, sc));
+            hv[2 * k + 1] = bf16x2(dequant_byte(ww[k], 2, sc),
+                                   dequant_byte(ww[k], 3, sc));
+          }
+          uint4* dst = reinterpret_cast<uint4*>(view + row * VROW + 32 * col);
+          dst[0] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+          dst[1] = make_uint4(hv[4], hv[5], hv[6], hv[7]);
         }
-        uint4* dst = reinterpret_cast<uint4*>(view + row * VROW + 32 * col);
-        dst[0] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
-        dst[1] = make_uint4(hv[4], hv[5], hv[6], hv[7]);
+      } else {   // D 120: 8-byte chunks of the 8-byte aligned rows
+        for (int c = tt; c < 2 * KT * (D / 8); c += team) {
+          const int row = c / (D / 8), col = c % (D / 8);
+          const float sc = row < KT ? ksc_s[st][row] : vsc_s[st][row - KT];
+          const uint2 w = *reinterpret_cast<const uint2*>(src + row * D +
+                                                          8 * col);
+          const uint32_t ww[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
+          uint32_t hv[4];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            hv[2 * k] = bf16x2(dequant_byte(ww[k], 0, sc),
+                               dequant_byte(ww[k], 1, sc));
+            hv[2 * k + 1] = bf16x2(dequant_byte(ww[k], 2, sc),
+                                   dequant_byte(ww[k], 3, sc));
+          }
+          *reinterpret_cast<uint4*>(view + row * VROW + 16 * col) =
+              make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        }
       }
     }
     // the int8 stage is read: release it, and refill it if this warp does
@@ -2015,6 +2098,14 @@ int8_kernel(const Params p, const int RT) {
         mma_bf16(o[2 * np], ah, b0);
         mma_bf16(o[2 * np + 1], al, b1);
         mma_bf16(o[2 * np + 1], ah, b1);
+      }
+      if constexpr (NT % 2 != 0) {   // D 120: the 15th n-tile alone
+        uint32_t bv[2];
+        ldmatrix_b(bv, reinterpret_cast<const __nv_bfloat16*>(
+                           vv + (lane % 16 + 16 * kk) * VROW +
+                           16 * (NT - 1)));
+        mma_bf16(o[NT - 1], al, bv);
+        mma_bf16(o[NT - 1], ah, bv);
       }
     }
   }
@@ -2195,6 +2286,626 @@ int launch_int8(const Params& p, int B, int row_tile, cudaStream_t stream) {
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p, row_tile));
 }
 
+// =====================================================================
+// The many-row form (Dk == Dv, f32 or bf16 K/V, R >= `ops.py::R_MMA`)
+// =====================================================================
+//
+// With the GQA form it replaces the Pallas TPU kernels
+// `flash_attention_partial` (src/repro/kernels/common.py) and
+// `paged_flash_decode` (src/repro/kernels/decode_attention/kernel.py)
+// where a (request, KV head) has many query rows: prefill chunks, the
+// commit and, at G = 4, verification's cache pass and segment, the
+// cross reads of a frontend prefill and the Whisper encoder. The function
+// is the GQA form's: partials (m, l, acc) under the same masks, split and
+// merge, over the same 32-key tiles.
+//
+// What bounds it on the H100. A 512-token prefill at G = 4 is R = 2048
+// rows a KV head, each scoring every key it sees over D and summing D
+// values of V: 2 x 2D operations a (row, key) pair against 2D bytes a key
+// (bf16), so the products, not the bytes, bound it. `partial_kernel`
+// runs them as f32 FMAs on CUDA cores (67 TFLOP/s) at 16 rows a block,
+// staging each key tile once per 16 rows and reading shared memory once
+// per FMA: at D 120 bf16 its prefill took 2.6x SDPA's time, the
+// encoder's T = S = 1500 read 2.7x.
+//
+// What this design does about it (FlashAttention-2's layout on
+// `mma.sync`, with the latent form's arithmetic):
+//   * 64 rows share a tile. A block owns 64 query rows (token-major, r =
+//     t G + g), 16 a warp, and stages each 32-key K and V tile once for
+//     all of them: 16-byte `cp.async` copies into a double buffer (the
+//     GQA form's pipeline: metadata two tiles ahead, tiles with no live
+//     key neither copied nor computed), rows padded to 16 bytes past a
+//     multiple of 128 so that every fragment load is conflict-free.
+//   * Both products on tensor cores, all in registers. A warp's q is held
+//     as A fragments for the whole key loop; S = q·Kᵀ for its 16 rows and
+//     the tile's 32 keys stays in the accumulator registers, the online
+//     softmax runs there (a row's state in its 4 lanes), and P is fed
+//     back as P·V's A fragments without leaving them (P's k order is
+//     permuted for TF32 so that a thread's two P values are its own: no
+//     shuffle); O (16 rows x D) stays in registers. No block barrier but
+//     the tile pipeline's.
+//   * f32 K/V: m16n8k8 3xTF32 (hi·hi + lo·hi + hi·lo, about 2^-19; bf16
+//     q is exact in TF32 and skips its residual product), as the latent
+//     form; D 120 is fifteen 8-deep steps and P·V fifteen 8-wide column
+//     tiles, every warp taking all of its rows' columns. bf16 K/V:
+//     m16n8k16 bf16, K and V exact, f32 q and P split into two bf16 halves
+//     (about 2^-17), K's fragments by `ldmatrix`, V's by `ldmatrix.trans`;
+//     at D 120 the staged rows are padded with zero columns 120-127,
+//     written once (cp.async fills only the first 240 bytes of a row), and
+//     q's last k-step has a zero half, so the products are exact; P·V's
+//     fifteenth column tile is loaded alone.
+//   * The grid runs the heaviest row tiles first (the last rows see the
+//     most keys under the causal mask), and the split plan, the cluster
+//     merge in rank order and NEG_INF masking are the int8 form's, with
+//     the GQA form's block target (`ops.py::plan_splits` at a row tile of
+//     64), so a page pool read through its block table gives the resident
+//     kernel's bits on the gathered view.
+// Why not `wgmma`: 3xTF32 would need split copies of q and K in shared
+// memory and V key-major is not K-major for TF32 P·V; and decode-sized R
+// stays on `partial_kernel` (`R_MMA`, measured).
+
+// The many-row form's tiling (`ops.py::tiling` and `kernel_smem` mirror
+// it).
+template <int D, typename KVT>
+struct RowsForm {
+  static constexpr int ROWS = 64;                 // query rows per block
+  static constexpr int WARPS = ROWS / 16;         // 16 rows a warp
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int KT = 32;                   // keys per tile (Form's)
+  static constexpr int MAX_SPLIT = 16;            // blocks a cluster
+  static constexpr bool BF = std::is_same<KVT, __nv_bfloat16>::value;
+  // staged row width: bf16 rows padded with zeros to whole 16-deep
+  // k-steps (D 120: 128); f32 rows are read in 8-deep TF32 steps
+  static constexpr int DS = BF ? (D + 15) / 16 * 16 : D;
+  static constexpr int PITCH = latent_pitch<KVT>(DS);   // elements a row
+  static constexpr int TILE = KT * PITCH;               // elements a tile
+  static constexpr int STAGED = 4 * TILE * int(sizeof(KVT));  // [2][K, V]
+  // after the key loop: the block's (ROWS, D) f32 partial, m, l and each
+  // row's fold factors (two f32 a rank)
+  static constexpr int MERGE =
+      (ROWS * D + 2 * ROWS + ROWS * MAX_SPLIT * 2) * 4;
+  static constexpr int BYTES = STAGED > MERGE ? STAGED : MERGE;
+  static constexpr int NT = D / 8;                // 8-wide n-tiles of O
+  static constexpr int NJ = KT / 8;               // 8-key n-tiles of S
+  static constexpr int CPR = D * int(sizeof(KVT)) / 16;  // copies a row
+  static_assert(D % 8 == 0 && D * int(sizeof(KVT)) % 16 == 0, "row copies");
+  static_assert(KT == 32, "the GQA form's key tile");
+};
+
+// the head widths the many-row form is instantiated for
+__host__ __device__ constexpr bool rows_form(int d) {
+  return d == 64 || d == 120 || d == 128;
+}
+
+template <int D, typename QT, typename KVT, bool PAGED>
+__global__ void __launch_bounds__(RowsForm<D, KVT>::THREADS)
+rows_kernel(const Params p) {
+  using F = RowsForm<D, KVT>;
+  constexpr int ROWS = F::ROWS, KT = F::KT, THREADS = F::THREADS;
+  constexpr int MAX_SPLIT = F::MAX_SPLIT, NT = F::NT, NJ = F::NJ;
+  constexpr int PITCH = F::PITCH, TILE = F::TILE, DS = F::DS;
+  constexpr int PB = PITCH * int(sizeof(KVT));   // row pitch, bytes
+  constexpr bool QEX = std::is_same<QT, __nv_bfloat16>::value;
+  constexpr bool BF = F::BF;
+
+  extern __shared__ __align__(16) uint8_t rsm[];
+  KVT* kv_s = reinterpret_cast<KVT*>(rsm);       // [2][K, V][KT][PITCH]
+  __shared__ int32_t kpos_s[META][KT];
+  __shared__ int64_t koff_s[PAGED ? META : 1][KT];
+  __shared__ int64_t voff_s[PAGED ? META : 1][KT];
+
+  const int R = p.T * p.G;
+  // grid (row tiles x n_split, H, B), the row tiles in reverse: the
+  // blocks of the last rows, which see the most keys, start first
+  const int n_rt = (R + ROWS - 1) / ROWS;
+  const int rank = blockIdx.x % p.n_split;
+  const int r0 = (n_rt - 1 - static_cast<int>(blockIdx.x) / p.n_split) * ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;        // fragment coordinates
+  const int slot = PAGED ? 0 : (p.slot_idx ? p.slot_idx[b] : b);
+  const int32_t* btab = PAGED ? p.block_table + b * p.bt_sb : nullptr;
+  const int32_t* kp = p.k_pos + (PAGED ? 0 : slot * p.kpos_sp);
+  const KVT* kb = static_cast<const KVT*>(p.k) + h * p.k_sh +
+                  (PAGED ? 0 : slot * p.k_sp);
+  const KVT* vb = static_cast<const KVT*>(p.v) + h * p.v_sh +
+                  (PAGED ? 0 : slot * p.v_sp);
+
+  // this block's tiles: spans rank, rank + n_split, ... of span_tiles
+  // tiles (as partial_kernel)
+  const int n_tiles = (p.S + KT - 1) / KT;
+  const int span = p.span_tiles;
+  int nt = 0;
+  for (int j = rank; j * span < n_tiles; j += p.n_split)
+    nt += min(span, n_tiles - j * span);
+  auto tile_of = [&](int i) {
+    return (rank + p.n_split * (i / span)) * span + i % span;
+  };
+
+  // this warp's rows: wr + gq and wr + gq + 8 (x = 0, 1)
+  const int wr = r0 + 16 * warp;
+  const bool has_rows = wr < R;
+  bool row_ok[2];
+  int qpos[2];
+  const uint8_t* mrow[2];
+  const QT* qrow[2];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int r = wr + gq + 8 * x;
+    row_ok[x] = r < R;
+    const int t = row_ok[x] ? r / p.G : 0;
+    qpos[x] = row_ok[x] ? p.q_pos[b * p.qpos_sb + t] : 0;
+    mrow[x] = (p.mask != nullptr && row_ok[x])
+                  ? p.mask + b * p.mask_sb + t * p.mask_st
+                  : nullptr;
+    qrow[x] = static_cast<const QT*>(p.q) + b * p.q_sb + h * p.q_sh +
+              (row_ok[x] ? t * p.q_st + (r % p.G) * p.q_sg : 0);
+  }
+  // q as A fragments for the whole key loop. TF32 (f32 K/V): the raw
+  // bits of q at k-step m, (row gq + 8 x, column 8 m + tq + 4 hf) in
+  // register 2 hf + x, split per use. bf16 K/V: bf16 halves (hi, lo) of
+  // columns 16 m + 2 tq (+ 1) and 16 m + 8 + 2 tq (+ 1), zero past D.
+  constexpr int QA = BF ? 1 : D / 8, QB = BF ? DS / 16 : 1;
+  uint32_t qa[QA][4], qh[QB][4], ql[QB][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    if constexpr (BF) {
+#pragma unroll
+      for (int m = 0; m < QB; ++m) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 16 * m + 8 * (e >> 1);
+          v[e] = row_ok[x] && d < D
+                     ? to_f32(qrow[x][d + 2 * tq + (e & 1)]) : 0.f;
+        }
+        bf16_pair(v[0], v[1], qh[m][x], ql[m][x]);
+        bf16_pair(v[2], v[3], qh[m][2 + x], ql[m][2 + x]);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < QA; ++m)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          qa[m][2 * hf + x] =
+              row_ok[x] ? ld_bits(qrow[x] + 8 * m + tq + 4 * hf) : 0u;
+    }
+  }
+
+  // warp 0 tests tiles for live keys: the block's query-position range
+  int qmin = 2147483647, qmax = -2147483647 - 1;
+  if (warp == 0) {
+#pragma unroll
+    for (int rr = lane; rr < ROWS; rr += 32) {
+      if (r0 + rr < R) {
+        const int qp = p.q_pos[b * p.qpos_sb + (r0 + rr) / p.G];
+        qmin = min(qmin, qp);
+        qmax = max(qmax, qp);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+      qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+    }
+  }
+  auto live_key = [&](int32_t kpos) {
+    return kpos >= 0 && (!p.causal || kpos <= qmax) &&
+           (p.window <= 0 || qmin - kpos < p.window);
+  };
+
+  // key metadata of tile i, for thread tid < KT (as partial_kernel)
+  auto block_page = [&](int i) -> int32_t {
+    const int s = tile_of(i) * KT + tid;
+    return (i < nt && s < p.S) ? btab[s / p.page_size] : 0;
+  };
+  auto load_meta = [&](int i, int32_t page) -> KeyMeta {
+    KeyMeta km{-1, 0, 0};
+    const int s = tile_of(i) * KT + tid;
+    if (i < nt && s < p.S) {
+      const int64_t prow = PAGED ? page : slot;
+      const int64_t rw = PAGED ? s % p.page_size : s;
+      if constexpr (PAGED) {
+        km.pos = kp[prow * p.kpos_sp + rw];
+        km.koff = prow * p.k_sp + rw * p.k_ss;
+        km.voff = prow * p.v_sp + rw * p.v_ss;
+      } else {
+        km.pos = kp[s];
+      }
+    }
+    return km;
+  };
+  auto store_meta = [&](int i, const KeyMeta& km) {
+    kpos_s[i % META][tid] = km.pos;
+    if constexpr (PAGED) {
+      koff_s[i % META][tid] = km.koff;
+      voff_s[i % META][tid] = km.voff;
+    }
+  };
+  // the 16-byte copies of tile i's K and V rows (rows past S zero-filled)
+  auto copy_tile = [&](int i) {
+    KVT* ks = kv_s + (i & 1) * 2 * TILE;
+    KVT* vs = ks + TILE;
+    const int s0 = tile_of(i) * KT;
+    constexpr int EPC = 16 / int(sizeof(KVT)), CPR = F::CPR;
+    for (int c = tid; c < KT * CPR; c += THREADS) {
+      const int j = c / CPR, e0 = (c % CPR) * EPC;
+      const int s = s0 + j;
+      const bool in = s < p.S;
+      int64_t ko, vo;
+      if constexpr (PAGED) {
+        ko = koff_s[i % META][j];
+        vo = voff_s[i % META][j];
+      } else {
+        ko = static_cast<int64_t>(s) * p.k_ss;
+        vo = static_cast<int64_t>(s) * p.v_ss;
+      }
+      cp_async16(ks + j * PITCH + e0, in ? kb + ko + e0 : kb, in ? 16 : 0);
+      cp_async16(vs + j * PITCH + e0, in ? vb + vo + e0 : vb, in ? 16 : 0);
+    }
+  };
+
+  // O: rows gq (+ 8), columns 8 n + 2 tq (+ 1)
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.f, 0.f};
+
+  if constexpr (DS != D) {
+    // bf16 D 120: staged columns 120-127 of every row of both buffers are
+    // zeros, written once (the copies fill the first D columns only)
+    static_assert((DS - D) * int(sizeof(KVT)) == 16, "one store a row");
+    for (int r = tid; r < 4 * KT; r += THREADS)
+      *reinterpret_cast<uint4*>(kv_s + r * PITCH + D) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // prologue: metadata of tiles 0 and 1, the copy of tile 0
+  int32_t page_next = 0;   // paged: block-table entry of tile i + 2
+  int live0 = 0, live1 = 0;
+  if (tid < KT) {
+    int32_t pg0 = 0, pg1 = 0;
+    if constexpr (PAGED) {
+      pg0 = block_page(0);
+      pg1 = block_page(1);
+      page_next = block_page(2);
+    }
+    const KeyMeta a = load_meta(0, pg0), c1 = load_meta(1, pg1);
+    store_meta(0, a);
+    store_meta(1, c1);
+    live0 = 0 < nt && live_key(a.pos);
+    live1 = 1 < nt && live_key(c1.pos);
+  }
+  int cur_live = __syncthreads_or(live0);
+  int next_live = __syncthreads_or(live1);
+  if (cur_live) copy_tile(0);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  for (int i = 0; i < nt; ++i) {
+    // the copy of tile i + 1 (its buffer was consumed at step i - 1)
+    if (next_live) copy_tile(i + 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+    // metadata of tile i + 2 (and the page of tile i + 3) in flight
+    KeyMeta ahead{-1, 0, 0};
+    if (tid < KT) {
+      ahead = load_meta(i + 2, page_next);
+      if constexpr (PAGED) page_next = block_page(i + 3);
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+
+    if (cur_live && has_rows) {
+      const KVT* ks = kv_s + (i & 1) * 2 * TILE;
+      const KVT* vs = ks + TILE;
+      const int32_t* kpos_t = kpos_s[i % META];
+      const int s0 = tile_of(i) * KT;
+      // ---- S = q·Kᵀ: n-tile j holds keys 8 j + 2 tq (+ 1), rows gq (+ 8)
+      float sv[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sv[j][e] = 0.f;
+      if constexpr (BF) {
+        // K's B fragments by `ldmatrix` (two n-tiles a load); the lo
+        // product first
+        const uint8_t* krow = reinterpret_cast<const uint8_t*>(ks) +
+                              ((lane & 7) + ((lane >> 4) << 3)) * PB +
+                              ((lane >> 3) & 1) * 16;
+#pragma unroll
+        for (int m = 0; m < QB; ++m) {
+#pragma unroll
+          for (int jp = 0; jp < NJ / 2; ++jp) {
+            uint32_t bq[4];
+            ldmatrix_x4<false>(bq, krow + 16 * jp * PB + 32 * m);
+            const uint32_t b0[2] = {bq[0], bq[1]}, b1[2] = {bq[2], bq[3]};
+            if (!QEX) {
+              mma_bf16(sv[2 * jp], ql[m], b0);
+              mma_bf16(sv[2 * jp + 1], ql[m], b1);
+            }
+            mma_bf16(sv[2 * jp], qh[m], b0);
+            mma_bf16(sv[2 * jp + 1], qh[m], b1);
+          }
+        }
+      } else {
+        // 3xTF32: B b0 (k tq, key gq), b1 (k tq + 4, key gq) of n-tile j
+        const KVT* kr = ks + gq * PITCH + tq;
+#pragma unroll
+        for (int m = 0; m < QA; ++m) {
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tf32_split<QEX>(qa[m][e], ah[e], al[e]);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            uint32_t bh[2], bl[2];
+            tf32_split<false>(ld_bits(kr + 8 * j * PITCH + 8 * m), bh[0],
+                              bl[0]);
+            tf32_split<false>(ld_bits(kr + 8 * j * PITCH + 8 * m + 4),
+                              bh[1], bl[1]);
+            if (!QEX) mma_tf32(sv[j], al, bh);
+            mma_tf32(sv[j], ah, bl);
+            mma_tf32(sv[j], ah, bh);
+          }
+        }
+      }
+      // ---- online softmax over the tile's 32 keys: the GQA form's
+      // arithmetic, a row's state in its 4 lanes
+      bool ok[NJ][4];
+      float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = e >> 1;
+          const int kj = 8 * j + 2 * tq + (e & 1);
+          const int kpos = kpos_t[kj];
+          bool valid = row_ok[x] && kpos >= 0;
+          if (p.causal) valid = valid && kpos <= qpos[x];
+          if (p.window > 0) valid = valid && (qpos[x] - kpos < p.window);
+          if (mrow[x] != nullptr)
+            valid = valid && s0 + kj < p.S && mrow[x][s0 + kj] != 0;
+          const float sc = valid ? sv[j][e] * p.scale : NEG_INF;
+          sv[j][e] = sc;
+          ok[j][e] = valid;
+          tmax[x] = fmaxf(tmax[x], sc);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          tmax[x] = fmaxf(tmax[x], __shfl_xor_sync(0xffffffffu, tmax[x], off));
+        const float m_new = fmaxf(m_run[x], tmax[x]);
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 2 * x; e < 2 * x + 2; ++e) {
+            sv[j][e] = ok[j][e] ? expf(sv[j][e] - m_new) : 0.f;
+            psum += sv[j][e];
+          }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        corr[x] = expf(m_run[x] - m_new);
+        l_run[x] = l_run[x] * corr[x] + psum;
+        m_run[x] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      // ---- O += P·V, P from the score registers
+      if constexpr (BF) {
+        // two 16-key steps: P's A fragments are n-tiles 2 kk and 2 kk + 1
+        // in bf16 halves; V's B fragments by `ldmatrix.trans` (two n-tiles
+        // a load, the fifteenth of D 120 alone)
+        const uint8_t* vrow = reinterpret_cast<const uint8_t*>(vs) +
+                              ((lane & 7) + ((lane >> 3) & 1) * 8) * PB +
+                              (lane >> 4) * 16;
+#pragma unroll
+        for (int kk = 0; kk < NJ / 2; ++kk) {
+          uint32_t ah[4], al[4];
+          bf16_pair(sv[2 * kk][0], sv[2 * kk][1], ah[0], al[0]);
+          bf16_pair(sv[2 * kk][2], sv[2 * kk][3], ah[1], al[1]);
+          bf16_pair(sv[2 * kk + 1][0], sv[2 * kk + 1][1], ah[2], al[2]);
+          bf16_pair(sv[2 * kk + 1][2], sv[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            uint32_t bv[4];
+            ldmatrix_x4<true>(bv, vrow + 16 * kk * PB + 32 * np);
+            const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+            mma_bf16(o[2 * np], al, b0);
+            mma_bf16(o[2 * np], ah, b0);
+            mma_bf16(o[2 * np + 1], al, b1);
+            mma_bf16(o[2 * np + 1], ah, b1);
+          }
+          if constexpr (NT % 2 != 0) {
+            uint32_t bv[2];
+            ldmatrix_b(bv, reinterpret_cast<const __nv_bfloat16*>(
+                               reinterpret_cast<const uint8_t*>(vs) +
+                               (lane % 16 + 16 * kk) * PB + 16 * (NT - 1)));
+            mma_bf16(o[NT - 1], al, bv);
+            mma_bf16(o[NT - 1], ah, bv);
+          }
+        }
+      } else {
+        // four 8-key steps of 3xTF32: k = tq is key 8 kk + 2 tq and k =
+        // tq + 4 key 8 kk + 2 tq + 1, so a thread's A values are its own
+        // scores (rows gq, gq + 8); V's b0 (key 8 kk + 2 tq, column 8 n +
+        // gq), b1 (the next key)
+#pragma unroll
+        for (int kk = 0; kk < NJ; ++kk) {
+          uint32_t ah[4], al[4];
+          tf32_split<false>(__float_as_uint(sv[kk][0]), ah[0], al[0]);
+          tf32_split<false>(__float_as_uint(sv[kk][2]), ah[1], al[1]);
+          tf32_split<false>(__float_as_uint(sv[kk][1]), ah[2], al[2]);
+          tf32_split<false>(__float_as_uint(sv[kk][3]), ah[3], al[3]);
+          const KVT* v0 = vs + (8 * kk + 2 * tq) * PITCH + gq;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            uint32_t bh[2], bl[2];
+            tf32_split<false>(ld_bits(v0 + 8 * n), bh[0], bl[0]);
+            tf32_split<false>(ld_bits(v0 + PITCH + 8 * n), bh[1], bl[1]);
+            mma_tf32(o[n], al, bh);
+            mma_tf32(o[n], ah, bl);
+            mma_tf32(o[n], ah, bh);
+          }
+        }
+      }
+    }
+
+    // metadata of tile i + 2 lands; every thread is done with buffer i & 1
+    int live2 = 0;
+    if (tid < KT) {
+      store_meta(i + 2, ahead);
+      live2 = i + 2 < nt && live_key(ahead.pos);
+    }
+    const int l2 = __syncthreads_or(live2);
+    cur_live = next_live;
+    next_live = l2;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+
+  auto out_row = [&](int r) -> int64_t {
+    return ((static_cast<int64_t>(b) * p.T + r / p.G) * p.H + h) * p.G +
+           r % p.G;
+  };
+  if (p.n_split == 1) {   // straight from registers
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = wr + gq + 8 * x;
+      if (!row_ok[x]) continue;
+      float* dst = p.acc + out_row(r) * D + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<float2*>(dst + 8 * n) =
+            make_float2(o[n][2 * x], o[n][2 * x + 1]);
+      if (tq == 0) {
+        p.m[out_row(r)] = m_run[x];
+        p.l[out_row(r)] = l_run[x];
+      }
+    }
+    return;
+  }
+  // the block partial into shared memory (the staging buffers are free),
+  // rows of [ROWS][D], for the cluster's fold
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(rsm);    // [ROWS][D]
+  float* part_m = part + ROWS * D;                // [ROWS]
+  float* part_l = part_m + ROWS;
+  float* fac = part_l + ROWS;                     // [ROWS][MAX_SPLIT][2]
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    const int pr = 16 * warp + gq + 8 * x;
+    float* dst = part + pr * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) =
+          make_float2(o[n][2 * x], o[n][2 * x + 1]);
+    if (tq == 0) {
+      part_m[pr] = m_run[x];
+      part_l[pr] = l_run[x];
+    }
+  }
+
+  // ---- the cluster's n_split block partials in rank order (as the int8
+  // and latent forms): each row's fold once, then each rank its share of
+  // the rows' columns, four at a time
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (tid < ROWS && r0 + tid < R) {
+    float mq[MAX_SPLIT], lq[MAX_SPLIT];   // every remote load in flight
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q) {
+      mq[q] = q < p.n_split ? cluster.map_shared_rank(part_m, q)[tid] : 0.f;
+      lq[q] = q < p.n_split ? cluster.map_shared_rank(part_l, q)[tid] : 0.f;
+    }
+    float m_a = mq[0], l_a = lq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float mm = fmaxf(m_a, mq[q]);
+        const float ea = expf(m_a - mm), eb = expf(mq[q] - mm);
+        l_a = l_a * ea + lq[q] * eb;
+        m_a = mm;
+        fac[(tid * MAX_SPLIT + q) * 2] = ea;
+        fac[(tid * MAX_SPLIT + q) * 2 + 1] = eb;
+      }
+    }
+    if (rank == 0) {
+      p.m[out_row(r0 + tid)] = m_a;
+      p.l[out_row(r0 + tid)] = l_a;
+    }
+  }
+  __syncthreads();
+  for (int e = rank * THREADS + tid; e < ROWS * D / 4;
+       e += p.n_split * THREADS) {
+    const int rr = e / (D / 4), d = 4 * (e % (D / 4));
+    if (r0 + rr >= R) continue;
+    float4 aq[MAX_SPLIT];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLIT; ++q)
+      aq[q] = q < p.n_split
+                  ? *reinterpret_cast<const float4*>(
+                        cluster.map_shared_rank(part, q) + rr * D + d)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a_a = aq[0];
+#pragma unroll
+    for (int q = 1; q < MAX_SPLIT; ++q) {
+      if (q < p.n_split) {
+        const float ea = fac[(rr * MAX_SPLIT + q) * 2];
+        const float eb = fac[(rr * MAX_SPLIT + q) * 2 + 1];
+        a_a.x = a_a.x * ea + aq[q].x * eb;
+        a_a.y = a_a.y * ea + aq[q].y * eb;
+        a_a.z = a_a.z * ea + aq[q].z * eb;
+        a_a.w = a_a.w * ea + aq[q].w * eb;
+      }
+    }
+    *reinterpret_cast<float4*>(p.acc + out_row(r0 + rr) * D + d) = a_a;
+  }
+  cluster.sync();   // no block leaves while another reads its partials
+}
+
+template <int D, typename QT, typename KVT, bool PAGED>
+int launch_rows(const Params& p, int B, cudaStream_t stream) {
+  using F = RowsForm<D, KVT>;
+  if (p.n_split > F::MAX_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rows_kernel<D, QT, KVT, PAGED>;
+  constexpr int smem = F::BYTES;
+  static bool attr = false;   // one flag per instantiation
+  if (!attr) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr = true;
+  }
+  const int R = p.T * p.G;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((R + F::ROWS - 1) / F::ROWS) * p.n_split, p.H, B);
+  cfg.blockDim = dim3(F::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = p.n_split;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = p.n_split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, p));
+}
+
 // K/V storage: the `kv` argument of the entry points
 constexpr int KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2;
 
@@ -2212,16 +2923,20 @@ int dispatch_kv(const Params& p, int B, int kv, int row_tile,
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
-    if (kv != KV_INT8 && row_tile != ROWS)
+    if (kv != KV_INT8 && row_tile != ROWS) {   // the many-row form
+      if constexpr (rows_form(DK)) {
+        if (row_tile == RowsForm<DK, float>::ROWS && kv == KV_F32)
+          return launch_rows<DK, QT, float, PAGED>(p, B, stream);
+        if (row_tile == RowsForm<DK, float>::ROWS && kv == KV_BF16)
+          return launch_rows<DK, QT, __nv_bfloat16, PAGED>(p, B, stream);
+      }
       return static_cast<int>(cudaErrorInvalidValue);
+    }
     switch (kv) {
       case KV_F32: return launch<DK, DV, QT, float, PAGED>(p, B, stream);
       case KV_BF16:
         return launch<DK, DV, QT, __nv_bfloat16, PAGED>(p, B, stream);
-      case KV_INT8:   // Int8Form's heads: multiples of 16 (not 120)
-        if constexpr (DK % 16 == 0)
-          return launch_int8<DK, QT, PAGED>(p, B, row_tile, stream);
-        return static_cast<int>(cudaErrorInvalidValue);
+      case KV_INT8: return launch_int8<DK, QT, PAGED>(p, B, row_tile, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -2244,9 +2959,10 @@ int dispatch_dtypes(const Params& p, int B, int q_bf16, int kv, int row_tile,
 // Launch on `stream` for head widths (Dk, Dv) of ATTN_PARTIAL_PAIRS and
 // K/V storage `kv` (KV_F32, KV_BF16, or KV_INT8 with scales where Dk ==
 // Dv), `row_tile` query rows a block (`ops.py::tiling`: the GQA form's
-// 16, the latent form's 64, the int8 form's 16 or 64); returns the
-// launch's error (cudaErrorInvalidValue for another pair, kv, row tile
-// or n_split).
+// 16, the many-row form's 64 (f32 / bf16 K/V at D 64, 120, 128), the
+// latent form's 64, the int8 form's 16 or 64); returns the launch's
+// error (cudaErrorInvalidValue for another pair, kv, row tile or
+// n_split).
 template <bool PAGED>
 int dispatch(const Params& p, int B, int DK, int DV, int q_bf16, int kv,
              int row_tile, cudaStream_t stream) {
@@ -2262,27 +2978,38 @@ int dispatch(const Params& p, int B, int DK, int DV, int q_bf16, int kv,
 }
 
 template <int DK, int DV, typename QT, typename KVT, bool PAGED>
-int smem_kv(int* dynamic, int* static_bytes, int* limit) {
-  if constexpr (DK != DV)
+int smem_kv(int row_tile, int* dynamic, int* static_bytes, int* limit) {
+  if constexpr (DK != DV) {
     return smem_report(latent_kernel<DK, DV, QT, KVT, PAGED>,
                        LatentSmem<DK, DV, QT, KVT>::BYTES, dynamic,
                        static_bytes, limit);
-  else
-    return smem_report(partial_kernel<DK, DV, QT, KVT, PAGED>,
-                       kv_smem_bytes<DK, DV, KVT>(), dynamic, static_bytes,
-                       limit);
+  } else {
+    if (row_tile == ROWS)
+      return smem_report(partial_kernel<DK, DV, QT, KVT, PAGED>,
+                         kv_smem_bytes<DK, DV, KVT>(), dynamic, static_bytes,
+                         limit);
+    if constexpr (rows_form(DK)) {
+      if (row_tile == RowsForm<DK, KVT>::ROWS)
+        return smem_report(rows_kernel<DK, QT, KVT, PAGED>,
+                           RowsForm<DK, KVT>::BYTES, dynamic, static_bytes,
+                           limit);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <int DK, int DV, typename QT, bool PAGED>
-int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
+int smem_of(int kv, int row_tile, int* dynamic, int* static_bytes,
+            int* limit) {
   switch (kv) {
     case KV_F32:
-      return smem_kv<DK, DV, QT, float, PAGED>(dynamic, static_bytes, limit);
+      return smem_kv<DK, DV, QT, float, PAGED>(row_tile, dynamic,
+                                               static_bytes, limit);
     case KV_BF16:
-      return smem_kv<DK, DV, QT, __nv_bfloat16, PAGED>(dynamic, static_bytes,
-                                                      limit);
+      return smem_kv<DK, DV, QT, __nv_bfloat16, PAGED>(row_tile, dynamic,
+                                                       static_bytes, limit);
     case KV_INT8:
-      if constexpr (DK == DV && DK % 16 == 0)
+      if constexpr (DK == DV)
         return smem_report(int8_kernel<DK, QT, PAGED>, Int8Form<DK>::BYTES,
                            dynamic, static_bytes, limit);
       return static_cast<int>(cudaErrorInvalidValue);
@@ -2290,16 +3017,18 @@ int smem_of(int kv, int* dynamic, int* static_bytes, int* limit) {
   }
 }
 
-// Shared memory of the instantiation for head widths (Dk, Dv) and these
-// dtypes (see smem_report.cuh).
+// Shared memory of the instantiation for head widths (Dk, Dv), these
+// dtypes and, for f32 / bf16 K/V at Dk == Dv, the row tile that picks
+// the form (`ops.py::tiling`: 16 the GQA form, 64 the many-row form;
+// the int8 and latent forms ignore it) (see smem_report.cuh).
 template <bool PAGED>
-int smem(int DK, int DV, int q_bf16, int kv, int* dynamic,
+int smem(int DK, int DV, int q_bf16, int kv, int row_tile, int* dynamic,
          int* static_bytes, int* limit) {
 #define PAIR_CASE(DK_, DV_)                                                \
   if (DK == DK_ && DV == DV_)                                              \
     return q_bf16 ? smem_of<DK_, DV_, __nv_bfloat16, PAGED>(               \
-                        kv, dynamic, static_bytes, limit)                  \
-                  : smem_of<DK_, DV_, float, PAGED>(kv, dynamic,           \
+                        kv, row_tile, dynamic, static_bytes, limit)        \
+                  : smem_of<DK_, DV_, float, PAGED>(kv, row_tile, dynamic, \
                                                     static_bytes, limit);
   ATTN_PARTIAL_PAIRS(PAIR_CASE)
 #undef PAIR_CASE

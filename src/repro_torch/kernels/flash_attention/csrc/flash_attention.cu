@@ -33,11 +33,16 @@
 // each tile. The running max, sum and the f32 accumulator stay in
 // registers across the key loop (the Pallas kernel's VMEM scratch and
 // sequential K grid axis become a loop inside the block); the
-// arithmetic is f32 on CUDA cores, not wgmma (bf16 tensor cores would
-// need P in bf16, outside the 1e-4 tolerance: ROADMAP queue 2 item 2c).
+// arithmetic is f32 on CUDA cores. Reads of many query rows a KV head
+// (R >= `ops.py::R_MMA`: prefill chunks, commits, cross reads of a
+// frontend prefill, the Whisper encoder) run the many-row form
+// (`rows_kernel` in the header): 64 rows a block share each 32-key tile
+// and both products run on `mma.sync` (3xTF32 for f32 K/V; bf16 with q
+// and P split into two bf16 halves for bf16 K/V), within the same 1e-4.
 //
-// int8 K/V (`kv_dtype="int8"` caches, an f32 scale per (row, head)) runs
-// a kernel of its own in the header (`int8_kernel`): a ring of 8 int8
+// int8 K/V (`kv_dtype="int8"` caches, an f32 scale per (row, head), every
+// GQA head width) runs a kernel of its own in the header
+// (`int8_kernel`): a ring of 8 int8
 // tiles in flight, each tile converted once into the reference's bf16
 // view, bf16(f32(k8) * scale), in shared memory by the warps that read
 // it, both products on `mma.sync` bf16, and 16 or 64 query rows a block
@@ -118,10 +123,10 @@ extern "C" int fa_partial_launch(
                                        static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of the instantiation for head widths (Dk, Dv) (for the
-// tests).
-extern "C" int fa_smem(int Dk, int Dv, int q_bf16, int kv, int* dynamic,
-                       int* static_bytes, int* limit) {
-  return attn_partial::smem<false>(Dk, Dv, q_bf16, kv, dynamic,
+// Shared memory of the instantiation for head widths (Dk, Dv), these
+// dtypes and row tile (for the tests).
+extern "C" int fa_smem(int Dk, int Dv, int q_bf16, int kv, int row_tile,
+                       int* dynamic, int* static_bytes, int* limit) {
+  return attn_partial::smem<false>(Dk, Dv, q_bf16, kv, row_tile, dynamic,
                                    static_bytes, limit);
 }

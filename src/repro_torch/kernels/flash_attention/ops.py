@@ -14,22 +14,32 @@ blocked online-softmax attention and returns the unnormalised partials
          scale per (row, head) (`kv_dtype="int8"` caches)
   -> m, l (B, T, Hkv, G) f32; acc (B, T, Hkv, G, Dv) f32
 
-Dk == Dv is a GQA head (16, 32, 64, 120 or 128 wide). Dk != Dv is the latent
-form: MLA's absorbed attention, one KV head of c_kv ++ k_pe (Dk = 576,
-Dv = 512 at DeepSeek-V3's widths; (40, 32) for tests) with every query
-head folded into G. Its kernel shares each 16-key tile over 64 query rows
-and runs both products on tensor cores; when `v` is K's first Dv columns
-(`v_in_k`: MLA passes `k[..., :Dv]`) it reads V out of K's tile. Its
-tiles come from one place (`tiling`): the plain version, `plan_splits`
-and `split_ranges` take the kernel's, so a slot pool and a page pool
-holding the same keys stay bitwise equal.
+Dk == Dv is a GQA head (16, 32, 64, 120 or 128 wide), read by one of two
+forms chosen from R = T * G, the query rows of one (request, KV head),
+the head width and the K/V dtype alone (`tiling`; a masked read, a
+tree's fresh segment, stays on the first): the GQA form
+(`partial_kernel`: 16 rows a block, f32 FMAs on CUDA cores), where
+decode and the other few-row reads win, and from `R_MMA` rows the
+many-row form (`rows_kernel`: 64 rows a block share each 32-key tile,
+both products on tensor cores; D 64, 120 and 128, f32 or bf16 K/V).
+Dk != Dv is the latent form: MLA's absorbed attention, one KV head of
+c_kv ++ k_pe (Dk = 576, Dv = 512 at DeepSeek-V3's widths; (40, 32) for
+tests) with every query head folded into G. Its kernel shares each
+16-key tile over 64 query rows and runs both products on tensor cores;
+when `v` is K's first Dv columns (`v_in_k`: MLA passes `k[..., :Dv]`) it
+reads V out of K's tile. Every form's tiles come from one place
+(`tiling`): the plain version, `plan_splits` and `split_ranges` take the
+kernel's key tile, so a slot pool and a page pool holding the same keys
+stay bitwise equal.
 
 An int8 K/V pair is the reference's dequantized bf16 view,
 bf16(f32(k8) * scale) (`dequantize_kv`): the plain version builds that
-view and attends over it; the kernel's int8 form (a kernel of its own)
-reads the int8 rows and scales in place, converts each staged tile once
-to the same bf16 in shared memory for all the rows that read it, and
-takes 16 or 64 query rows a block by R (`tiling`).
+view and attends over it; the kernel's int8 form (a kernel of its own,
+every GQA head width, D 120's rows staged by 8-byte copies and its bf16
+view padded with zero columns to 128) reads the int8 rows and scales in
+place, converts each staged tile once to the same bf16 in shared memory
+for all the rows that read it, and takes 16 or 64 query rows a block by
+R (`tiling`).
 
 Rows are token-major (row r = t * G + g), which is the (B, Hkv, R, D)
 contract of the JAX package's Pallas kernel
@@ -62,11 +72,6 @@ NEG_INF = -1e30
 #: DeepSeek-V3's
 SUPPORTED_PAIRS = ((16, 16), (32, 32), (64, 64), (120, 120), (128, 128),
                    (40, 32), (576, 512))
-#: the int8 K/V form's head widths: whole 16-deep `mma` k-steps and whole
-#: 16-byte copies of an int8 row (`attention_partial.cuh::Int8Form`)
-INT8_HEAD_MULTIPLE = 16
-INT8_ROADMAP = ("int8 K/V at head width {D} has no kernel form (the int8 "
-                "form takes multiples of 16; ROADMAP queue 2 item 1c)")
 #: keys per tile of the kernel; the model's cache reads run the plain
 #: version with the same tile on the CPU
 KEY_TILE = 32
@@ -76,10 +81,28 @@ KEY_TILE = 32
 LATENT_KEY_TILE = 16
 LATENT_ROW_TILE = 64
 _KV_DTYPES = (torch.float32, torch.bfloat16)
+_KV_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 #: the kernels' K/V storage argument
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 #: query rows per block of the kernel (GQA form)
 ROW_TILE = 16
+#: the many-row form (`attention_partial.cuh::RowsForm`): 64 query rows a
+#: block, 16 a warp, share each 32-key tile on tensor cores; its head
+#: widths
+MMA_ROW_TILE = 64
+MMA_HEADS = (64, 120, 128)
+#: R (query rows of one (request, KV head)) from which unmasked reads of
+#: f32 / bf16 K/V at D 64, 120 or 128 go to the many-row form. Measured
+#: on the H100 (700 W; tools/kernel_compare.py --phases crossover: both
+#: forms at B 4 x Hkv 8 x 630 held keys, R 4-2048): from R 17, where the
+#: GQA form needs a second 16-row block, the many-row form took less time
+#: at all six (dtype, D) and every R measured (0.54-0.81x at R 17); below
+#: it, it took up to 1.48x at five of them and won by at most 6 % at bf16
+#: D 120, too little to move decode: one threshold for all. A masked read
+#: (a tree's fresh segment: a handful of keys) stays on `partial_kernel`:
+#: at f32 the many-row form took 1.14-1.28x its time there (the same
+#: tool, --phases kernels,d120)
+R_MMA = 17
 #: the int8 K/V form's query rows per block: 16 where R <= 16 (each of a
 #: block's 8 warps takes every 8th key tile of the same rows), else 64
 #: (teams of 4 warps, 16 rows each, share each key tile's bf16 view)
@@ -114,6 +137,9 @@ LAUNCHES_LATENT = 0
 #: the launches of them without the causal mask (cross-attention reads,
 #: the encoder's bidirectional self-attention)
 LAUNCHES_NONCAUSAL = 0
+#: the launches of them in the many-row form (unmasked f32 / bf16 K/V,
+#: R >= R_MMA)
+LAUNCHES_MANY_ROWS = 0
 #: the launches of them by head widths (Dk, Dv) (clear it before a run
 #: whose launches should be counted)
 LAUNCHES_BY_PAIR = {}
@@ -137,9 +163,11 @@ def _declare(lib):
 
 def declare_smem(fn):
     """Types of a library's shared-memory report: (Dk, Dv, q_bf16, kv (a
-    `KV_KIND` value), *dynamic, *static, *limit) -> CUDA error."""
+    `KV_KIND` value), row tile (`tiling`'s: 16 or 64 picks the GQA or
+    the many-row form of f32 / bf16 K/V), *dynamic, *static, *limit) ->
+    CUDA error."""
     ip = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.c_int] * 4 + [ip] * 3
+    fn.argtypes = [ctypes.c_int] * 5 + [ip] * 3
     fn.restype = ctypes.c_int
 
 
@@ -231,16 +259,29 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
 # split planning (plain Python, tested on the CPU)
 # =====================================================================
 
-def tiling(latent: bool, int8: bool = False, R: int = 1):
+def many_rows(D: int, kv_bytes: int, R: int) -> bool:
+    """Whether f32 (`kv_bytes` 4) or bf16 (2) K/V of head width D over R
+    query rows a (request, KV head) take the many-row form (`R_MMA`)."""
+    return kv_bytes in (2, 4) and D in MMA_HEADS and R >= R_MMA
+
+
+def tiling(latent: bool, int8: bool = False, R: int = 1, D: int = 0,
+           kv_bytes: int = 0):
     """(keys per tile, most blocks a cluster splits keys over, query rows
     per block) of the form: `latent` for Dk != Dv
     (`attention_partial.cuh::LatentForm`), `int8` for int8 K/V over R
     query rows a (request, KV head) (`Int8Form`: its row tile from R),
-    else the GQA form (`Form`)."""
+    else for f32 / bf16 K/V (`kv_bytes` 4 / 2) of head width D the
+    many-row form (`RowsForm`, 64 rows) from `R_MMA` rows, or the GQA
+    form (`Form`, 16 rows; also where D and kv_bytes are not given). The
+    form depends on these alone, never on the live lengths or a pool's
+    capacity."""
     if latent:
         return LATENT_KEY_TILE, LATENT_MAX_SPLIT, LATENT_ROW_TILE
     if int8:
         return KEY_TILE, MAX_SPLIT, INT8_ROW_TILES[R > INT8_ROW_TILES[0]]
+    if many_rows(D, kv_bytes, R):
+        return KEY_TILE, MAX_SPLIT, MMA_ROW_TILE
     return KEY_TILE, MAX_SPLIT, ROW_TILE
 
 
@@ -252,10 +293,11 @@ def key_tile(Dk: int, Dv: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False,
-                int8: bool = False):
+                int8: bool = False, D: int = 0, kv_bytes: int = 0):
     """(n_split, span_tiles) for B requests x H KV heads x R query rows
     over S logical keys (`latent`: the Dk != Dv form's tiling; `int8`:
-    the int8 K/V form's, whose target is INT8_SPLIT_TARGET_BLOCKS). The
+    the int8 K/V form's, whose target is INT8_SPLIT_TARGET_BLOCKS; D and
+    `kv_bytes`: f32 / bf16 K/V's form by R, `tiling`). The
     span (key tiles a block walks in one go) comes from the grid alone:
     the fewest power-of-two blocks per (request, head, row tile), at most
     the cluster limit, that give SPLIT_TARGET_BLOCKS blocks over a pool of
@@ -264,7 +306,7 @@ def plan_splits(B: int, H: int, R: int, S: int, latent: bool = False,
     block walks every n_split-th span. So the plan never reads the live
     lengths, and two capacities holding the same keys (a slot pool, a
     page pool's view) sum the same spans in the same order."""
-    kt, max_split, rows = tiling(latent, int8, R)
+    kt, max_split, rows = tiling(latent, int8, R, D, kv_bytes)
     target = INT8_SPLIT_TARGET_BLOCKS if int8 else SPLIT_TARGET_BLOCKS
     base = B * H * -(-R // rows)
     n0 = 1
@@ -286,13 +328,18 @@ def _latent_pitch(d: int, size: int, skew: int = 16) -> int:
 
 
 def kernel_smem(Dk: int, Dv: int, kv_element_size: int,
-                q_element_size: int = 4) -> int:
+                q_element_size: int = 4, many: bool = False) -> int:
     """Dynamic shared memory of one block. GQA form (Dk == Dv): the
     double-buffered K/V tiles in their stored dtype (4 or 2 bytes a
-    value), reused for the merge's (ROW_TILE, Dv) f32 rows. int8 K/V (1
+    value), reused for the merge's (ROW_TILE, Dv) f32 rows. The many-row
+    form (`many`): the double-buffered 32-key K and V tiles, rows padded
+    to 16 bytes past a multiple of 128 (bf16 D 120 rows first to 128
+    values), at least the merge's (64, D) f32 rows with m and l and each
+    row's fold factors. int8 K/V (1
     byte a value): a ring of INT8_STAGES int8 K/V tiles and a bf16 view
-    of one K/V tile for each of up to INT8_WARPS teams (rows padded by 16
-    bytes), at least the warps' partials handed over and the merge's (64,
+    of one K/V tile for each of up to INT8_WARPS teams (D padded to whole
+    16-value steps, rows by 16 bytes), at least the warps' partials
+    handed over and the merge's (64,
     D) f32 rows with m and l and each row's fold factors. Latent form: the
     block's 64 rows of q in their dtype (`q_element_size`), two 16-key
     tile buffers (K and K, or K and V), the two partial score tiles; at
@@ -312,13 +359,17 @@ def kernel_smem(Dk: int, Dv: int, kv_element_size: int,
                   + 2 * kt * _latent_pitch(dk, kv_element_size)
                   * kv_element_size + 2 * rows * kt * 4)
         return max(staged, rows * Dv * 4 + rows * max_split * 8)
+    def merge(rows):
+        return (rows * Dv + 2 * rows + rows * max_split * 2) * 4
     if kv_element_size == 1:
         staged = (INT8_STAGES * 2 * kt * Dk
-                  + INT8_WARPS * 2 * kt * (2 * Dk + 16))
+                  + INT8_WARPS * 2 * kt * (2 * (-(-Dk // 16) * 16) + 16))
         handed = (INT8_WARPS - 1) * (Dk // 2 + 4) * 32 * 4
-        rows = INT8_ROW_TILES[-1]
-        merge = (rows * Dv + 2 * rows + rows * max_split * 2) * 4
-        return max(staged, handed, merge)
+        return max(staged, handed, merge(INT8_ROW_TILES[-1]))
+    if many:
+        ds = -(-Dk // 16) * 16 if kv_element_size == 2 else Dk
+        return max(4 * kt * _latent_pitch(ds, kv_element_size)
+                   * kv_element_size, merge(MMA_ROW_TILE))
     return 2 * kt * (Dk + Dv) * kv_element_size
 
 
@@ -367,26 +418,46 @@ def rows_aligned(t) -> bool:
                                           for s in t.stride()[:-1])
 
 
+def kv_align(t) -> int:
+    """Bytes a K/V row's base and strides must be a multiple of: rows are
+    copied in 16-byte pieces, but an int8 row whose width is not a
+    multiple of 16 (D 120: 120 bytes) in 8-byte pieces."""
+    return 8 if t.element_size() == 1 and t.shape[-1] % 16 else 16
+
+
 def kv_aligned(t, strides) -> bool:
-    """K/V rows are copied in 16-byte pieces: the base and the strides
-    (pool row, key, head) must be 16-byte multiples."""
-    per = 16 // t.element_size()
-    return (t.data_ptr() % 16 == 0 and strides[0] % per == 0
+    """The base and the strides (pool row, key, head) of K or V are
+    multiples of `kv_align` bytes."""
+    a = kv_align(t)
+    per = a // t.element_size()
+    return (t.data_ptr() % a == 0 and strides[0] % per == 0
             and strides[1] % per == 0 and strides[2] % per == 0)
 
 
 def check_pair(check, Dk, Dv, kv_dtype):
     """The head widths a kernel is instantiated for (`SUPPORTED_PAIRS`);
-    the latent form (Dk != Dv) reads f32 or bf16 K/V only, the int8 K/V
-    form heads of a multiple of 16 (D 120 refused: `INT8_ROADMAP`)."""
+    the latent form (Dk != Dv) reads f32 or bf16 K/V only."""
     check((Dk, Dv) in SUPPORTED_PAIRS, lambda: (
         f"head widths (Dk, Dv) = ({Dk}, {Dv}); supported pairs "
         f"{SUPPORTED_PAIRS}"))
     check(Dk == Dv or kv_dtype in _KV_DTYPES, lambda: (
         f"the latent form (Dk != Dv) reads float32 / bfloat16 K/V, got "
         f"{kv_dtype}"))
-    check(kv_dtype != torch.int8 or Dk % INT8_HEAD_MULTIPLE == 0,
-          lambda: INT8_ROADMAP.format(D=Dk))
+
+
+def launch_plan(B, Hkv, T, G, S, Dk, Dv, kv_dtype, masked=False):
+    """(n_split, span_tiles, row tile, many-row form) of a launch over B
+    requests x Hkv KV heads x T tokens x G heads a group and S logical
+    keys (a page pool's view: n_view x page_size), `masked` with a bool
+    mask (kernel 1's tree segments, which stay on the GQA form): one
+    function of these for both wrappers, so the paged kernel is kernel 1
+    on the gathered view."""
+    latent, int8 = Dk != Dv, kv_dtype == torch.int8
+    size = 0 if latent or masked else _KV_BYTES.get(kv_dtype, 0)
+    n_split, span = plan_splits(B, Hkv, T * G, S, latent, int8, Dk, size)
+    rows = tiling(latent, int8, T * G, Dk, size)[2]
+    return n_split, span, rows, rows == MMA_ROW_TILE and not (latent or
+                                                              int8)
 
 
 def check_kv(check, k, v, k_scale, v_scale, lead, Hkv, dev):
@@ -451,7 +522,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     _check(qs[4] == 1 and ks[3] == 1 and vs[3] == 1,
            "q, k and v need a contiguous last (head) dimension")
     _check(kv_aligned(k, ks) and kv_aligned(v, vs), "k and v need 16-byte "
-           "aligned rows (base and strides)")
+           "aligned rows, base and strides (int8 rows of D 120: 8-byte)")
     for name, t in (("k", k), ("v", v), ("q_pos", q_pos), ("k_pos", k_pos),
                     ("mask", mask), ("slot_idx", slot_idx)):
         _check(t is None or t.device == dev, lambda: (
@@ -480,11 +551,12 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
         qs = q.stride()
 
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
-    global LAUNCHES_NONCAUSAL
+    global LAUNCHES_NONCAUSAL, LAUNCHES_MANY_ROWS
     if _FN is None:
         _FN = LIBRARY.load().fa_partial_launch
     int8 = kv == KV_KIND[torch.int8]
-    n_split, span = plan_splits(B, Hkv, T * G, S, Dk != Dv, int8)
+    n_split, span, rows, many = launch_plan(B, Hkv, T, G, S, Dk, Dv,
+                                            k.dtype, mask is not None)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
              k_pos.data_ptr(), 0 if mask is None else mask.data_ptr(),
              0 if slot_idx is None else slot_idx.data_ptr(),
@@ -498,8 +570,7 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
              0 if mask is None else mask.stride(1),
              float(scale), int(bool(causal)), int(window),
              int(q.dtype == torch.bfloat16), kv, n_split, span,
-             int(v_in_k(k, v)), tiling(Dk != Dv, int8, T * G)[2],
-             cuda_stream(dev))
+             int(v_in_k(k, v)), rows, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -511,6 +582,8 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
             LAUNCHES_LATENT += 1
         if not causal:
             LAUNCHES_NONCAUSAL += 1
+        if many:
+            LAUNCHES_MANY_ROWS += 1
         LAUNCHES_BY_PAIR[Dk, Dv] = LAUNCHES_BY_PAIR.get((Dk, Dv), 0) + 1
     return m, l, acc
 

@@ -15,8 +15,10 @@
 //
 // What bounds it on the H100: as the resident kernel, the K/V bytes of
 // the pages a request holds, read once per 16 query rows, over the
-// 3.35 TB/s of HBM (decode and verification), and the f32 FMA rate only
-// for 512-row prefill chunks.
+// 3.35 TB/s of HBM (decode and verification), and for reads of many rows
+// a KV head (R >= `ops.py::R_MMA`: prefill chunks, commits) the products,
+// which the many-row form (`rows_kernel`) runs on tensor cores, 64 rows
+// sharing each key tile.
 //
 // What the design does about it: the block table is read inside the
 // kernel, one entry per key of a key tile (three tiles ahead of its
@@ -29,7 +31,9 @@
 // in the same key tiles, split the same way, with the same tile
 // skipping and merge order, so the partials are bit for bit those of
 // `flash_attention.cu` on the gathered view, for f32, bf16 and int8 pools
-// alike (an int8 pool's kernel, `int8_kernel`, reads each key's page,
+// alike, in either form of f32 / bf16 pools (both wrappers choose it from
+// the same (R, D, dtype): `ops.py::launch_plan`) (an int8 pool's kernel,
+// `int8_kernel`, reads each key's page,
 // scales and position through the block table and copies its K and V
 // rows from the page), and for MLA's latent pools (Dk = 576, Dv = 512) as well, whose kernel
 // (`latent_kernel`) bulk-copies each key row from its page and reads V
@@ -103,10 +107,10 @@ extern "C" int paged_partial_launch(
                                       static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of the instantiation for head widths (Dk, Dv) (for the
-// tests).
-extern "C" int paged_smem(int Dk, int Dv, int q_bf16, int kv, int* dynamic,
-                          int* static_bytes, int* limit) {
-  return attn_partial::smem<true>(Dk, Dv, q_bf16, kv, dynamic,
+// Shared memory of the instantiation for head widths (Dk, Dv), these
+// dtypes and row tile (for the tests).
+extern "C" int paged_smem(int Dk, int Dv, int q_bf16, int kv, int row_tile,
+                          int* dynamic, int* static_bytes, int* limit) {
+  return attn_partial::smem<true>(Dk, Dv, q_bf16, kv, row_tile, dynamic,
                                   static_bytes, limit);
 }

@@ -42,6 +42,8 @@ LAUNCHES = 0
 LAUNCHES_INT8_KV = 0
 #: the launches of them in the latent form (Dk != Dv: MLA's latent pools)
 LAUNCHES_LATENT = 0
+#: the launches of them in the many-row form (f32 / bf16 K/V, R >= R_MMA)
+LAUNCHES_MANY_ROWS = 0
 #: the launches of them by head widths (Dk, Dv) (clear it before a run
 #: whose launches should be counted)
 LAUNCHES_BY_PAIR = {}
@@ -134,7 +136,8 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
     _check(qs[4] == 1 and ks[3] == 1 and vs[3] == 1,
            "q, k and v need a contiguous last (head) dimension")
     _check(fa.kv_aligned(k, ks) and fa.kv_aligned(v, vs), "k and v need "
-           "16-byte aligned rows (base and strides)")
+           "16-byte aligned rows, base and strides (int8 rows of D 120: "
+           "8-byte)")
     for name, t in (("k", k), ("v", v), ("q_pos", q_pos),
                     ("page_pos", page_pos), ("page_view", page_view)):
         _check(t.device == dev, lambda: f"{name} is on {t.device}, q on "
@@ -155,12 +158,14 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
         qs = q.stride()
 
     global _FN, LAUNCHES, LAUNCHES_INT8_KV, LAUNCHES_LATENT
+    global LAUNCHES_MANY_ROWS
     if _FN is None:
         _FN = LIBRARY.load().paged_partial_launch
-    # the split of kernel 1 on the gathered view (S = n_view * ps), so
-    # both kernels sum the same tiles in the same order
+    # the form and split of kernel 1 on the gathered view (S = n_view *
+    # ps), so both kernels sum the same tiles in the same order
     int8 = kv == fa.KV_KIND[torch.int8]
-    n_split, span = fa.plan_splits(B, Hkv, T * G, nv * ps, Dk != Dv, int8)
+    n_split, span, rows, many = fa.launch_plan(B, Hkv, T, G, nv * ps, Dk,
+                                               Dv, k.dtype)
     rc = _FN(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             page_pos.data_ptr(), page_view.data_ptr(),
             0 if k_scale is None else k_scale.data_ptr(),
@@ -171,8 +176,7 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
             vs[0], vs[1], vs[2], *sc, page_pos.stride(0), q_pos.stride(0),
             page_view.stride(0), float(scale), int(window),
             int(q.dtype == torch.bfloat16), kv, n_split, span,
-            int(fa.v_in_k(k, v)), fa.tiling(Dk != Dv, int8, T * G)[2],
-            cuda_stream(dev))
+            int(fa.v_in_k(k, v)), rows, cuda_stream(dev))
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -182,6 +186,8 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
             LAUNCHES_INT8_KV += 1
         if Dk != Dv:
             LAUNCHES_LATENT += 1
+        if many:
+            LAUNCHES_MANY_ROWS += 1
         LAUNCHES_BY_PAIR[Dk, Dv] = LAUNCHES_BY_PAIR.get((Dk, Dv), 0) + 1
     return m, l, acc
 

@@ -198,28 +198,39 @@ def test_int8_smem_matches_compiled_kernels(cuda):
 def test_attention_smem_matches_compiled_kernels(cuda):
     """Both attention kernels, at every head-width pair (the latent form
     (Dk != Dv) included), query dtype and K/V storage (f32, bf16 and, for
-    Dk == Dv, the int8 form), ask for the dynamic shared
-    memory `kernel_smem` counts, and that with the static shared memory
-    of the compiled kernel fits SMEM_LIMIT, the device's limit per
-    block."""
+    Dk == Dv, the int8 form, D 120 too) and, for f32 / bf16 K/V at Dk ==
+    Dv, either row tile (16: the GQA form; 64: the many-row form, at D 64,
+    120 and 128 only), ask for the dynamic shared memory `kernel_smem`
+    counts, and that with the static shared memory of the compiled kernel
+    fits SMEM_LIMIT, the device's limit per block."""
     for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
         for Dk, Dv in fa.SUPPORTED_PAIRS:
             for q_bf16 in (0, 1):
                 for kv_dtype, kv in fa.KV_KIND.items():
-                    if kv_dtype == torch.int8 and (
-                            Dk != Dv or Dk % fa.INT8_HEAD_MULTIPLE):
-                        # no int8 form: the latent pairs, and D 120
+                    if kv_dtype == torch.int8 and Dk != Dv:
+                        # no int8 form: the latent pairs
                         out = [ctypes.c_int() for _ in range(3)]
-                        assert f(Dk, Dv, q_bf16, kv,
+                        assert f(Dk, Dv, q_bf16, kv, 16,
                                  *(ctypes.byref(o) for o in out)) != 0
                         continue
-                    dynamic, static, limit = _smem(f, Dk, Dv, q_bf16, kv)
-                    case = (f.__name__, Dk, Dv, q_bf16, kv, dynamic, static)
-                    assert limit == SMEM_LIMIT
-                    assert dynamic == fa.kernel_smem(
-                        Dk, Dv, torch.empty((), dtype=kv_dtype).element_size(),
-                        2 if q_bf16 else 4), case
-                    assert dynamic + static <= limit, case
+                    size = torch.empty((), dtype=kv_dtype).element_size()
+                    tiles = ((16, 64) if Dk == Dv and size > 1
+                             else (fa.tiling(Dk != Dv, size == 1)[2],))
+                    for rows in tiles:
+                        many = Dk == Dv and size > 1 and rows == 64
+                        if many and Dk not in fa.MMA_HEADS:
+                            out = [ctypes.c_int() for _ in range(3)]
+                            assert f(Dk, Dv, q_bf16, kv, rows,
+                                     *(ctypes.byref(o) for o in out)) != 0
+                            continue
+                        dynamic, static, limit = _smem(f, Dk, Dv, q_bf16,
+                                                       kv, rows)
+                        case = (f.__name__, Dk, Dv, q_bf16, kv, rows,
+                                dynamic, static)
+                        assert limit == SMEM_LIMIT
+                        assert dynamic == fa.kernel_smem(
+                            Dk, Dv, size, 2 if q_bf16 else 4, many), case
+                        assert dynamic + static <= limit, case
 
 
 @pytest.mark.gpu
@@ -280,36 +291,188 @@ def test_d120_smem_is_the_double_buffered_tiles(cuda):
     bf16, as the compiled kernels ask."""
     for f in (fa.LIBRARY.load().fa_smem, pa.LIBRARY.load().paged_smem):
         for kv, size in ((0, 4), (1, 2)):
-            dynamic, static, limit = _smem(f, 120, 120, 0, kv)
+            dynamic, static, limit = _smem(f, 120, 120, 0, kv, 16)
             assert dynamic == 2 * 2 * 32 * 120 * size == fa.kernel_smem(
                 120, 120, size)
             assert dynamic + static <= limit
 
 
+def _scrambled_pages(gen, cuda, ps, lens, make):
+    """A page pool holding `lens` keys of each request on scrambled pages
+    (NULL filler past them): (pool leaves from `make(P)`, positions,
+    block table of 16 entries)."""
+    B, nv = len(lens), 16
+    P = 2 + sum(-(-n // ps) for n in lens) + 3
+    leaves = make(P)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    tbl = torch.ones((B, nv), dtype=torch.int32, device=cuda)
+    free = (torch.randperm(P - 2, generator=torch.Generator().manual_seed(
+        ps + sum(lens))) + 2).tolist()
+    for b, n in enumerate(lens):
+        for j in range(-(-n // ps)):
+            page = free.pop()
+            cnt = min(ps, n - j * ps)
+            pos[page, :cnt] = j * ps + torch.arange(cnt, dtype=torch.int32,
+                                                    device=cuda)
+            tbl[b, j] = page
+    return leaves, pos, tbl
+
+
 @pytest.mark.gpu
-def test_int8_kv_at_d120_is_refused(cuda):
-    """The int8 K/V form takes heads of a multiple of 16 (its k-step): at
-    D 120 both wrappers raise ValueError naming the ROADMAP item, and
-    launch nothing (no padded copy runs in its place)."""
-    gen = torch.Generator(device=cuda).manual_seed(12)
-    B, T, H, G, D, S, ps = 2, 1, 2, 4, 120, 64, 16
-    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
-    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
-    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
-    k8, ks = _int8_kv(gen, (B, S, H, D), cuda)
-    v8, vs = _int8_kv(gen, (B, S, H, D), cuda)
-    before = (fa.LAUNCHES, pa.LAUNCHES)
-    with pytest.raises(ValueError, match="queue 2 item 1c"):
-        fa.attend_partial(q, k8, v8, qpos, kpos, scale=D ** -0.5,
-                          k_scale=ks, v_scale=vs)
-    n = B * S // ps
-    tbl = torch.arange(n, dtype=torch.int32, device=cuda).reshape(B, -1)
-    with pytest.raises(ValueError, match="queue 2 item 1c"):
-        pa.paged_attend_partial(
-            q, k8.reshape(n, ps, H, D), v8.reshape(n, ps, H, D), qpos,
-            kpos.reshape(n, ps), tbl, scale=D ** -0.5,
-            k_scale=ks.reshape(n, ps, H), v_scale=vs.reshape(n, ps, H))
-    assert (fa.LAUNCHES, pa.LAUNCHES) == before
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 10, 6, 512])
+def test_int8_kv_at_d120_matches_plain_and_paged_is_kernel1(cuda, T,
+                                                            qdtype):
+    """The int8 K/V form at head width 120 (h2o-danube3-4b's int8 caches,
+    Hkv 8 of G 4 as phase M-int8 reads them): 120-byte rows, 8-byte
+    aligned only, staged by 8-byte copies, and a bf16 view padded with
+    zero columns to 128, at decode, the tree's cache pass, a commit and a
+    512-token prefill (16- and 64-row blocks). Kernel 1 against its plain
+    version on a slot pool (plain causal, a mask, a window, non-causal,
+    an empty slot: l = 0): the same bf16 values, products split into
+    bf16 halves, so rtol = atol = 1e-4; the paged kernel against its
+    plain version and bit for bit kernel 1's int8 form on the gathered
+    view (pages scrambled, a window)."""
+    gen = torch.Generator(device=cuda).manual_seed(120 + T)
+    B, H, G, D, P, C = 3, 8, 4, 120, 5, 600
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda).to(qdtype)
+    k8, ks = _int8_kv(gen, (P, C, H, D), cuda)
+    v8, vs = _int8_kv(gen, (P, C, H, D), cuda)
+    assert k8.stride(2) * k8.element_size() % 16 == 8   # odd heads: 8 B
+    kpos = torch.arange(C, dtype=torch.int32, device=cuda).repeat(P, 1)
+    kpos[:, 560:] = -1
+    kpos[2] = -1                                   # an empty slot
+    qpos = (548 - T + torch.arange(T, dtype=torch.int32,
+                                   device=cuda)).repeat(B, 1)
+    slot_idx = torch.tensor([4, 0, 2], dtype=torch.int32, device=cuda)
+    mask = torch.rand((B, T, C), generator=gen, device=cuda) < 0.7
+    sc = dict(k_scale=ks, v_scale=vs, slot_idx=slot_idx, scale=D ** -0.5)
+    for kw in (dict(), dict(mask=mask), dict(window=50),
+               dict(causal=False)):
+        before = (fa.LAUNCHES_INT8_KV, fa.LAUNCHES_MANY_ROWS)
+        got = fa.attend_partial(q, k8, v8, qpos, kpos, **sc, **kw)
+        assert (fa.LAUNCHES_INT8_KV, fa.LAUNCHES_MANY_ROWS) == (
+            before[0] + 1, before[1])
+        want = fa.attend_partial_plain(q, k8, v8, qpos, kpos, **sc, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert float(got[1][2].abs().max()) == 0.0   # empty slot: l = 0
+
+    ps = 64
+    lens = [5 * ps + 3 + T, ps + T, 7 + T]
+
+    def make(n):
+        return (_int8_kv(gen, (n, ps, H, D), cuda),
+                _int8_kv(gen, (n, ps, H, D), cuda))
+
+    ((pk8, pks), (pv8, pvs)), pos, tbl = _scrambled_pages(gen, cuda, ps,
+                                                         lens, make)
+    qp = torch.tensor([[n - T + t for t in range(T)] for n in lens],
+                      dtype=torch.int32, device=cuda)
+    for window in (0, 50):
+        kw = dict(scale=D ** -0.5, window=window)
+        got = pa.paged_attend_partial(q, pk8, pv8, qp, pos, tbl,
+                                      k_scale=pks, v_scale=pvs, **kw)
+        want = pa.paged_attend_partial_plain(q, pk8, pv8, qp, pos, tbl,
+                                             k_scale=pks, v_scale=pvs, **kw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        g = pa.gather_view
+        k1 = fa.attend_partial(q, g(pk8, tbl), g(pv8, tbl), qp, g(pos, tbl),
+                               k_scale=g(pks, tbl), v_scale=g(pvs, tbl), **kw)
+        for a, b in zip(got, k1):
+            assert torch.equal(a, b)
+
+
+def _many_row_tokens(D, kvdtype):
+    """(T, G) of launches just below R_MMA (the GQA form), at it and far
+    above it (the many-row form) for f32 / bf16 K/V of width D."""
+    return [(fa.R_MMA - 1, 1), (fa.R_MMA, 1), (128, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 120, 128])
+def test_many_row_form_matches_plain(cuda, D, kvdtype, qdtype):
+    """The many-row form (64 rows a block on tensor cores) against the
+    plain version, from a slot pool read in place (a repeated slot, an
+    empty one: l = 0), under the causal mask, a tree-like bool mask, a
+    window and no causal mask, at R just below R_MMA (the GQA form, no
+    many-row launch), at R_MMA and at 512 rows (G 4), the masked read on
+    the GQA form (as a tree segment) at every R: f32 K/V by 3xTF32
+    (about 2^-19 a product), bf16 K/V exact with q and P in two bf16
+    halves (about 2^-17), summed in f32 in another order: rtol = atol =
+    1e-4. Two runs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    B, H, P, C = 3, 2, 5, 700
+    k = torch.randn((P, C, H, D), generator=gen, device=cuda).to(kvdtype)
+    v = torch.randn((P, C, H, D), generator=gen, device=cuda).to(kvdtype)
+    kpos = torch.arange(C, dtype=torch.int32, device=cuda).repeat(P, 1)
+    kpos[:, 650:] = -1
+    kpos[2] = -1                                   # an empty slot
+    slot_idx = torch.tensor([4, 2, 4], dtype=torch.int32, device=cuda)
+    size = k.element_size()
+    for T, G in _many_row_tokens(D, kvdtype):
+        many = fa.many_rows(D, size, T * G)
+        assert many == (T * G >= fa.R_MMA)
+        q = torch.randn((B, T, H, G, D), generator=gen,
+                        device=cuda).to(qdtype)
+        qpos = (640 - T + torch.arange(T, dtype=torch.int32,
+                                       device=cuda)).repeat(B, 1)
+        mask = torch.rand((B, T, C), generator=gen, device=cuda) < 0.7
+        for kw in (dict(), dict(mask=mask), dict(window=50),
+                   dict(causal=False)):
+            kw.update(scale=D ** -0.5, slot_idx=slot_idx)
+            before = fa.LAUNCHES_MANY_ROWS
+            got = fa.attend_partial(q, k, v, qpos, kpos, **kw)
+            assert fa.LAUNCHES_MANY_ROWS == before + (many and
+                                                      "mask" not in kw)
+            want = fa.attend_partial_plain(q, k, v, qpos, kpos, **kw)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            assert float(got[1][1].abs().max()) == 0.0   # empty slot
+            for a, b in zip(got, fa.attend_partial(q, k, v, qpos, kpos,
+                                                   **kw)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kvdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 120, 128])
+def test_many_row_form_paged_bitwise_kernel1(cuda, D, kvdtype):
+    """The paged kernel's many-row form against its plain version (1e-4)
+    and bit for bit kernel 1 on the gathered view, at R_MMA and at 512
+    rows: both wrappers take the form and split from the same (R, D,
+    dtype), and 64-key pages in scrambled order, NULL filler and a window
+    change nothing."""
+    gen = torch.Generator(device=cuda).manual_seed(D + 1)
+    B, H, ps = 3, 2, 64
+    for T, G in _many_row_tokens(D, kvdtype)[1:]:
+        lens = [5 * ps + 3 + T, ps + T, 7 + T]
+
+        def make(n):
+            return tuple(torch.randn((n, ps, H, D), generator=gen,
+                                     device=cuda).to(kvdtype)
+                         for _ in range(2))
+
+        (k, v), pos, tbl = _scrambled_pages(gen, cuda, ps, lens, make)
+        q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+        qp = torch.tensor([[n - T + t for t in range(T)] for n in lens],
+                          dtype=torch.int32, device=cuda)
+        for window in (0, 50):
+            kw = dict(scale=D ** -0.5, window=window)
+            before = pa.LAUNCHES_MANY_ROWS
+            got = pa.paged_attend_partial(q, k, v, qp, pos, tbl, **kw)
+            assert pa.LAUNCHES_MANY_ROWS == before + 1
+            want = pa.paged_attend_partial_plain(q, k, v, qp, pos, tbl, **kw)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+            g = pa.gather_view
+            k1 = fa.attend_partial(q, g(k, tbl), g(v, tbl), qp, g(pos, tbl),
+                                   **kw)
+            for a, b in zip(got, k1):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -430,8 +593,8 @@ def test_kernel1_bits_do_not_depend_on_capacity(cuda, T, G, H, dtype):
         kpos[:, :128].contiguous(), scale=D ** -0.5,
         **(dict(k_scale=ks[:, :128].contiguous(),
                 v_scale=vs[:, :128].contiguous()) if int8 else {}))
-    n_full, span = fa.plan_splits(B, H, T * G, S, False, int8)
-    n_short, span_short = fa.plan_splits(B, H, T * G, 128, False, int8)
+    n_full, span, _, _ = fa.launch_plan(B, H, T, G, S, D, D, dtype)
+    n_short, span_short, _, _ = fa.launch_plan(B, H, T, G, 128, D, D, dtype)
     # the same span; more blocks over the long pool (int8: or, with one
     # block, more tiles walked)
     assert span == span_short and n_full >= n_short

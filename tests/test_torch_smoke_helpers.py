@@ -92,3 +92,43 @@ def test_range_device_us_counts_kernels_launched_inside():
     ]
     assert smoke.range_device_us(events, R) == (1, 13, 20)
     assert smoke.range_device_us(events, "no such range") == (0, 0, 20)
+
+
+@pytest.mark.parametrize("T,G,D,dtype,form", [
+    (1, 4, 120, torch.float32, "gqa"), (4, 4, 120, torch.bfloat16, "gqa"),
+    (6, 4, 120, torch.float32, "many-row"),
+    (1500, 1, 64, torch.float32, "many-row"),
+    (512, 1, 32, torch.float32, "gqa"), (6, 4, 120, torch.int8, "int8"),
+    (10, 4, 120, torch.bfloat16, "masked")])
+def test_launch_form_names_the_form_the_wrappers_take(T, G, D, dtype, form):
+    """`launch_form` (what the kernel phases print and the kernels line
+    groups by) names the form `launch_plan` picks: the many-row form from
+    R_MMA rows of unmasked f32 / bf16 K/V at D 64, 120, 128, never at
+    D 32, for int8 K/V nor with a mask (a tree segment: the GQA form);
+    its plan is the wrappers'."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    q = torch.zeros(2, T, 3, G, D)
+    k = torch.zeros(2, 64, 3, D, dtype=dtype)
+    mask = torch.ones(2, T, 64, dtype=torch.bool) if form == "masked" \
+        else None
+    got, plan = smoke.launch_form(fa, q, k, k, 64, mask)
+    assert got == ("gqa" if mask is not None else form)
+    assert plan == fa.launch_plan(2, 3, T, G, 64, D, D, dtype,
+                                  mask is not None)[:3]
+    assert (plan[2] == fa.MMA_ROW_TILE) == (form == "many-row") or \
+        form == "int8"
+
+
+def test_gqa_bounds_at_both_rates():
+    """A GQA row's bound counts its operations at the tensor-core rate of
+    its K/V dtype (3xTF32 for f32, bf16 for bf16: the many-row form's
+    units) and, beside it, at the f32 CUDA-core rate."""
+    flops = 1e12
+    f32 = smoke._gqa_bounds(0, flops, "float32")
+    assert f32["bound_ms"] == flops / smoke.TF32X3_FLOPS * 1e3
+    assert f32["bound_cuda_core_ms"] == flops / 67e12 * 1e3
+    assert f32["bound_by"] == "operations"
+    bf = smoke._gqa_bounds(0, flops, "bfloat16")
+    assert bf["ops_ms"] == flops / 989e12 * 1e3
+    assert bf["cuda_core_ops_ms"] == f32["cuda_core_ops_ms"]
+    assert smoke._gqa_bounds(1e12, 1.0, "float32")["bound_by"] == "bytes"

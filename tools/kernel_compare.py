@@ -12,7 +12,18 @@ times (the mean of their two runs) and their ratio:
            the int8 GEMV at phase D's default row counts and the SSD
            scan (`kernel_phase`, `paged_kernel_phase`, `mla_kernel_phase`,
            `int8_kernel_phase`, `ssd_kernel_phase`);
-  int8kv   the int8 K/V forms of kernels 1 and 2 (`int8kv_kernel_phase`);
+  int8kv   the int8 K/V forms of kernels 1 and 2 (`int8kv_kernel_phase`;
+           a tree that serves int8 K/V at head width 120 times those
+           shapes too, which the other tree may lack);
+  d120     kernels 1 and 2 at head width 120, phase M's shapes
+           (`d120_kernel_phase`);
+  noncausal  kernel 1's non-causal reads: cross reads and the Whisper
+           encoder (`noncausal_kernel_phase`);
+  crossover  (this tree only) kernels 1 and 2's two forms of f32 / bf16
+           K/V, the GQA form and the many-row form, each forced at
+           every R of `CROSSOVER_R` (B 4, Hkv 8, a commit-like causal
+           read over 630 held keys; D 64, 120, 128): where the many-row
+           form starts to win, `ops.py::R_MMA`;
   profile  a `torch.profiler` window over 5 iterations of phase K (int8
            KV caches) on each tree's package, measured by this checkout's
            `profile_int8kv_window`: the int8 forms' share of the device's
@@ -41,7 +52,10 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("kernels", "int8kv", "profile", "sass")
+PHASES = ("kernels", "int8kv", "d120", "noncausal", "crossover", "profile",
+          "sass")
+#: the query rows a (request, KV head) of the crossover phase
+CROSSOVER_R = (4, 8, 12, 16, 17, 20, 24, 32, 40, 64, 128, 512, 2048)
 #: the row counts `chip_smoke.py` gives the int8 GEMV when phase D has
 #: not run (its defaults)
 GEMV_ROWS = (4, 24, 512)
@@ -80,6 +94,69 @@ def _sass(lib: Path) -> dict:
             if text:
                 funcs[name].append(text)
     return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def crossover(torch, fa, pa, smoke):
+    """Both forms of kernels 1 and 2 for f32 / bf16 K/V at D 64, 120 and
+    128 over R = T x G query rows (G 4 where 4 divides R, else 1), B 4
+    requests holding 630 keys each in 64-key pages (kernel 1 on the same
+    keys as a slot pool), Hkv 8, causal with the rows at the end of the
+    held keys: each form forced through `R_MMA` (the plan is re-made for
+    it), timed by `chip_smoke._graph_ms`. Returns rows (D, dtype, R,
+    partial_ms, many_ms, paged_partial_ms, paged_many_ms)."""
+    saved = fa.R_MMA
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    B, H, held, ps = 4, 8, 630, 64
+    rows = []
+    try:
+        for D in (64, 120, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                k = torch.randn((9, 1024, H, D), generator=gen,
+                                device="cuda").to(dtype)
+                v = torch.randn((9, 1024, H, D), generator=gen,
+                                device="cuda").to(dtype)
+                kpos = torch.full((9, 1024), -1, dtype=torch.int32,
+                                  device="cuda")
+                kpos[1:5, :held] = torch.arange(held, dtype=torch.int32,
+                                                device="cuda")
+                sidx = torch.arange(1, 5, dtype=torch.int32, device="cuda")
+                # the same keys on pages: request b's page j is 16 b + j
+                pk = k[1:5].reshape(B * 16, ps, H, D)
+                pv = v[1:5].reshape(B * 16, ps, H, D)
+                ppos = kpos[1:5].reshape(B * 16, ps)
+                tbl = torch.arange(B * 16, dtype=torch.int32,
+                                   device="cuda").reshape(B, 16)
+                for R in CROSSOVER_R:
+                    G = 4 if R % 4 == 0 else 1
+                    T = R // G
+                    q = torch.randn((B, T, H, G, D), generator=gen,
+                                    device="cuda")
+                    qp = (held - T + torch.arange(
+                        T, dtype=torch.int32, device="cuda")).repeat(B, 1)
+                    row = dict(D=D, dtype=str(dtype).split(".")[-1],
+                               R=T * G)
+                    for name, r_mma in (("partial", 1 << 30), ("many", 1)):
+                        fa.R_MMA = r_mma
+                        fa.plan_splits.cache_clear()
+                        row[f"{name}_ms"] = smoke._graph_ms(
+                            torch, lambda: fa.attend_partial(
+                                q, k, v, qp, kpos, scale=D ** -0.5,
+                                slot_idx=sidx))
+                        row[f"paged_{name}_ms"] = smoke._graph_ms(
+                            torch, lambda: pa.paged_attend_partial(
+                                q, pk, pv, qp, ppos, tbl, scale=D ** -0.5))
+                    print(f"crossover D {D} {row['dtype']} R {row['R']}: "
+                          f"partial {row['partial_ms']:.4f} many "
+                          f"{row['many_ms']:.4f} ms (many/partial "
+                          f"{row['many_ms'] / row['partial_ms']:.3f}); "
+                          f"paged {row['paged_partial_ms']:.4f} / "
+                          f"{row['paged_many_ms']:.4f}", flush=True)
+                    rows.append(row)
+                del k, v, pk, pv
+    finally:
+        fa.R_MMA = saved
+        fa.plan_splits.cache_clear()
+    return rows
 
 
 def worker(tree: Path, phases, out: Path) -> None:
@@ -126,6 +203,14 @@ def worker(tree: Path, phases, out: Path) -> None:
         r8, p8, _ = smoke.int8kv_kernel_phase(torch, fa, pa, attn)
         keep("kernel1-int8kv", r8)
         keep("kernel2-int8kv", p8)
+    if "d120" in phases:
+        r120, p120 = smoke.d120_kernel_phase(torch, fa, pa)
+        keep("kernel1-d120", r120)
+        keep("kernel2-d120", p120)
+    if "noncausal" in phases:
+        keep("kernel1-noncausal", smoke.noncausal_kernel_phase(torch, fa))
+    if "crossover" in phases:
+        res["crossover"] = crossover(torch, fa, pa, smoke)
     if "profile" in phases:
         from repro_torch.configs import QWEN1_5_4B, QWEN2_0_5B
         from repro_torch.models import model as M
@@ -176,9 +261,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         for i, who in enumerate(("other", "this", "this", "other")):
             out = Path(tmp) / f"{i}.json"
-            # the SASS and the profiler window once per tree
+            # the SASS and the profiler window once per tree, the
+            # crossover once, on this tree
             ph = [p for p in phases
-                  if p in ("kernels", "int8kv") or len(runs[who]) == 0]
+                  if p in ("kernels", "int8kv", "d120", "noncausal")
+                  or (len(runs[who]) == 0
+                      and (p != "crossover" or who == "this"))]
             if not ph:
                 continue
             print(f"run {i}: {who} ({trees[who]}): {','.join(ph)}",
@@ -223,6 +311,9 @@ def main() -> int:
                                                 ratio=t / o)
         print(f"sum {g}: other {o:.4f} ms, this {t:.4f} ms, this/other "
               f"{t / o:.4f}", flush=True)
+    for r in runs["this"]:
+        if "crossover" in r:
+            report["crossover"] = r["crossover"]
     for who in runs:
         if "profile" in runs[who][0]:
             report["profile"][who] = runs[who][0]["profile"]
