@@ -117,7 +117,27 @@ wrappers), then serves the CoSine path end to end through
            decoder layers, d_model 768, MHA 12 x 64, 1500 encoder rows,
            LayerNorm, GELU, learned positions): the image check with
            seeded (4, 1500, 768) frames (the encoder on kernel 1,
-           non-causal, T = S = 1500), then the text-only serve.
+           non-causal, T = S = 1500), then the text-only serve;
+  phase P  training: qwen2-0.5b at full width and depth (24 layers, f32
+           parameters, bf16 activations, vocab 151936) fine-tuned with
+           `launch.train.train_model` (8 AdamW steps of 4 x 513 tokens
+           of one domain of a 1024-token synthetic corpus): every
+           attention forward on kernel 1 (its many-row form) with the
+           gradient of `fa.attention`; the first step's loss and every
+           gradient leaf held against the same step through autograd of
+           the plain version (at f32 and at bf16 activations,
+           `GRAD_TOL`); the loss must fall; the trained weights written
+           to a msgpack checkpoint and read back bit for bit; step time,
+           tokens/s, peak memory and the step's bound printed beside the
+           card's name and power limit;
+  phase Q  trained drafters served: `launch.serve.build_models` (the
+           reference's recipe: a tiny target on the domain mixture and
+           a tiny drafter a domain, vocab 96) trained on the card,
+           written to checkpoints and read back, one drafter loaded
+           int8-quantized (its products on kernel 3); 8 requests served
+           with `cosine` under the tie rule, acceptance by domain, then
+           the same configs at their untrained weights: mean acceptance
+           must exceed 1 and the untrained twin's.
 
 Before the serving phases the int8 K/V forms of kernels 1 and 2 (a
 kernel of their own, `int8_kernel`, whose compiled registers and spills
@@ -161,12 +181,14 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -201,6 +223,24 @@ INT8_TOL = 1e-4
 # another order: the reference's own test tolerance, on y and states of
 # O(1)
 SSD_TOL = 2e-4
+# phase P: qwen2-0.5b fine-tuned at full width on one domain of a corpus
+# at a small vocabulary (`data/synthetic.py` builds a dense (V, V) table;
+# its ids are valid input to the full-vocabulary model)
+TRAIN_VOCAB = 1024
+TRAIN_DOMAIN = "piqa"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 8, 1e-3
+# phase P's gradient check, kernel 1 against the plain oracle: at f32
+# activations the largest error of a gradient leaf over that leaf's
+# largest value ("max"): the two differ in the attention's f32 summation
+# order (~1e-6 relative) carried through 24 layers; at bf16 activations
+# such a difference also flips bf16 roundings (one step, 2^-8 relative)
+# of the residual stream and of the gradients flowing back through it,
+# which a single element shows in full: there the norm of a leaf's error
+# over the leaf's norm ("l2"), a 24-layer random walk of such steps
+# (~sqrt(24) x 2^-8 = 0.02) with room. The loss within the same bound.
+GRAD_TOL = {"float32": ("max", 1e-3), "bfloat16": ("l2", 5e-2)}
+# phase Q: training steps of each tiny drafter (the target takes twice)
+SERVE_TRAIN_STEPS = 150
 MAX_LEN = 1024
 NEW_TOKENS = 32
 PROMPT_LENS = (64, 200, 350, 600)
@@ -2212,12 +2252,14 @@ def make_engine(target, drafters, paged=False, backend=None):
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                 paged=False, int8=False, observe=None, attention=True,
                 ssm=False, backend=None, overlap=True, int8_kv=False,
-                moe=False, mla=False, d120=False):
+                moe=False, mla=False, d120=False, domains=None):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel). With
     `backend="async"` the run is also held to the wall-clock backend's
     contract (`check_async_run`) and its wall-clock quantities join the
-    summary; `overlap=False` serves the serial twin (no draft-ahead)."""
+    summary; `overlap=False` serves the serial twin (no draft-ahead).
+    `domains` (one a prompt) are the requests' domain hints for the
+    router; the summary then gives the acceptance of each domain."""
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
@@ -2226,7 +2268,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         eng.executor.overlap = overlap
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, domain=d)
+            for p, d in zip(prompts, domains or [None] * len(prompts))]
     extra = observe(eng) if observe is not None else None
     torch.cuda.reset_peak_memory_stats()
     with PathCounters() as calls:
@@ -2333,6 +2376,18 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         summary.update(extra())
     if backend == "async":
         summary.update(wallclock)
+    if domains is not None:
+        # committed tokens per iteration of a request: all requests, and
+        # each domain's
+        summary["request_acceptance"] = sum(
+            r["accepted"] for r in results) / max(1, sum(
+                r["iterations"] for r in results))
+        summary["acceptance_by_domain"] = {
+            d: sum(r["accepted"] for r, dd in zip(results, domains)
+                   if dd == d)
+            / max(1, sum(r["iterations"] for r, dd in zip(results, domains)
+                         if dd == d))
+            for d in dict.fromkeys(domains)}
     if moe:
         per_fwd = calls.group_size_reads / summary["moe_forwards"]
         summary["group_size_reads_per_forward"] = per_fwd
@@ -2463,6 +2518,140 @@ def _merge(intervals):
     return out
 
 
+class ProfEvent:
+    """One profiler event with the fields of `prof.events()`'s
+    `FunctionEvent` that the profiler windows read (and its place in the
+    host operations' tree)."""
+    __slots__ = ("name", "device_type", "thread", "time_range", "kernels",
+                 "is_async", "parent", "children")
+
+    def __init__(self, name, device_type, thread, time_range, is_async):
+        self.name, self.device_type = name, device_type
+        self.thread, self.time_range = thread, time_range
+        self.is_async = is_async
+        self.kernels, self.parent, self.children = [], None, []
+
+
+class _Range(NamedTuple):
+    start: float
+    end: float
+
+
+class _Kernel(NamedTuple):
+    name: str
+    duration: float
+
+
+def profiler_events(torch, prof):
+    """`_profiler_events` with the garbage collector off (it makes ~10^6
+    objects, whose collections would double its time); prints how long
+    the read took."""
+    was = gc.isenabled()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        out = _profiler_events(torch, prof)
+    finally:
+        if was:
+            gc.enable()
+    print(f"profiler: {len(out)} events read in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _profiler_events(torch, prof):
+    """`prof.events()` as the profiler windows read it, straight from the
+    profiler's raw results, as `torch.autograd.profiler`'s
+    `_parse_kineto_results` and `EventList._build_tree` give it: each
+    event's name (demangled), device type, thread and time range (us from
+    the trace's start); a host operation's device kernels, linked by
+    correlation id; the runtime calls an operation made on its thread; a
+    host operation that is the only child of one of its own name merged
+    into it. torch's own parse also builds every event's Python object,
+    stack and backward links, which over a window of ~10^6 events takes
+    minutes of host time; this takes seconds. Sorted by (start, -end), as
+    `prof.events()`."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import _filter_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    raw_events = res.events()
+    kinds = type(raw_events[0]) if raw_events else None
+    hidden = getattr(kinds, "is_hidden_event", None)
+    legacy = (getattr(kinds, "cuda_elapsed_us", None)
+              if getattr(prof.profiler, "use_device", None) == "cuda"
+              else None)
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    names = {}
+    out, frontend, linked = [], [], {}
+    for k in raw_events:
+        raw = k.name()
+        if _filter_name(raw) or (hidden is not None and hidden(k)):
+            continue
+        name = names.get(raw)
+        if name is None:
+            name = torch._C._demangle(raw) if len(raw) > 1 else raw
+            if name.startswith("ProfilerStep#"):
+                name = "ProfilerStep*"
+            names[raw] = name
+        th = k.start_thread_id()
+        e = ProfEvent(name, k.device_type(), th,
+                      _Range((k.start_ns() - t0) / 1e3,
+                             (k.end_ns() - t0) / 1e3),
+                      k.is_async() or th != k.end_thread_id())
+        if e.device_type == cpu and not e.is_async and legacy is not None:
+            t = legacy(k)
+            if t > 0:
+                e.kernels.append(_Kernel(name, t))
+        out.append(e)
+        corr = k.linked_correlation_id()
+        if corr > 0:
+            linked.setdefault(corr, []).append(e)
+        elif corr == 0:
+            frontend.append((k.correlation_id(), e))
+    for corr, e in frontend:
+        if e.device_type != cpu or e.is_async:
+            continue
+        for d in linked.get(corr, ()):
+            if d.device_type == cuda:
+                e.kernels.append(_Kernel(d.name, d.time_range.end
+                                         - d.time_range.start))
+            elif d.device_type == cpu:
+                d.thread = e.thread
+    out.sort(key=lambda e: (e.time_range.start, -e.time_range.end))
+    # the host operations' tree: on each thread, an operation's parent is
+    # the innermost one whose time range holds its own
+    by_thread = {}
+    for e in out:
+        if e.device_type == DeviceType.CPU and not e.is_async:
+            by_thread.setdefault(e.thread, []).append(e)
+    for events in by_thread.values():
+        stack = []
+        for e in events:
+            while stack and (e.time_range.start >= stack[-1].time_range.end
+                             or e.time_range.end > stack[-1].time_range.end):
+                stack.pop()
+            if stack:
+                stack[-1].children.append(e)
+                e.parent = stack[-1]
+            stack.append(e)
+    # an only child of its own name merges into its parent, which takes
+    # its children and kernels
+    while True:
+        gone = set()
+        for e in out:
+            p = e.parent
+            if p is not None and p.name == e.name and len(p.children) == 1:
+                p.children, p.kernels = e.children, e.kernels
+                for ch in e.children:
+                    ch.parent = p
+                gone.add(id(e))
+        if not gone:
+            return out
+        out = [e for e in out if id(e) not in gone]
+
+
 def profile_async_window(torch, target, drafters, prompts, warm=4, steps=6):
     """`torch.profiler` over `steps` iterations of phase H's engine (after
     `warm` unprofiled ones): the device's busy share over the window (the
@@ -2507,7 +2696,7 @@ def profile_async_window(torch, target, drafters, prompts, warm=4, steps=6):
     finally:
         host.restore()
         b.shutdown()
-    events = prof.events()
+    events = profiler_events(torch, prof)
     anchor = [e for e in events if e.name == "chip_smoke anchor"]
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     if not anchor or not dev:
@@ -2640,13 +2829,14 @@ def profile_engine_window(torch, target, drafters, prompts, warm=3,
         for mod, name, orig in saved:
             setattr(mod, name, orig)
     ranges = {rng for _, _, rng in wrap}
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    events = profiler_events(torch, prof)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
            and e.name not in ranges]
     if not dev:
         return None
     busy = sum(b - a for a, b in _merge(
         [(e.time_range.start, e.time_range.end) for e in dev])) / 1e3
-    return prof.events(), dev, window_ms, busy
+    return events, dev, window_ms, busy
 
 
 def _kernel_share(dev, match, busy, window_ms):
@@ -3165,6 +3355,303 @@ def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
     return out
 
 
+# =====================================================================
+# training phases
+# =====================================================================
+
+@contextlib.contextmanager
+def plain_oracle(attn, fa):
+    """The test-only oracle of a training step: within it every
+    self-contained attention read (the model's, the encoder's, MLA's)
+    differentiates through autograd of the plain version
+    (`attend_partial_plain`), which replaces
+    `models.attention.blocked_attention`."""
+    def blocked(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
+                extra_mask=None, block=None):
+        return fa.finalize(fa.attend_partial_plain(
+            q, k, v, q_pos, k_pos, scale=scale, causal=causal,
+            window=window, mask=extra_mask, block=block)).to(q.dtype)
+
+    saved = attn.blocked_attention
+    attn.blocked_attention = blocked
+    try:
+        yield
+    finally:
+        attn.blocked_attention = saved
+
+
+def loss_and_grads(cfg, params, tokens, frontend=None):
+    """(loss, gradient leaves) of `lm_loss` (remat off, as `train_model`
+    steps) at `params`."""
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.optim.optimizers import tree_leaves
+    loss, _, grads = value_and_grad(params, cfg, tokens, frontend,
+                                    remat=False)
+    return float(loss), tree_leaves(grads)
+
+
+def grad_error(got, want) -> dict:
+    """The largest over leaves of max |got - want| / max |want| ("max")
+    and of ||got - want|| / ||want|| ("l2")."""
+    def worst(norm):
+        return max(float(norm((g - w).float()))
+                   / max(float(norm(w.float())), 1e-30)
+                   for g, w in zip(got, want))
+    return {"max": worst(lambda t: t.abs().max()), "l2": worst(torch_norm)}
+
+
+def torch_norm(t):
+    """Frobenius norm of a tensor, whatever its rank."""
+    return t.reshape(-1).norm()
+
+
+def grad_check(torch, M, attn, fa, cfg, params, tokens, frontend=None):
+    """One training step's loss and gradients with every attention
+    forward on kernel 1 (`fa.attention`) against the same step through
+    the plain version's autograd (`plain_oracle`). Returns (kernel loss,
+    plain loss, `grad_error`'s dict, kernel launches of the step)."""
+    fa.LAUNCHES = 0
+    loss_k, g_k = loss_and_grads(cfg, params, tokens, frontend)
+    launches = fa.LAUNCHES
+    with plain_oracle(attn, fa):
+        loss_p, g_p = loss_and_grads(cfg, params, tokens, frontend)
+    if fa.LAUNCHES != launches:
+        fail(f"{cfg.name}: the plain oracle launched kernel 1")
+    return loss_k, loss_p, grad_error(g_k, g_p), launches
+
+
+def train_bound(n_params: int, tokens: int):
+    """(FLOP a step, ms at the f32 CUDA-core rate) of a training step: 6
+    x parameters x tokens (forward 2, backward 4); the products are f32
+    (`qdot` promotes the bf16 activations to the f32 weights)."""
+    flops = 6 * n_params * tokens
+    return flops, flops / PEAK_FLOPS["float32"] * 1e3
+
+
+def trees_equal(torch, a, b) -> bool:
+    """Two parameter trees hold the same keys and bits, leaf by leaf."""
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    if len(tree_leaves(a)) != len(tree_leaves(b)):
+        return False
+    try:
+        same = tree_leaves(tree_map(
+            lambda x, y: x.dtype == y.dtype and x.shape == y.shape
+            and bool(torch.equal(x, y)), a, b))
+    except (KeyError, IndexError):
+        return False
+    return all(same)
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def training_phase(torch, M, attn, fa, cfg, device="cuda",
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """Phase P: `cfg` (qwen2-0.5b at full width) fine-tuned on one domain
+    with `train_model` (AdamW, `batch` x `seq`), every attention forward
+    on kernel 1 with its gradient. The first step's loss and gradients
+    are held against the plain oracle's at f32 and at the config's bf16
+    activations (`GRAD_TOL`); the loss must fall; each forward must
+    launch kernel 1 once a layer, on its many-row form; the trained
+    weights must read back from a checkpoint bit for bit. (On the CPU,
+    for a rehearsal at tiny widths, nothing launches and no device
+    memory or card is read.)"""
+    import tempfile
+
+    from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
+    from repro_torch.data.synthetic import SyntheticCorpus, token_batches
+    from repro_torch.launch.train import train_model
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    params = M.init_params(cfg, seed=40, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # the first batch `train_model` draws from a corpus seeded alike
+    first = next(token_batches(SyntheticCorpus(TRAIN_VOCAB, seed=0),
+                               TRAIN_DOMAIN, batch, seq, 1))
+    tokens = torch.as_tensor(first, device=dev)
+    checks = {}
+    for dtype, (metric, tol) in GRAD_TOL.items():
+        c = cfg.with_overrides(dtype=dtype)
+        loss_k, loss_p, err, n = grad_check(torch, M, attn, fa, c, params,
+                                            tokens)
+        checks[dtype] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                             grad_rel_err=err, gated=metric, tol=tol,
+                             launches=n)
+        print(f"phase P gradient check ({dtype} activations): loss "
+              f"{loss_k:.6f} on kernel 1, {loss_p:.6f} plain; gradient "
+              f"leaves' largest errors {err['max']:.3g} of the leaf's "
+              f"largest value, {err['l2']:.3g} of its norm (gated: "
+              f"{metric} <= {tol:g}); {n} kernel-1 launches for "
+              f"{cfg.n_layers} layers", flush=True)
+        if n != cfg.n_layers * cuda:
+            fail(f"phase P: {n} kernel-1 launches in one {dtype} step of "
+                 f"{cfg.n_layers} layers")
+        if not (err[metric] <= tol
+                and abs(loss_k - loss_p) <= tol * abs(loss_p)):
+            fail(f"phase P: the {dtype} step's gradients are {err} (loss "
+                 f"{loss_k} vs {loss_p}) from the plain oracle's, "
+                 f"tolerance {metric} {tol:g}")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    fa.LAUNCHES = fa.LAUNCHES_MANY_ROWS = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    trained, losses = train_model(
+        cfg, SyntheticCorpus(TRAIN_VOCAB, seed=0), TRAIN_DOMAIN, steps,
+        batch=batch, seq=seq, lr=TRAIN_LR, params=params, verbose=False,
+        device=dev)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches, many = fa.LAUNCHES, fa.LAUNCHES_MANY_ROWS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    del params
+    step_tokens = batch * (seq + 1)
+    flops, bound_ms = train_bound(n_params, step_tokens)
+    step_ms = wall / steps * 1e3
+    if cuda and (launches < cfg.n_layers * steps or many != launches):
+        fail(f"phase P: {launches} kernel-1 launches ({many} many-row) in "
+             f"{steps} steps of {cfg.n_layers} layers")
+    if not losses[-1] < losses[0]:
+        fail(f"phase P: the loss did not fall: {losses}")
+    if abs(losses[0] - checks["bfloat16"]["loss_kernel"]) > 1e-4 * losses[0]:
+        fail(f"phase P: train_model's first loss {losses[0]} is not the "
+             f"checked step's {checks['bfloat16']['loss_kernel']}")
+
+    t0 = time.perf_counter()
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        path = str(Path(d) / "qwen2-0.5b.msgpack")
+        save_checkpoint(path, trained, cfg, meta={"steps": steps})
+        ckpt_gb = Path(path).stat().st_size / 1e9
+        back, meta = load_checkpoint(path, cfg, dev)
+    same = trees_equal(torch, back, trained) and meta == {"steps": steps}
+    ckpt_s = time.perf_counter() - t0
+    del trained
+    del back
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if not same:
+        fail("phase P: the checkpoint did not read back bit for bit")
+    smi = nvidia_smi_line() if cuda else "cpu"
+    print(f"phase P ({smi}): {cfg.name}, {n_params} parameters, {steps} "
+          f"AdamW steps (lr {TRAIN_LR:g}) of {batch} x {seq + 1} tokens on "
+          f"domain {TRAIN_DOMAIN!r}: {step_ms:.1f} ms a step "
+          f"({step_tokens * steps / wall:.0f} tokens/s; bound "
+          f"{bound_ms:.1f} ms, {flops / 1e12:.2f} TFLOP a step at the f32 "
+          f"rate), peak {peak_gb} GB, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; kernel 1 launched {launches} times "
+          f"({many} many-row, {launches / steps:.0f} a step); "
+          f"checkpoint of {ckpt_gb:.2f} GB written and read back bit for "
+          f"bit in {ckpt_s:.1f} s", flush=True)
+    summary = dict(
+        phase="phase P", model=cfg.name, n_params=n_params,
+        steps=steps, batch=batch, seq=seq, lr=TRAIN_LR,
+        domain=TRAIN_DOMAIN, corpus_vocab=TRAIN_VOCAB, step_ms=step_ms,
+        tokens_per_s=step_tokens * steps / wall, bound_ms=bound_ms,
+        flops_per_step=flops, peak_mem_gb=peak_gb, losses=losses,
+        grad_check=checks, kernel_launches=launches,
+        many_row_launches=many, checkpoint_gb=ckpt_gb,
+        checkpoint_s=ckpt_s, device=smi,
+        phase_s=time.perf_counter() - t_phase)
+    return summary
+
+
+def trained_serving_phase(torch, M, run, references, kernel_err, steps):
+    """Phase Q: the reference's serving recipe (`launch.serve`: the tiny
+    target trained 2 x `steps` on the domain mixture, one tiny drafter a
+    domain for `steps`) trained on the card, written to checkpoints and
+    read back (bit for bit), drafter 0 loaded int8-quantized (its products
+    on kernel 3); 8 requests served with `cosine` under the tie rule, and
+    again at the same configs' untrained weights (the seeds
+    `train_model` starts from). A request's committed tokens per
+    iteration, over all requests, must exceed 1 and the untrained twin's,
+    and so must the engine's mean acceptance (committed tokens per engine
+    iteration of the whole cohort) exceed the twin's."""
+    import tempfile
+
+    from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
+    from repro_torch.configs.drafters import int8_variant
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.launch.serve import VOCAB, build_models
+    from repro_torch.models.quantize import quantize_params
+
+    t_phase = time.perf_counter()
+    corpus = SyntheticCorpus(VOCAB, seed=0, sharpness=120.0, support=5)
+    t0 = time.perf_counter()
+    (tcfg, tparams), drafters = build_models(None, corpus, steps,
+                                             device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        save_checkpoint(str(Path(d) / "target.msgpack"), tparams, tcfg)
+        for dcfg, dp, dom in drafters:
+            save_checkpoint(str(Path(d) / f"drafter_{dom}.msgpack"), dp,
+                            dcfg)
+        (_, tp2), drafters2 = build_models(d, corpus, steps, device="cuda")
+        dcfg, _, dom0 = drafters2[0]
+        q8, _ = load_checkpoint(str(Path(d) / f"drafter_{dom0}.msgpack"),
+                                dcfg, "cuda", quantize="int8")
+    same = trees_equal(torch, tp2, tparams) and all(
+        trees_equal(torch, a[1], b[1]) for a, b in zip(drafters, drafters2))
+    if not same:
+        fail("phase Q: the checkpoints did not read back bit for bit")
+    drafters2[0] = (int8_variant(dcfg), q8, dom0)
+    pairs = corpus.prompts(8, 16, seed=13)
+    prompts = [list(map(int, p)) for p, _ in pairs]
+    domains = [d for _, d in pairs]
+    sum_q, _ = run("phase Q", target=(tcfg, tp2), drafters=drafters2,
+                   prompts=prompts, refs=references(tcfg, tp2, prompts),
+                   err=kernel_err, int8=True, domains=domains)
+    # the untrained twin: the weights `train_model` starts from (drafter
+    # 0 quantized the same way)
+    uparams = M.init_params(tcfg, seed=0, device="cuda")
+    udrafters = [(c, M.init_params(c, seed=i + 1, device="cuda"), dom)
+                 for i, (c, _, dom) in enumerate(drafters2)]
+    udrafters[0] = (udrafters[0][0], quantize_params(udrafters[0][1]),
+                    dom0)
+    sum_u, _ = run("phase Q-untrained", target=(tcfg, uparams),
+                   drafters=udrafters, prompts=prompts,
+                   refs=references(tcfg, uparams, prompts), err=kernel_err,
+                   int8=True, domains=domains)
+    del tparams, tp2, drafters, drafters2, uparams, udrafters
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc, acc_u = sum_q["request_acceptance"], sum_u["request_acceptance"]
+    eng, eng_u = sum_q["mean_acceptance"], sum_u["mean_acceptance"]
+    print(f"phase Q: trained {steps} / {2 * steps} steps in {train_s:.1f} s"
+          f"; tokens a request iteration {acc:.3f} trained, {acc_u:.3f} "
+          f"untrained (by domain trained {sum_q['acceptance_by_domain']}, "
+          f"untrained {sum_u['acceptance_by_domain']}); engine mean "
+          f"acceptance {eng:.3f} trained, {eng_u:.3f} untrained; int8 GEMV "
+          f"launches {sum_q['kernel_launches']['int8_gemv_call']} (drafter "
+          f"{dom0!r}); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if not (acc > 1.0 and acc > acc_u and eng > eng_u):
+        fail(f"phase Q: acceptance {acc:.3f} a request iteration ({eng:.3f} "
+             f"an engine iteration) of the trained drafters is not above 1 "
+             f"and the untrained twin's {acc_u:.3f} ({eng_u:.3f})")
+    return dict(train_s=train_s, steps=steps, request_acceptance=acc,
+                untrained_request_acceptance=acc_u, mean_acceptance=eng,
+                untrained_mean_acceptance=eng_u,
+                acceptance_by_domain=sum_q["acceptance_by_domain"],
+                untrained_acceptance_by_domain=sum_u[
+                    "acceptance_by_domain"],
+                phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3288,6 +3775,8 @@ def main() -> int:
         summaries.append(summary)
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"{label} done {time.perf_counter() - t_start:.1f} s into the "
+              "script", flush=True)
         return summary, streams
 
     def references(cfg, params, prompts):
@@ -3542,6 +4031,23 @@ def main() -> int:
         max(kernel_err, new_kernel_err),
         all(r["max_abs_diff_vs_kernel1"] == 0.0 for r in pa120_rows),
         (H2O_DANUBE3_4B, LLAMA_3_2_VISION_11B, WHISPER_SMALL), LLAMA_68M)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- phase P: a qwen2-0.5b drafter fine-tuned at full width, every
+    # attention forward on kernel 1 with a gradient through it; phase Q:
+    # the reference's tiny deployment trained on the card, checkpointed
+    # and served
+    sum_p = training_phase(torch, M, attn, fa, QWEN2_0_5B)
+    print(f"phase P done {time.perf_counter() - t_start:.1f} s into the "
+          f"script ({sum_p['phase_s']:.1f} s)", flush=True)
+    launches["flash_attention_partial"] += sum_p["kernel_launches"]
+    launches["flash_attention_partial_many_rows"] += \
+        sum_p["many_row_launches"]
+    sum_q = trained_serving_phase(torch, M, run, references, kernel_err,
+                                  SERVE_TRAIN_STEPS)
+    print(json.dumps({"training": dict(phase_P=sum_p, phase_Q=sum_q)}),
+          flush=True)
 
     print(json.dumps({"serving": summaries}), flush=True)
     print(json.dumps({"wallclock": wallclock}), flush=True)
@@ -3556,7 +4062,9 @@ def main() -> int:
                 if sm["kernel_launches"][name]}
 
     kernels = []
-    extra = {"flash_attention_partial": dict(host=fa_host),
+    trained = {"phase P": sum_p["kernel_launches"]}
+    extra = {"flash_attention_partial": dict(host=fa_host,
+                                             training_launches=trained),
              "int8_gemv_call": dict(host=ig_host, crossover=crossover,
                                     launches_by_rows=int8_launch_classes),
              "ssd_scan_pallas": dict(host=sd_host, crossover=sd_crossover,
@@ -3587,6 +4095,7 @@ def main() -> int:
              "flash_attention_partial_many_rows": dict(
                  launches_by_phase=by_phase(
                      "flash_attention_partial_many_rows"),
+                 training_launches={"phase P": sum_p["many_row_launches"]},
                  r_mma=fa.R_MMA, heads=fa.MMA_HEADS,
                  compiled=many_compiled),
              "paged_flash_decode_many_rows": dict(

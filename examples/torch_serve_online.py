@@ -23,9 +23,11 @@ trace plus a sibling .metrics.json — and can be summarized with
 
   PYTHONPATH=src python -m repro_torch.obs.summarize DIR/torch_serve_online_cosine.json
 
-Runs on CUDA unless `--device cpu` is given. The port does not train
-yet, so the target and the five domain drafters are seeded random
-weights (`init_params`, float32) at `tiny_target`/`tiny_drafter` widths.
+Runs on CUDA unless `--device cpu` is given. The target and the five
+domain drafters are seeded random weights (`init_params`, float32) at
+`tiny_target`/`tiny_drafter` widths; trained ones come from
+`examples/torch_train_drafters.py` and serve with
+`python -m repro_torch.launch.serve --ckpt-dir checkpoints`.
 """
 import argparse
 import asyncio
@@ -36,27 +38,13 @@ import numpy as np
 from repro_torch.config import CoSineConfig
 from repro_torch.configs.drafters import tiny_drafter, tiny_target
 from repro_torch.data.synthetic import DOMAINS, SyntheticCorpus
+from repro_torch.launch.serve import make_arrivals
 from repro_torch.models.model import init_params
 from repro_torch.serving.engine import SpeculativeEngine
 
 VOCAB = 96
 SHARPNESS = 120.0
 SUPPORT = 5
-
-
-def make_arrivals(mode: str, n: int, seed: int = 0):
-    """Arrival timestamps (ms): Poisson gaps at a low or a high rate, or
-    (volatile) alternating bursts and lulls."""
-    rng = np.random.default_rng(seed)
-    if mode == "low":
-        gaps = rng.exponential(400.0, n)
-    elif mode == "high":
-        gaps = rng.exponential(120.0, n)
-    else:  # volatile: alternating bursts and lulls
-        gaps = np.concatenate([
-            rng.exponential(60.0, n // 2), rng.exponential(500.0, n - n // 2)])
-        rng.shuffle(gaps)
-    return np.cumsum(gaps)
 
 
 class Deployment:

@@ -1,0 +1,2 @@
+"""Msgpack tensor checkpoints in the reference's format (port of
+`repro.checkpoint`)."""

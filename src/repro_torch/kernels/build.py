@@ -16,7 +16,8 @@ async backend's server and engine threads), and `COUNT_LOCK` keeps the
 wrappers' launch counters exact under such threads. `cuda_stream` is
 the wrappers' launch stream (the calling thread's current stream).
 `smem_report.cuh` (in `csrc/`) gives the tests each compiled kernel's
-shared memory.
+shared memory. `refuse_grad` is the wrappers' check that no launch
+returns an output without a gradient one of its inputs asks for.
 """
 from __future__ import annotations
 
@@ -56,6 +57,22 @@ SMEM_LIMIT = 227 * 1024
 #: held by every wrapper while it adds one to its `LAUNCHES` count: the
 #: add is a read and a write, which two threads could interleave
 COUNT_LOCK = threading.Lock()
+
+
+def refuse_grad(kernel: str, missing: str, *tensors) -> None:
+    """Raise where a kernel launch would return an output without the
+    gradient an input asks for: under grad mode, when any of `tensors`
+    (None allowed) requires a gradient. A ctypes launch writes into fresh
+    outputs that autograd knows nothing of, so it never detaches them
+    quietly; `missing` says which gradient there is not. (Every launch
+    runs this: a plain loop over attribute reads, no generator.)"""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            raise RuntimeError(f"{kernel}: an input requires a gradient "
+                               f"and {missing}")
 
 
 def cuda_stream(dev) -> int:

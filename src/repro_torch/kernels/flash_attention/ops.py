@@ -64,7 +64,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
-                                      cuda_stream)
+                                      cuda_stream, refuse_grad)
 
 NEG_INF = -1e30
 #: the (Dk, Dv) head widths the kernels are instantiated for: GQA heads
@@ -189,6 +189,19 @@ def dequantize_kv(x8, scale):
     return (x8.float() * scale[..., None]).to(torch.bfloat16)
 
 
+def _valid(q_pos, k_pos, causal, window, mask):
+    """(B, T, S) keys a query row sees: `attend_partial_plain`'s masks."""
+    valid = (k_pos[:, None, :] >= 0).expand(q_pos.shape[0], q_pos.shape[1],
+                                            k_pos.shape[1])
+    if causal:
+        valid = valid & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window:
+        valid = valid & (q_pos[:, :, None] - k_pos[:, None, :] < window)
+    if mask is not None:
+        valid = valid & mask
+    return valid
+
+
 def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
                          window=0, mask=None, slot_idx=None, block=None,
                          k_scale=None, v_scale=None):
@@ -232,15 +245,9 @@ def attend_partial_plain(q, k, v, q_pos, k_pos, *, scale, causal=True,
     for s0 in range(0, S, block):
         kc = k[:, s0: s0 + block].float()
         vc = v[:, s0: s0 + block].float()
-        kpc = k_pos[:, s0: s0 + block]
         s = torch.einsum("bthgd,bshd->bthgs", qf, kc) * scale
-        valid = (kpc[:, None, :] >= 0).expand(B, T, kpc.shape[1])
-        if causal:
-            valid = valid & (kpc[:, None, :] <= q_pos[:, :, None])
-        if window:
-            valid = valid & (q_pos[:, :, None] - kpc[:, None, :] < window)
-        if mask is not None:
-            valid = valid & mask[:, :, s0: s0 + block]
+        valid = _valid(q_pos, k_pos[:, s0: s0 + block], causal, window,
+                       None if mask is None else mask[:, :, s0: s0 + block])
         vb = valid[:, :, None, None, :]
         s = torch.where(vb, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -511,6 +518,10 @@ def _launch(q, k, v, q_pos, k_pos, *, scale, causal, window, mask,
     P, S = k.shape[0], k.shape[1]
     Dv = v.shape[-1]
     dev = q.device
+    refuse_grad("flash-attention kernel", "its output has none here: "
+                "self-contained attention takes `attention` (a gradient "
+                "through the kernel's forward), a cache read has no "
+                "gradient", q, k, v, k_scale, v_scale)
     # (messages are built only when a check fails: this runs per call)
     check_pair(_check, Dk, Dv, k.dtype)
     _check(q.dtype in _KV_DTYPES, lambda: (
@@ -607,6 +618,94 @@ def attend_partial(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
                                 causal=causal, window=window, mask=mask,
                                 slot_idx=slot_idx, block=block,
                                 k_scale=k_scale, v_scale=v_scale)
+
+
+# =====================================================================
+# the gradient of self-contained attention
+# =====================================================================
+
+#: keys a tile of the gradient's walk: its intermediates are
+#: (B, T, Hkv, G, GRAD_KEY_TILE) f32, never (B, T, Hkv, G, S)
+GRAD_KEY_TILE = 256
+
+
+def attention_grad(q, k, v, q_pos, k_pos, out, lse, d_out, *, scale,
+                   causal=True, window=0, mask=None):
+    """(dq, dk, dv) of normalised attention out = softmax(q k^T scale) v
+    under the masks of `attend_partial` (q (B, T, Hkv, G, Dk), k / v
+    (B, S, Hkv, Dk / Dv), P = B), given the forward's f32 output `out`
+    and its row log-sum-exp `lse` (B, T, Hkv, G) (0 for a fully masked
+    row). Walks the keys in tiles: p = exp(s - lse) recomputed under the
+    masks, dV = p^T dO, D = rowsum(dO * O), dS = p (dO V^T - D),
+    dQ = scale dS K, dK = scale dS^T Q; dK and dV summed over a KV head's
+    G query heads. In f32, each gradient cast to its input's dtype."""
+    B, T, Hkv, G, Dk = q.shape
+    S, Dv = k.shape[1], v.shape[-1]
+    qf, do = q.float(), d_out.float()
+    delta = (do * out).sum(-1)[..., None]                  # (B,T,Hkv,G,1)
+    lse = lse[..., None]
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((B, S, Hkv, Dk), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, S, Hkv, Dv), dtype=torch.float32, device=q.device)
+    tile = GRAD_KEY_TILE
+    for s0 in range(0, S, tile):
+        kc = k[:, s0: s0 + tile].float()
+        vc = v[:, s0: s0 + tile].float()
+        valid = _valid(q_pos, k_pos[:, s0: s0 + tile], causal, window,
+                       None if mask is None else mask[:, :, s0: s0 + tile])
+        s = torch.einsum("bthgd,bshd->bthgs", qf, kc) * scale
+        # masked scores at NEG_INF: p = 0 there, and in a fully masked
+        # row (lse 0) everywhere, so its gradients are 0, never NaN
+        s = torch.where(valid[:, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        p = torch.exp(s - lse)
+        dv[:, s0: s0 + tile] = torch.einsum("bthgs,bthgd->bshd", p, do)
+        ds = p * (torch.einsum("bthgd,bshd->bthgs", do, vc) - delta)
+        dq += torch.einsum("bthgs,bshd->bthgd", ds, kc) * scale
+        dk[:, s0: s0 + tile] = torch.einsum("bthgs,bthgd->bshd", ds,
+                                            qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Self-contained attention (P = B: no slot_idx, no int8 scales) with
+    a gradient. The forward is `attend_partial` normalised as `finalize`
+    (on CUDA the hand-written kernel, on the CPU the plain version), the
+    backward `attention_grad`: tensor ops, the counterpart of the
+    reference's autodiff (no TPU kernel had a backward). The row
+    log-sum-exp comes from the kernel's own partials: m is the natural-log
+    running max of the scaled scores, so lse = m + log(l)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, scale, causal, window, mask,
+                block):
+        m, l, acc = attend_partial(q, k, v, q_pos, k_pos, scale=scale,
+                                   causal=causal, window=window, mask=mask,
+                                   block=block)
+        out = finalize((m, l, acc))
+        lse = torch.where(l > 0, m + torch.log(l), torch.zeros_like(m))
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, mask, out, lse)
+        ctx.args = (scale, causal, window)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, q_pos, k_pos, mask, out, lse = ctx.saved_tensors
+        scale, causal, window = ctx.args
+        dq, dk, dv = attention_grad(q, k, v, q_pos, k_pos, out, lse, d_out,
+                                    scale=scale, causal=causal,
+                                    window=window, mask=mask)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
+              mask=None, block=None):
+    """Normalised self-contained attention in q's dtype, differentiable
+    in q, k and v (`AttentionFunction`); the arguments are
+    `attend_partial`'s without slot_idx and scales. A `v` that is a view
+    of `k` (MLA's `k[..., :Dv]`) passes its gradient on to K."""
+    return AttentionFunction.apply(q, k, v, q_pos, k_pos, scale, causal,
+                                   window, mask, block)
 
 
 # =====================================================================

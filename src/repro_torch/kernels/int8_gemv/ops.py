@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
-                                      cuda_stream)
+                                      cuda_stream, refuse_grad)
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -253,6 +253,9 @@ def launch_plan(x2, w8, scale, p: Plan):
     contiguous scale; returns y (M, N) f32. Any path that serves w8's
     layout and x's dtype runs (the model takes `plan`'s)."""
     global _FNS, LAUNCHES
+    refuse_grad("int8 GEMV kernel", "int8 weights have no gradient "
+                "(train the full-precision weights, quantize on load)", x2,
+                scale)
     M, K = x2.shape
     N = w8.shape[1]
     sk, sn = w8.stride()

@@ -32,7 +32,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import (COUNT_LOCK, CSRC, KernelLibrary,
-                                      cuda_stream)
+                                      cuda_stream, refuse_grad)
 from repro_torch.kernels.flash_attention import ops as fa
 
 #: kernel launches made by `paged_attend_partial` (a plain integer; reset
@@ -123,6 +123,9 @@ def _launch(q, k, v, q_pos, page_pos, page_view, *, scale, window,
     P, ps = page_pos.shape
     Dv = v.shape[-1]
     dev = q.device
+    refuse_grad("paged-attention kernel", "a page-pool read has no "
+                "gradient (training runs without a cache)", q, k, v,
+                k_scale, v_scale)
     # (messages are built only when a check fails: this runs per call)
     fa.check_pair(_check, Dk, Dv, k.dtype)
     _check(q.dtype in fa._KV_DTYPES, lambda: (

@@ -44,7 +44,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.build import (COUNT_LOCK, CSRC, SMEM_LIMIT,
-                                      KernelLibrary, cuda_stream)
+                                      KernelLibrary, cuda_stream,
+                                      refuse_grad)
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 #: d_state values the kernel takes (powers of two: a thread's columns of
@@ -345,6 +346,10 @@ def launch_plan(x, dt, A, B, C, state_in, state_out, slot_idx, p: Plan):
     index outside a gather does."""
     global _FN, LAUNCHES
     dev = x.device
+    refuse_grad("SSD scan kernel", "the scan has no gradient on the card "
+                "yet (ROADMAP.md queue 1, item 13's remainder: SSM and "
+                "hybrid training waits for it; the CPU's plain scan "
+                "differentiates)", x, dt, A, B, C, state_in)
     # (messages are built only when a check fails: this runs per call)
     _check(x.dim() == 4 and dt.dim() == 3 and B.dim() == 4
            and C.shape == B.shape, "x (b, L, H, P), dt (b, L, H), "

@@ -47,6 +47,13 @@ slot_pos = arange(S)); without them it reads the cross cache in place
 (through `slot_idx` on a slot pool), which stays slot-indexed on a paged
 cache too and is never int8. Its reads and the encoder's bidirectional
 self-attention go to kernel 1 with `causal=False`.
+
+Every self-contained read (a cache-less forward's self-attention, MLA's
+too, the encoder's, and cross-attention over given states) goes through
+`blocked_attention`, which under autograd takes the flash-attention
+kernel's differentiable form (`fa.attention`): training has a gradient
+through kernel 1's forward on the card. Cache reads have none, and
+their kernels refuse an input that asks for one.
 """
 from __future__ import annotations
 
@@ -90,7 +97,15 @@ def finalize_partial(partial, out_dtype):
 
 def blocked_attention(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
                       extra_mask=None, block=None):
-    """Self-contained attention of q over (k, v) (P = B), normalised."""
+    """Self-contained attention of q over (k, v) (P = B), normalised.
+    Under grad mode with an input that requires a gradient it takes
+    `fa.attention` (the same forward, with a gradient), else the
+    partials' wrapper: bitwise the same output either way."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return fa.attention(q, k, v, q_pos, k_pos, scale=scale,
+                            causal=causal, window=window, mask=extra_mask,
+                            block=block)
     return finalize_partial(
         attend_partial(q, k, v, q_pos, k_pos, scale=scale, causal=causal,
                        window=window, extra_mask=extra_mask, block=block),
@@ -399,17 +414,17 @@ def cross_attention(p, cfg: ModelConfig, x, kv_src=None, cache=None,
             cache["slot_pos"][rows, :S] = k_pos
         else:
             cache = None
-        part = attend_partial(qg, k, v, q_pos, k_pos, scale=scale,
-                              causal=False, block=block)
+        out = blocked_attention(qg, k, v, q_pos, k_pos, scale=scale,
+                                causal=False, block=block)
     else:
         if cache is None:
             raise ValueError("cross_attention needs kv_src or a cross cache")
-        part = attend_partial(qg, cache["k"], cache["v"], q_pos,
-                              cache["slot_pos"], scale=scale, causal=False,
-                              block=block or fa.KEY_TILE,
-                              slot_idx=slot_idx)
+        out = finalize_partial(attend_partial(
+            qg, cache["k"], cache["v"], q_pos, cache["slot_pos"],
+            scale=scale, causal=False, block=block or fa.KEY_TILE,
+            slot_idx=slot_idx), qg.dtype)
         cache = None                      # a read writes nothing
-    out = finalize_partial(part, qg.dtype).reshape(B, T, hq * hd)
+    out = out.reshape(B, T, hq * hd)
     return qdot(out, p["wo"]), cache
 
 

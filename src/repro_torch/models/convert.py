@@ -1,4 +1,4 @@
-"""Weight bridge: the reference's parameter tree -> the port's.
+"""Weight bridge: the reference's parameter tree <-> the port's.
 
 The JAX package stacks the parameters of each stage of its layer plan
 along a leading `reps` axis (its `lax.scan` layout):
@@ -17,8 +17,16 @@ comes across as its dict of `router` (d, E), `w_gate` / `w_up` (E, d, f),
 axis on both) come across as the same dicts of tensors, so quantizing in
 JAX and converting gives the bits of converting and quantizing with
 `models.quantize.quantize_params`. The leaves must
-already be numpy arrays (convert with `np.asarray` on the JAX side), so
-this module needs neither JAX nor the reference package.
+already be numpy arrays (convert with `np.asarray` on the JAX side) or
+CPU tensors (the checkpoint reader's), so this module needs neither JAX
+nor the reference package.
+
+`reference_tree` is the inverse: the port's per-layer dicts restacked
+along each stage's `reps` axis into the reference's `init_params`
+nesting (a list of stages, each a tuple of sublayer dicts; the encoder's
+one-sublayer stage a tuple too), so a checkpoint's flat keys
+(`stages/__L0/__T0/...`) are the reference's. `params_to_numpy` gives it
+with numpy leaves.
 """
 from __future__ import annotations
 
@@ -32,7 +40,10 @@ from repro_torch.models.model import layer_plan
 
 def _to_tensor(a, device):
     # a private, writable copy: the leaves may be read-only views of JAX
-    # buffers, and torch tensors must not share them
+    # buffers or slices of a stacked checkpoint tensor, and the layers'
+    # tensors must not share them
+    if torch.is_tensor(a):
+        return a.to(device, copy=True)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -73,3 +84,60 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
             "final_norm": _tree(enc["final_norm"], conv),
             "pos": conv(enc["pos"])}
     return out
+
+
+def _stack(layers, dev):
+    """One sublayer dict with a leading `reps` axis from the per-layer
+    dicts of its repeats."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lay[k] for lay in layers], dev) for k in first}
+    return torch.stack([t.detach().to(dev) for t in layers])
+
+
+def _restack(layers, pattern_len, reps, dev):
+    """The inverse of `_unstack`: a stage's tuple of stacked sublayers."""
+    return tuple(_stack(layers[j::pattern_len][:reps], dev)
+                 for j in range(pattern_len))
+
+
+def reference_tree(params, cfg: ModelConfig, device="cpu"):
+    """The reference's `init_params` tree of the port's parameters, with
+    tensor leaves on `device` (the checkpoint writer's layout)."""
+    def conv(t):
+        return t.detach().to(device)
+
+    layers = params["layers"]
+    stages, i = [], 0
+    for pattern, reps in layer_plan(cfg):
+        n = len(pattern) * reps
+        stages.append(_restack(layers[i: i + n], len(pattern), reps, device))
+        i += n
+    if i != len(layers):
+        raise ValueError(f"{len(layers)} layers in the params, the plan "
+                         f"has {i}")
+    out = {"embed": _tree(params["embed"], conv), "stages": stages}
+    for key in ("final_norm", "head", "pos", "mtp"):
+        if key in params:
+            out[key] = _tree(params[key], conv)
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "stage": _restack(enc["layers"], 1, len(enc["layers"]), device),
+            "final_norm": _tree(enc["final_norm"], conv),
+            "pos": conv(enc["pos"])}
+    return out
+
+
+def params_to_numpy(params, cfg: ModelConfig):
+    """The inverse of `params_from_numpy`: the reference's `init_params`
+    tree with numpy leaves (float32, int8 and other numpy dtypes; a
+    bfloat16 leaf has no numpy dtype here, see `reference_tree`)."""
+    def to_numpy(x):
+        if isinstance(x, dict):
+            return {k: to_numpy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(to_numpy(v) for v in x)
+        return x.numpy()
+
+    return to_numpy(reference_tree(params, cfg))

@@ -49,12 +49,19 @@ every cross read gives 0.
 
 MLA has no int8 KV layout: `kv_dtype="int8"` with MLA raises ValueError
 where a cache is made, as the reference.
+
+`lm_loss` is the reference's training loss (next-token cross-entropy,
+the MoE aux and DeepSeek-V3's MTP term); a cache-less forward under
+autograd differentiates through kernel 1's forward on the card
+(`models/attention.py::blocked_attention`).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -597,7 +604,8 @@ def _logits(params, cfg: ModelConfig, x):
 
 def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
           frontend=None, seg_mask=None, write=True, slot_idx=None,
-          token_mask=None, page_view=None):
+          token_mask=None, page_view=None, remat=False,
+          return_hidden=False):
     """Unified forward.
 
     tokens:    (B, T) int
@@ -617,8 +625,12 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
                (`init_paged_cache`): entry [b, i] is the physical page of
                request b's logical page i (NULL for unmapped entries).
                Requires slot_idx.
-    Returns (logits (B,T,Vp) f32, cache, aux_loss); the returned cache
-    is the argument, updated in place."""
+    remat:     recompute each layer in the backward pass instead of
+               keeping its activations (`torch.utils.checkpoint`, as the
+               reference's `jax.checkpoint` of each stage body)
+    Returns (logits (B,T,Vp) f32, cache, aux_loss) [+ the final-norm
+    hidden states with `return_hidden`]; the returned cache is the
+    argument, updated in place."""
     if (token_mask is not None or page_view is not None) and slot_idx is None:
         raise ValueError("token_mask and page_view require the slot path")
     specs = layer_specs(cfg)
@@ -640,11 +652,14 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
 
     layer_caches = cache["layers"] if cache is not None else [None] * len(specs)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    layer = _apply_layer
+    if remat:
+        layer = functools.partial(torch.utils.checkpoint.checkpoint,
+                                  _apply_layer, use_reentrant=False)
     for spec, lp, lc in zip(specs, params["layers"], layer_caches):
-        x, aux = _apply_layer(spec, lp, lc, x, positions, cfg,
-                              seg_mask=seg_mask, write=write, kv_src=kv_src,
-                              slot_idx=slot_idx, token_mask=token_mask,
-                              page_view=page_view)
+        x, aux = layer(spec, lp, lc, x, positions, cfg, seg_mask=seg_mask,
+                       write=write, kv_src=kv_src, slot_idx=slot_idx,
+                       token_mask=token_mask, page_view=page_view)
         if aux is not None:
             aux_total = aux_total + aux
 
@@ -666,7 +681,52 @@ def apply(params, cfg: ModelConfig, tokens, positions=None, cache=None,
             idx = slot_idx.long()
             lengths[idx] = torch.maximum(lengths[idx],
                                          (last + 1).to(lengths.dtype))
+    if return_hidden:
+        return logits, cache, aux_total, x
     return logits, cache, aux_total
+
+
+# ====================================================== losses
+
+def _next_token_nll(logits, targets):
+    """Mean negative log-likelihood of `targets` (B, T') under `logits`
+    (B, T', Vp) f32."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def lm_loss(params, cfg: ModelConfig, tokens, frontend=None, remat=True):
+    """Next-token cross-entropy + 0.001 x the MoE aux loss (+ 0.3 x the
+    depth-1 MTP loss with `cfg.mtp`): the reference's `lm_loss`.
+    tokens: (B, T) int. Returns (total, {"lm", "aux"}), f32 scalars."""
+    logits, _, aux, hidden = apply(params, cfg, tokens, frontend=frontend,
+                                   remat=remat, return_hidden=True)
+    loss = _next_token_nll(logits[:, :-1], tokens[:, 1:])
+    total = loss + 0.001 * aux
+    if cfg.mtp:
+        total = total + 0.3 * _mtp_loss(params, cfg, tokens, hidden)
+    return total, {"lm": loss, "aux": aux}
+
+
+def _mtp_loss(params, cfg: ModelConfig, tokens, hidden):
+    """DeepSeek-V3 depth-1 multi-token prediction: predict t+2 from
+    (h_t, emb(x_{t+1})) through one extra layer (the "mtp" subtree)."""
+    mtp = params["mtp"]
+    dtype = hidden.dtype
+    B, T = tokens.shape
+    h = apply_norm(mtp["norm_h"], hidden[:, : T - 1], cfg)
+    e = apply_norm(mtp["norm_e"], quantize.embed_lookup(
+        params["embed"], tokens[:, 1:], dtype), cfg)
+    x = torch.cat([h, e], dim=-1) @ mtp["proj"].to(dtype)
+    spec = LayerSpec(mixer="mla" if cfg.attention == "mla" else "attn",
+                     cross=False, ffn="dense")
+    pos = torch.arange(T - 1, dtype=torch.int32,
+                       device=tokens.device).expand(B, T - 1)
+    x, _ = _apply_layer(spec, mtp["layer"], None, x, pos, cfg,
+                        seg_mask=None, write=False)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return _next_token_nll(_logits(params, cfg, x)[:, : T - 2],
+                           tokens[:, 2:])
 
 
 # ====================================================== convenience wrappers

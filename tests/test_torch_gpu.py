@@ -1750,3 +1750,167 @@ def test_launch_counters_exact_under_two_threads(cuda):
     assert not errors and not any(t.is_alive() for t in threads)
     for name, (mod, _) in calls.items():
         assert mod.LAUNCHES == before[name] + 2 * N, name
+
+
+# ---------------------------------------------------------------------
+# training: the gradient through kernel 1, and the wrappers' refusals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T,G", [(4, 2), (12, 2)])
+def test_attention_grad_through_kernel1(cuda, T, G, D, dtype):
+    """`fa.attention` (kernel 1's forward, the tensor-op backward) against
+    autograd through the plain version on the card, self-contained
+    causal attention at R = T x G = 8 (the GQA form) and 24 (from R_MMA:
+    the many-row form at D 64 and 128), with a window and non-causal.
+    The forward is one launch of kernel 1; f32 within 1e-4 of each
+    gradient's largest value (f32 sums in another order), bf16 within
+    2e-2 (one bf16 step, 2^-8, where the two f32 values round apart)."""
+    gen = torch.Generator(device=cuda).manual_seed(D + T)
+    B, H, S = 2, 2, T
+    pos = torch.arange(T, dtype=torch.int32, device=cuda).expand(B, T)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for kw in (dict(), dict(window=3), dict(causal=False)):
+        q = torch.randn((B, T, H, G, D), generator=gen, device=cuda).to(
+            dtype).requires_grad_()
+        k = torch.randn((B, S, H, D), generator=gen, device=cuda).to(
+            dtype).requires_grad_()
+        v = torch.randn((B, S, H, D), generator=gen, device=cuda).to(
+            dtype).requires_grad_()
+        d_out = torch.randn((B, T, H, G, D), generator=gen,
+                            device=cuda).to(dtype)
+        before, many = fa.LAUNCHES, fa.LAUNCHES_MANY_ROWS
+        out = fa.attention(q, k, v, pos, pos, scale=D ** -0.5, **kw)
+        assert fa.LAUNCHES == before + 1
+        assert fa.LAUNCHES_MANY_ROWS - many == int(
+            T * G >= fa.R_MMA and D in fa.MMA_HEADS)
+        got = torch.autograd.grad((out.float() * d_out).sum(), (q, k, v))
+        want_out = fa.finalize(fa.attend_partial_plain(
+            q, k, v, pos, pos, scale=D ** -0.5, **kw)).to(dtype)
+        want = torch.autograd.grad((want_out.float() * d_out).sum(),
+                                   (q, k, v))
+        assert fa.LAUNCHES == before + 1       # the backward launches none
+        torch.testing.assert_close(out.float(), want_out.float(),
+                                   rtol=tol, atol=tol)
+        for a, b in zip(got, want):
+            assert a.dtype == dtype
+            err = float((a.float() - b.float()).abs().max())
+            assert err <= tol * float(b.float().abs().max()), err
+
+
+@pytest.mark.gpu
+def test_lm_loss_grads_through_kernel1(cuda):
+    """A tiny dense model's loss and every gradient leaf with kernel 1 in
+    each attention forward against the same step through the plain
+    version (phase P's check at f32, its tolerance)."""
+    import importlib.util
+    from repro_torch.models import attention as attn
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=256,
+                      n_heads=8, n_kv_heads=2, head_dim=32, d_ff=512,
+                      vocab=96, tie_embeddings=True, dtype="float32",
+                      qkv_bias=True)
+    params = M.init_params(cfg, 0, device=cuda)
+    tokens = torch.randint(0, 96, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    loss_k, loss_p, err, n = smoke.grad_check(torch, M, attn, fa, cfg,
+                                              params, tokens)
+    assert n == cfg.n_layers
+    assert abs(loss_k - loss_p) <= 1e-5 * loss_p
+    metric, tol = smoke.GRAD_TOL["float32"]
+    assert err[metric] <= tol
+
+
+@pytest.mark.gpu
+def test_wrappers_refuse_a_gradient(cuda):
+    """On CUDA tensors no wrapper returns an output without the gradient
+    an input asks for: each raises (naming what has no gradient), and
+    launches nothing; under torch.no_grad, or with inputs that ask for
+    none, each launches as before."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, T, H, G, D, S, ps = 2, 3, 2, 2, 64, 64, 16
+    q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
+    k = torch.randn((B, S, H, D), generator=gen, device=cuda)
+    qpos = torch.full((B, T), S - 1, dtype=torch.int32, device=cuda)
+    kpos = torch.arange(S, dtype=torch.int32, device=cuda).repeat(B, 1)
+    P = 1 + B * S // ps
+    kp = torch.randn((P, ps, H, D), generator=gen, device=cuda)
+    pos = torch.full((P, ps), -1, dtype=torch.int32, device=cuda)
+    pos[1:] = torch.arange(S, dtype=torch.int32, device=cuda).view(
+        -1, ps).repeat(B, 1)
+    tbl = torch.arange(1, P, dtype=torch.int32, device=cuda).view(B, -1)
+    x = torch.randn((5, 96), generator=gen, device=cuda)
+    w8 = torch.randint(-127, 128, (96, 40), dtype=torch.int8, device=cuda,
+                       generator=gen)
+    sc = torch.rand((1, 40), generator=gen, device=cuda)
+    sx, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 8, 4, 16, 1, 16,
+                                       torch.float32, cuda)
+    calls = {
+        "flash-attention": (fa, lambda q: fa.attend_partial(
+            q, k, k, qpos, kpos, scale=D ** -0.5)),
+        "paged-attention": (pa, lambda q: pa.paged_attend_partial(
+            q, kp, kp, qpos, pos, tbl, scale=D ** -0.5)),
+        "int8 GEMV": (ig, lambda x: ig.int8_gemv(x, w8, sc)),
+        "SSD scan": (ssd, lambda x: ssd.ssd(x, dt, A, Bm, Cm, 16)),
+    }
+    inputs = {"flash-attention": q, "paged-attention": q, "int8 GEMV": x,
+              "SSD scan": sx}
+    for name, (mod, fn) in calls.items():
+        t = inputs[name].clone().requires_grad_()
+        before = mod.LAUNCHES
+        with pytest.raises(RuntimeError, match="gradient") as e:
+            fn(t)
+        assert name in str(e.value)
+        if name == "SSD scan":
+            assert "item 13" in str(e.value)
+        assert mod.LAUNCHES == before
+        with torch.no_grad():
+            fn(t)
+        fn(t.detach())
+        assert mod.LAUNCHES == before + 2
+
+
+@pytest.mark.gpu
+def test_profiler_events_are_prof_events_on_the_card(cuda):
+    """`chip_smoke.py::profiler_events` against `prof.events()` over a
+    window with device kernels, copies and a named host range: the same
+    names, device types, threads, time ranges and kernels linked to each
+    host operation (so the windows' device shares, MoE attribution and
+    threads read the same numbers)."""
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    x = torch.randn((64, 64), device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            with record_function(smoke.MOE_RANGE):
+                y = (x @ x).relu().sum()
+            float(y)
+            x = x.to(torch.bfloat16).float()
+        torch.cuda.synchronize()
+
+    def fields(events):
+        return sorted((e.name, str(e.device_type), e.thread,
+                       e.time_range.start, e.time_range.end,
+                       tuple(sorted(k.duration for k in e.kernels)))
+                      for e in events)
+
+    got = smoke.profiler_events(torch, prof)
+    want = prof.events()
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in got)
+    assert sum(len(e.kernels) for e in got) >= 60
+    assert fields(got) == fields(want)
+    assert smoke.range_device_us(got, smoke.MOE_RANGE) == \
+        smoke.range_device_us(want, smoke.MOE_RANGE)

@@ -1,8 +1,9 @@
 """Package rules of the PyTorch port (`src/repro_torch`).
 
 * No module of the port, not `chip_smoke.py` and not the port's examples
-  (`examples/torch_*.py`) imports `jax` or the JAX package `repro` (an
-  AST scan of every import).
+  (`examples/torch_*.py`) imports `jax`, the JAX package `repro` or
+  `msgpack` (the card's machine has none of them; an AST scan of every
+  import).
 * The framework-free modules are copies: each equals its original token
   for token, comments aside, once the package name in its import lines
   is mapped back, and so do its public names and dataclass fields.
@@ -53,7 +54,8 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + examples
     assert len(files) > 25
     assert {f.name for f in examples} == {"torch_quickstart.py",
-                                          "torch_serve_online.py"}
+                                          "torch_serve_online.py",
+                                          "torch_train_drafters.py"}
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"models/ssm.py", "kernels/ssd_scan/ops.py",
             "kernels/ssd_scan/__init__.py", "configs/mamba2_130m.py",
@@ -61,10 +63,12 @@ def test_port_imports_neither_jax_nor_reference():
             "serving/backend.py", "core/speculative.py", "obs/export.py",
             "obs/summarize.py", "data/synthetic.py", "models/moe.py",
             "configs/qwen2_moe_a2_7b.py", "configs/qwen3_32b.py",
-            "configs/deepseek_v3_671b.py"} <= scanned
+            "configs/deepseek_v3_671b.py", "launch/train.py",
+            "launch/serve.py", "optim/optimizers.py",
+            "checkpoint/store.py", "checkpoint/codec.py"} <= scanned
     bad = {str(f.relative_to(ROOT)): root for f in files
            for root in _imported_roots(f)
-           if root in ("jax", "jaxlib", "repro", "flax")}
+           if root in ("jax", "jaxlib", "repro", "flax", "msgpack")}
     assert not bad, bad
 
 
@@ -155,6 +159,13 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpeculativeEngine((cfg, cpu_params), [(cfg, cpu_params, "d")],
                           CoSineConfig(n_drafters=1), max_len=16)
+    from repro_torch.checkpoint.store import load_checkpoint
+    from repro_torch.data.synthetic import SyntheticCorpus
+    from repro_torch.launch.train import train_model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_model(cfg, SyntheticCorpus(cfg.vocab), None, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint("absent.msgpack", cfg)
     # asked for explicitly, the CPU works
     runner = ModelRunner(cfg, cpu_params, 16, device="cpu")
     lg, _ = runner.prefill_request(1, np.array([1, 2, 3]))

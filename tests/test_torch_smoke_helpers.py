@@ -1,7 +1,7 @@
 """`chip_smoke.py`'s accounting on the CPU: the latent form's work and
-bound, the profiler attribution of device time to a host range, and the
-image check of phases N and O rehearsed at tiny widths (the script itself
-needs the card)."""
+bound, the profiler attribution of device time to a host range, the
+image check of phases N and O and phase P's gradient check rehearsed at
+tiny widths (the script itself needs the card)."""
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
@@ -68,6 +68,95 @@ def test_image_check_rehearsed_on_the_cpu(arch):
     assert out["max_logit_gap_vs_full"] < 1e-4 and not out["near_tie_tokens"]
 
 
+@pytest.mark.parametrize("arch", ["dense", "mla", "encdec"])
+def test_grad_check_rehearsed_on_the_cpu(arch, one_torch_thread):
+    """Phase P's gradient check at tiny widths: the differentiable form of
+    self-contained attention against autograd through the plain version
+    (the oracle patched in and restored), one attention forward a layer
+    (none from the oracle; the CPU has no launches to count), and the
+    step's bound and the tree comparison it reports."""
+    from repro_torch.config import MLAConfig, ModelConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    base = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                       n_heads=4, n_kv_heads=2, head_dim=16, d_ff=64,
+                       vocab=40, tie_embeddings=True, dtype="float32")
+    cfg = {"dense": base,
+           "mla": base.with_overrides(
+               attention="mla", n_kv_heads=4, mtp=True, mla=MLAConfig(
+                   q_lora_rank=16, kv_lora_rank=16, qk_nope_head_dim=8,
+                   qk_rope_head_dim=8, v_head_dim=8)),
+           "encdec": base.with_overrides(
+               n_kv_heads=4, norm_type="layer", mlp_type="gelu",
+               pos_embed="learned", max_position=64, encoder_layers=1,
+               encoder_seq=6, n_frontend_tokens=6)}[arch]
+    params = M.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=gen)
+    fe = (0.1 * torch.randn((2, 6, 32), generator=gen)
+          if arch == "encdec" else None)
+    calls = []
+    orig = fa.attention
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return orig(*a, **kw)
+
+    fa.attention = counted
+    try:
+        loss_k, loss_p, err, _ = smoke.grad_check(torch, M, attn, fa, cfg,
+                                                  params, tokens, fe)
+    finally:
+        fa.attention = orig
+    from repro_torch.optim.optimizers import tree_leaves
+    assert attn.blocked_attention.__module__ == attn.__name__
+    # self-attention a layer, a cross read a decoder layer of the
+    # encoder-decoder, the MTP layer, the encoder's layers
+    reads = cfg.n_layers * (1 + cfg.is_encdec) + cfg.mtp + \
+        cfg.encoder_layers
+    assert len(calls) == reads
+    assert loss_k == loss_p and err["max"] < 1e-5 and err["l2"] < 1e-5
+    assert not any(t.requires_grad for t in tree_leaves(params))
+    assert smoke.trees_equal(torch, params, params)
+    flops, ms = smoke.train_bound(10 ** 9, 2048)
+    assert flops == 6 * 10 ** 9 * 2048
+    assert ms == flops / smoke.PEAK_FLOPS["float32"] * 1e3
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the test: when the suite runs in several
+    pytest-xdist workers at once, torch's OpenMP pool on every core makes
+    small operations many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_training_phase_rehearsed_on_the_cpu(one_torch_thread):
+    """Phase P end to end at tiny widths on the CPU: the gradient checks
+    at both activation dtypes, `train_model`'s steps (its first loss the
+    checked step's), the loss falling, the checkpoint read back bit for
+    bit."""
+    from repro_torch.config import ModelConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                      n_heads=4, n_kv_heads=2, head_dim=16, d_ff=64,
+                      vocab=smoke.TRAIN_VOCAB, tie_embeddings=True,
+                      qkv_bias=True)
+    out = smoke.training_phase(torch, M, attn, fa, cfg, device="cpu",
+                               batch=2, seq=16, steps=4)
+    assert len(out["losses"]) == 4 and out["losses"][-1] < out["losses"][0]
+    for dtype, check in out["grad_check"].items():
+        metric, tol = smoke.GRAD_TOL[dtype]
+        assert check["grad_rel_err"][metric] <= tol
+    assert out["flops_per_step"] == 6 * out["n_params"] * 2 * 17
+
+
 def _ev(name, thread, start, end, kernels=(), dev=DeviceType.CPU):
     return SimpleNamespace(
         name=name, thread=thread, device_type=dev,
@@ -92,6 +181,42 @@ def test_range_device_us_counts_kernels_launched_inside():
     ]
     assert smoke.range_device_us(events, R) == (1, 13, 20)
     assert smoke.range_device_us(events, "no such range") == (0, 0, 20)
+
+
+def _fields(events):
+    """The fields the profiler windows read, one tuple an event."""
+    return sorted((e.name, str(e.device_type), e.thread, e.time_range.start,
+                   e.time_range.end, tuple(sorted(k.duration
+                                                  for k in e.kernels)))
+                  for e in events)
+
+
+def test_profiler_events_are_prof_events():
+    """`profiler_events` reads the raw results into the fields that
+    `prof.events()` gives (names, device types, threads, time ranges,
+    linked kernels), here on host operations of two threads inside a
+    named range; the card's linked kernels: `tests/test_torch_gpu.py`."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.ones(8)
+
+    def work():
+        with record_function(smoke.MOE_RANGE):
+            for _ in range(50):
+                (x * 2 + 1).sum()
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        work()
+        t = threading.Thread(target=work)
+        t.start()
+        t.join()
+    got = smoke.profiler_events(torch, prof)
+    assert len(got) > 300
+    assert _fields(got) == _fields(prof.events())
+    assert [e.time_range.start for e in got] == sorted(
+        e.time_range.start for e in got)
 
 
 @pytest.mark.parametrize("T,G,D,dtype,form", [

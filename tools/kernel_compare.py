@@ -28,6 +28,14 @@ times (the mean of their two runs) and their ratio:
            KV caches) on each tree's package, measured by this checkout's
            `profile_int8kv_window`: the int8 forms' share of the device's
            busy time;
+  host     the host cost of one call (microseconds, enqueue only: the
+           median of `HOST_REPS` rounds of `chip_smoke.py::_host_us`) of
+           the wrappers as the serving path calls them at decode:
+           `attend_partial` (kernel 1, phase A's drafter decode),
+           `blocked_attention` (a self-contained read, the target's
+           10-node verification segment), `quantize.qdot` on int8
+           weights (kernel 3, qwen2-0.5b's wq at 4 rows) and `ssd_slots`
+           (the mamba2 decode of phase E);
   sass     the SASS of every kernel both trees' attention libraries
            (kernels 1 and 2) define under one (mangled) name, compared
            function by function (`cuobjdump -sass`): which compiled to
@@ -53,12 +61,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("kernels", "int8kv", "d120", "noncausal", "crossover", "profile",
-          "sass")
+          "host", "sass")
 #: the query rows a (request, KV head) of the crossover phase
 CROSSOVER_R = (4, 8, 12, 16, 17, 20, 24, 32, 40, 64, 128, 512, 2048)
 #: the row counts `chip_smoke.py` gives the int8 GEMV when phase D has
 #: not run (its defaults)
 GEMV_ROWS = (4, 24, 512)
+#: rounds of the host phase, each `HOST_CALLS` calls
+HOST_REPS, HOST_CALLS = 7, 500
 
 
 def _load(path: Path, name: str):
@@ -159,6 +169,48 @@ def crossover(torch, fa, pa, smoke):
     return rows
 
 
+def host_costs(torch, fa, attn, quantize, sd, own) -> dict:
+    """{wrapper: [host us per call of each round]} at the serving path's
+    decode shapes (see the module's `host`)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    # phase A's drafter decode over the 9-slot pool, f32 K/V
+    lens = torch.tensor([0, 80, 230, 380, 630, 0, 0, 0, 0], device="cuda")
+    k_pos = torch.where(
+        torch.arange(own.MAX_LEN, device="cuda")[None] < lens[:, None],
+        torch.arange(own.MAX_LEN, device="cuda")[None], -1).to(torch.int32)
+    slot_idx = torch.tensor([1, 2, 3, 4], dtype=torch.int32, device="cuda")
+    q_pos = (lens[slot_idx.long()] - 1)[:, None].to(torch.int32)
+    q, k, v = rnd(4, 1, 2, 7, 64), rnd(9, own.MAX_LEN, 2, 64), rnd(
+        9, own.MAX_LEN, 2, 64)
+    # the target's verification segment: 10 tree nodes, Hkv 20, D 128
+    sq, sk, sv = rnd(4, 10, 20, 1, 128), rnd(4, 10, 20, 128), rnd(
+        4, 10, 20, 128)
+    s_pos = torch.arange(10, dtype=torch.int32, device="cuda").expand(4, 10)
+    tree = own._tree_mask(torch).expand(4, 10, 10).contiguous()
+    # qwen2-0.5b's wq quantized, 4 decode rows
+    x = rnd(4, 896).to(torch.bfloat16)
+    w8 = quantize.quantize_weight(rnd(896, 896))
+    # the mamba2 decode of phase E
+    xs, dt, A, Bm, Cm, _ = own._ssd_inputs(torch, gen, 4, 1, 24, 64, 1, 128)
+    pool = torch.zeros((16, 24, 64, 128), device="cuda")
+    idx = torch.tensor([5, 11, 2, 8], dtype=torch.int32, device="cuda")
+    calls = {
+        "attend_partial": lambda: fa.attend_partial(
+            q, k, v, q_pos, k_pos, scale=64 ** -0.5, slot_idx=slot_idx),
+        "blocked_attention": lambda: attn.blocked_attention(
+            sq, sk, sv, s_pos, s_pos, scale=128 ** -0.5, extra_mask=tree),
+        "int8_qdot": lambda: quantize.qdot(x, w8),
+        "ssd_slots": lambda: sd.ssd_slots(xs, dt, A, Bm, Cm, 128, pool,
+                                          idx),
+    }
+    return {name: [own._host_us(torch, fn, n=HOST_CALLS)
+                   for _ in range(HOST_REPS)] for name, fn in calls.items()}
+
+
 def worker(tree: Path, phases, out: Path) -> None:
     """One tree's run: its own `chip_smoke.py` phases on its own package."""
     import numpy as np
@@ -233,6 +285,8 @@ def worker(tree: Path, phases, out: Path) -> None:
 
         res["profile"] = own.profile_int8kv_window(torch, target, drafters,
                                                    prompts, match=int8kv)
+    if "host" in phases:
+        res["host"] = host_costs(torch, fa, attn, quantize, sd, own)
     if "sass" in phases:
         res["sass"] = {lib.name: _sass(lib.library_path())
                        for lib in (fa.LIBRARY, pa.LIBRARY)}
@@ -264,7 +318,7 @@ def main() -> int:
             # the SASS and the profiler window once per tree, the
             # crossover once, on this tree
             ph = [p for p in phases
-                  if p in ("kernels", "int8kv", "d120", "noncausal")
+                  if p in ("kernels", "int8kv", "d120", "noncausal", "host")
                   or (len(runs[who]) == 0
                       and (p != "crossover" or who == "this"))]
             if not ph:
@@ -314,6 +368,20 @@ def main() -> int:
     for r in runs["this"]:
         if "crossover" in r:
             report["crossover"] = r["crossover"]
+    if "host" in phases:
+        report["host"] = {}
+        for name in runs["this"][0]["host"]:
+            med = {who: sorted(u for r in runs[who] for u in r["host"][name])
+                   for who in runs}
+            med = {who: v[len(v) // 2] for who, v in med.items()}
+            report["host"][name] = dict(
+                other=[r["host"][name] for r in runs["other"]],
+                this=[r["host"][name] for r in runs["this"]],
+                median_other_us=med["other"], median_this_us=med["this"],
+                ratio=med["this"] / med["other"])
+            print(f"host {name}: median other {med['other']:.2f} us, this "
+                  f"{med['this']:.2f} us, this/other "
+                  f"{med['this'] / med['other']:.4f}", flush=True)
     for who in runs:
         if "profile" in runs[who][0]:
             report["profile"][who] = runs[who][0]["profile"]
