@@ -137,7 +137,24 @@ wrappers), then serves the CoSine path end to end through
            int8-quantized (its products on kernel 3); 8 requests served
            with `cosine` under the tie rule, acceptance by domain, then
            the same configs at their untrained weights: mean acceptance
-           must exceed 1 and the untrained twin's.
+           must exceed 1 and the untrained twin's;
+  phase R  training an SSM model: mamba2-130m at full width and depth
+           (24 layers, d_model 768, 24 SSD heads of 64, d_state 128,
+           vocab 50280; 168 M f32 parameters) fine-tuned as phase P: every
+           SSD scan's forward on the SSD kernel's chunk path (24 launches
+           a step) with the tensor-op gradient `ssd_grad`
+           (`SSDScanFunction`); phase P's gates (gradient checks against
+           the plain oracle's autograd through `ssd_chunked`, the loss
+           falling, a bit-exact checkpoint);
+  phase R-hybrid  jamba-v0.1-52b's widths cut to an SSM and an attention
+           layer (dense FFNs, d_state 16): one step's gradient checks at
+           f32 and bf16, the scan's and kernel 1's gradients in one loss;
+  phase S  the sharding rules on the card: a world-size-1 NCCL group
+           from an in-memory store, a (1, 1) ("data", "model")
+           DeviceMesh, qwen2-0.5b's parameters placed by the serve rules
+           (`distributed/sharding.py::distribute`): each local tensor
+           bit for bit its original, its bytes the dry-run's reckoning;
+           the group torn down after.
 
 Before the serving phases the int8 K/V forms of kernels 1 and 2 (a
 kernel of their own, `int8_kernel`, whose compiled registers and spills
@@ -193,10 +210,12 @@ from typing import NamedTuple
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# f32 CUDA cores; bf16 dense; int8 dense (TOP/s), the rate of an int8
-# K/V form's bound
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+# the card's HBM rate and dense peaks (f32 CUDA cores; bf16; int8, the
+# rate of an int8 K/V form's bound), from the port
+try:
+    from repro_torch.device import HBM_BYTES_PER_S, PEAK_FLOPS
+except ImportError as e:
+    sys.exit(f"chip_smoke: the port is not beside this script ({e})")
 # the SSD chunk path's and the f32 latent form's products on the tensor
 # cores: 3xTF32, each product three TF32 passes at 495 TFLOP/s
 TF32X3_FLOPS = 495e12 / 3
@@ -3365,19 +3384,49 @@ def plain_oracle(attn, fa):
     self-contained attention read (the model's, the encoder's, MLA's)
     differentiates through autograd of the plain version
     (`attend_partial_plain`), which replaces
-    `models.attention.blocked_attention`."""
+    `models.attention.blocked_attention`, and every full-sequence SSD
+    scan through autograd of `ssd_chunked`, which replaces the SSD ops
+    module's `ssd_slots`."""
+    from repro_torch.kernels.ssd_scan import ops as sd
+
     def blocked(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
                 extra_mask=None, block=None):
         return fa.finalize(fa.attend_partial_plain(
             q, k, v, q_pos, k_pos, scale=scale, causal=causal,
             window=window, mask=extra_mask, block=block)).to(q.dtype)
 
-    saved = attn.blocked_attention
-    attn.blocked_attention = blocked
+    def slots(x, dt, A, B, C, chunk, state, slot_idx=None, write=True):
+        if state is not None:
+            raise RuntimeError("the plain oracle differentiates only a "
+                               "full-sequence scan (state=None)")
+        return sd.ssd_chunked(x, dt, A, B, C, chunk)[0]
+
+    saved, saved_slots = attn.blocked_attention, sd.ssd_slots
+    attn.blocked_attention, sd.ssd_slots = blocked, slots
     try:
         yield
     finally:
-        attn.blocked_attention = saved
+        attn.blocked_attention, sd.ssd_slots = saved, saved_slots
+
+
+@contextlib.contextmanager
+def ssd_paths(sd):
+    """Counts the SSD scan's launches by path ("rec", "chunk") while it
+    lasts: {path: launches}, through a wrapper of `sd.launch_plan` (the
+    one function both wrappers launch through)."""
+    counts = {"rec": 0, "chunk": 0}
+    launch = sd.launch_plan
+
+    def counted(*args):
+        y = launch(*args)
+        counts[args[-1].path] += 1
+        return y
+
+    sd.launch_plan = counted
+    try:
+        yield counts
+    finally:
+        sd.launch_plan = launch
 
 
 def loss_and_grads(cfg, params, tokens, frontend=None):
@@ -3407,17 +3456,66 @@ def torch_norm(t):
 
 def grad_check(torch, M, attn, fa, cfg, params, tokens, frontend=None):
     """One training step's loss and gradients with every attention
-    forward on kernel 1 (`fa.attention`) against the same step through
-    the plain version's autograd (`plain_oracle`). Returns (kernel loss,
-    plain loss, `grad_error`'s dict, kernel launches of the step)."""
-    fa.LAUNCHES = 0
+    forward on kernel 1 (`fa.attention`) and every SSD scan on the SSD
+    kernel (`scan` of the SSD ops module) against the same step through
+    the plain versions' autograd (`plain_oracle`). Returns (kernel loss,
+    plain loss, `grad_error`'s dict, kernel-1 launches of the step, SSD
+    kernel launches of the step)."""
+    from repro_torch.kernels.ssd_scan import ops as sd
+
+    fa.LAUNCHES = sd.LAUNCHES = 0
     loss_k, g_k = loss_and_grads(cfg, params, tokens, frontend)
-    launches = fa.LAUNCHES
+    launches, ssd_launches = fa.LAUNCHES, sd.LAUNCHES
     with plain_oracle(attn, fa):
         loss_p, g_p = loss_and_grads(cfg, params, tokens, frontend)
     if fa.LAUNCHES != launches:
         fail(f"{cfg.name}: the plain oracle launched kernel 1")
-    return loss_k, loss_p, grad_error(g_k, g_p), launches
+    if sd.LAUNCHES != ssd_launches:
+        fail(f"{cfg.name}: the plain oracle launched the SSD kernel")
+    return loss_k, loss_p, grad_error(g_k, g_p), launches, ssd_launches
+
+
+def layer_counts(cfg) -> dict:
+    """Attention and SSM layers of `cfg`: the launches of kernel 1 and of
+    the SSD kernel in one training forward."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    return {"attn": kinds.count("attn"), "ssm": kinds.count("ssm")}
+
+
+def grad_checks(torch, M, attn, fa, cfg, params, tokens, label):
+    """`grad_check` at f32 and at bf16 activations (`GRAD_TOL`), each
+    step launching kernel 1 once an attention layer and the SSD kernel
+    once an SSM layer (on a card; nothing on the CPU). Returns the
+    checks by dtype."""
+    cuda = tokens.device.type == "cuda"
+    want = layer_counts(cfg)
+    checks = {}
+    for dtype, (metric, tol) in GRAD_TOL.items():
+        c = cfg.with_overrides(dtype=dtype)
+        loss_k, loss_p, err, n, n_ssd = grad_check(
+            torch, M, attn, fa, c, params, tokens)
+        checks[dtype] = dict(loss_kernel=loss_k, loss_plain=loss_p,
+                             grad_rel_err=err, gated=metric, tol=tol,
+                             launches=n, ssd_launches=n_ssd)
+        print(f"{label} gradient check ({dtype} activations): loss "
+              f"{loss_k:.6f} on the kernels, {loss_p:.6f} plain; gradient "
+              f"leaves' largest errors {err['max']:.3g} of the leaf's "
+              f"largest value, {err['l2']:.3g} of its norm (gated: "
+              f"{metric} <= {tol:g}); {n} kernel-1 launches for "
+              f"{want['attn']} attention layers, {n_ssd} SSD launches for "
+              f"{want['ssm']} SSM layers", flush=True)
+        if (n, n_ssd) != (want["attn"] * cuda, want["ssm"] * cuda):
+            fail(f"{label}: {n} kernel-1 and {n_ssd} SSD launches in one "
+                 f"{dtype} step of {want} layers")
+        if not (err[metric] <= tol
+                and abs(loss_k - loss_p) <= tol * abs(loss_p)):
+            fail(f"{label}: the {dtype} step's gradients are {err} (loss "
+                 f"{loss_k} vs {loss_p}) from the plain oracle's, "
+                 f"tolerance {metric} {tol:g}")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return checks
 
 
 def train_bound(n_params: int, tokens: int):
@@ -3448,89 +3546,77 @@ def _sync(torch, dev):
 
 
 def training_phase(torch, M, attn, fa, cfg, device="cuda",
-                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS):
-    """Phase P: `cfg` (qwen2-0.5b at full width) fine-tuned on one domain
-    with `train_model` (AdamW, `batch` x `seq`), every attention forward
-    on kernel 1 with its gradient. The first step's loss and gradients
-    are held against the plain oracle's at f32 and at the config's bf16
-    activations (`GRAD_TOL`); the loss must fall; each forward must
-    launch kernel 1 once a layer, on its many-row form; the trained
-    weights must read back from a checkpoint bit for bit. (On the CPU,
-    for a rehearsal at tiny widths, nothing launches and no device
-    memory or card is read.)"""
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+                   label="phase P", seed=40):
+    """Phases P and R: `cfg` (qwen2-0.5b, mamba2-130m at full width)
+    fine-tuned on one domain with `train_model` (AdamW, `batch` x `seq`),
+    every attention forward on kernel 1 and every SSD scan on the SSD
+    kernel, each with its tensor-op
+    gradient. The first step's loss and gradients are held against the
+    plain oracle's at f32 and at bf16 activations (`grad_checks`); the
+    loss must fall; each forward must launch kernel 1 once an attention
+    layer, on its many-row form, and the SSD kernel once an SSM layer, on
+    its chunk path; the trained weights must read back from a checkpoint
+    bit for bit. (On the CPU, for a rehearsal at tiny widths, nothing
+    launches and no device memory or card is read.)"""
     import tempfile
 
     from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
     from repro_torch.data.synthetic import SyntheticCorpus, token_batches
+    from repro_torch.kernels.ssd_scan import ops as sd
     from repro_torch.launch.train import train_model
     from repro_torch.optim.optimizers import tree_leaves
 
     t_phase = time.perf_counter()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    params = M.init_params(cfg, seed=40, device=dev)
+    params = M.init_params(cfg, seed=seed, device=dev)
     n_params = sum(t.numel() for t in tree_leaves(params))
     # the first batch `train_model` draws from a corpus seeded alike
     first = next(token_batches(SyntheticCorpus(TRAIN_VOCAB, seed=0),
                                TRAIN_DOMAIN, batch, seq, 1))
     tokens = torch.as_tensor(first, device=dev)
-    checks = {}
-    for dtype, (metric, tol) in GRAD_TOL.items():
-        c = cfg.with_overrides(dtype=dtype)
-        loss_k, loss_p, err, n = grad_check(torch, M, attn, fa, c, params,
-                                            tokens)
-        checks[dtype] = dict(loss_kernel=loss_k, loss_plain=loss_p,
-                             grad_rel_err=err, gated=metric, tol=tol,
-                             launches=n)
-        print(f"phase P gradient check ({dtype} activations): loss "
-              f"{loss_k:.6f} on kernel 1, {loss_p:.6f} plain; gradient "
-              f"leaves' largest errors {err['max']:.3g} of the leaf's "
-              f"largest value, {err['l2']:.3g} of its norm (gated: "
-              f"{metric} <= {tol:g}); {n} kernel-1 launches for "
-              f"{cfg.n_layers} layers", flush=True)
-        if n != cfg.n_layers * cuda:
-            fail(f"phase P: {n} kernel-1 launches in one {dtype} step of "
-                 f"{cfg.n_layers} layers")
-        if not (err[metric] <= tol
-                and abs(loss_k - loss_p) <= tol * abs(loss_p)):
-            fail(f"phase P: the {dtype} step's gradients are {err} (loss "
-                 f"{loss_k} vs {loss_p}) from the plain oracle's, "
-                 f"tolerance {metric} {tol:g}")
-        gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
+    checks = grad_checks(torch, M, attn, fa, cfg, params, tokens, label)
 
-    fa.LAUNCHES = fa.LAUNCHES_MANY_ROWS = 0
+    layers = layer_counts(cfg)
+    fa.LAUNCHES = fa.LAUNCHES_MANY_ROWS = sd.LAUNCHES = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     _sync(torch, dev)
     t0 = time.perf_counter()
-    trained, losses = train_model(
-        cfg, SyntheticCorpus(TRAIN_VOCAB, seed=0), TRAIN_DOMAIN, steps,
-        batch=batch, seq=seq, lr=TRAIN_LR, params=params, verbose=False,
-        device=dev)
-    _sync(torch, dev)
+    with ssd_paths(sd) as ssd_by_path:
+        trained, losses = train_model(
+            cfg, SyntheticCorpus(TRAIN_VOCAB, seed=0), TRAIN_DOMAIN, steps,
+            batch=batch, seq=seq, lr=TRAIN_LR, params=params,
+            verbose=False, device=dev)
+        _sync(torch, dev)
     wall = time.perf_counter() - t0
     launches, many = fa.LAUNCHES, fa.LAUNCHES_MANY_ROWS
+    ssd_launches = sd.LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     del params
     step_tokens = batch * (seq + 1)
     flops, bound_ms = train_bound(n_params, step_tokens)
     step_ms = wall / steps * 1e3
-    if cuda and (launches < cfg.n_layers * steps or many != launches):
-        fail(f"phase P: {launches} kernel-1 launches ({many} many-row) in "
-             f"{steps} steps of {cfg.n_layers} layers")
+    if cuda and (launches < layers["attn"] * steps or many != launches):
+        fail(f"{label}: {launches} kernel-1 launches ({many} many-row) in "
+             f"{steps} steps of {layers['attn']} attention layers")
+    if cuda and (ssd_launches < layers["ssm"] * steps
+                 or ssd_by_path["chunk"] != ssd_launches):
+        fail(f"{label}: {ssd_launches} SSD launches ({ssd_by_path}) in "
+             f"{steps} steps of {layers['ssm']} SSM layers")
     if not losses[-1] < losses[0]:
-        fail(f"phase P: the loss did not fall: {losses}")
-    if abs(losses[0] - checks["bfloat16"]["loss_kernel"]) > 1e-4 * losses[0]:
-        fail(f"phase P: train_model's first loss {losses[0]} is not the "
-             f"checked step's {checks['bfloat16']['loss_kernel']}")
+        fail(f"{label}: the loss did not fall: {losses}")
+    first_loss = checks[cfg.dtype]["loss_kernel"]
+    if abs(losses[0] - first_loss) > 1e-4 * losses[0]:
+        fail(f"{label}: train_model's first loss {losses[0]} is not the "
+             f"checked step's {first_loss}")
 
     t0 = time.perf_counter()
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as d:
-        path = str(Path(d) / "qwen2-0.5b.msgpack")
+        path = str(Path(d) / f"{cfg.name}.msgpack")
         save_checkpoint(path, trained, cfg, meta={"steps": steps})
         ckpt_gb = Path(path).stat().st_size / 1e9
         back, meta = load_checkpoint(path, cfg, dev)
@@ -3542,29 +3628,117 @@ def training_phase(torch, M, attn, fa, cfg, device="cuda",
     if cuda:
         torch.cuda.empty_cache()
     if not same:
-        fail("phase P: the checkpoint did not read back bit for bit")
+        fail(f"{label}: the checkpoint did not read back bit for bit")
     smi = nvidia_smi_line() if cuda else "cpu"
-    print(f"phase P ({smi}): {cfg.name}, {n_params} parameters, {steps} "
+    print(f"{label} ({smi}): {cfg.name}, {n_params} parameters, {steps} "
           f"AdamW steps (lr {TRAIN_LR:g}) of {batch} x {seq + 1} tokens on "
           f"domain {TRAIN_DOMAIN!r}: {step_ms:.1f} ms a step "
           f"({step_tokens * steps / wall:.0f} tokens/s; bound "
           f"{bound_ms:.1f} ms, {flops / 1e12:.2f} TFLOP a step at the f32 "
           f"rate), peak {peak_gb} GB, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; kernel 1 launched {launches} times "
-          f"({many} many-row, {launches / steps:.0f} a step); "
+          f"{losses[-1]:.4f} ({', '.join(f'{v:.4f}' for v in losses)}); "
+          f"kernel 1 launched {launches} times ({many} many-row, "
+          f"{launches / steps:.0f} a step), the SSD kernel {ssd_launches} "
+          f"times ({ssd_by_path}, {ssd_launches / steps:.0f} a step); "
           f"checkpoint of {ckpt_gb:.2f} GB written and read back bit for "
           f"bit in {ckpt_s:.1f} s", flush=True)
     summary = dict(
-        phase="phase P", model=cfg.name, n_params=n_params,
+        phase=label, model=cfg.name, n_params=n_params,
         steps=steps, batch=batch, seq=seq, lr=TRAIN_LR,
         domain=TRAIN_DOMAIN, corpus_vocab=TRAIN_VOCAB, step_ms=step_ms,
         tokens_per_s=step_tokens * steps / wall, bound_ms=bound_ms,
         flops_per_step=flops, peak_mem_gb=peak_gb, losses=losses,
         grad_check=checks, kernel_launches=launches,
-        many_row_launches=many, checkpoint_gb=ckpt_gb,
+        many_row_launches=many, ssd_launches=ssd_launches,
+        ssd_launches_by_path=ssd_by_path, checkpoint_gb=ckpt_gb,
         checkpoint_s=ckpt_s, device=smi,
         phase_s=time.perf_counter() - t_phase)
     return summary
+
+
+def hybrid_grad_phase(torch, M, attn, fa, cfg, device="cuda",
+                      batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=41):
+    """Phase R-hybrid: one training step of `cfg` (an SSM layer and an
+    attention layer) at f32 and bf16 activations, its SSD scan on the SSD
+    kernel and its attention on kernel 1, each with its gradient, held
+    against the plain oracle (`grad_checks`): the two gradients composed
+    in one loss."""
+    from repro_torch.data.synthetic import SyntheticCorpus, token_batches
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    params = M.init_params(cfg, seed=seed, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    first = next(token_batches(SyntheticCorpus(TRAIN_VOCAB, seed=0),
+                               TRAIN_DOMAIN, batch, seq, 1))
+    checks = grad_checks(torch, M, attn, fa, cfg, params,
+                         torch.as_tensor(first, device=dev),
+                         "phase R-hybrid")
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(phase="phase R-hybrid", model=cfg.name, n_params=n_params,
+                layers=layer_counts(cfg), batch=batch, seq=seq,
+                grad_check=checks, phase_s=time.perf_counter() - t_phase)
+
+
+def sharding_phase(torch, M, cfg):
+    """Phase S: the sharding rules on the card. A world-size-1 NCCL
+    group from an in-memory store (no network), a (1, 1) ("data",
+    "model") DeviceMesh on cuda, `cfg`'s parameters placed by the serve
+    rules with `distribute`: each local tensor must equal its original bit
+    for bit, and the local shards' bytes the dry-run's reckoning of the
+    same specs. The group is torn down before the phase returns."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        params = M.init_params(cfg, seed=50, device="cuda")
+        specs = sh.param_specs(cfg, mesh, mode="serve")
+        placed = sh.distribute(params, specs, mesh)
+        same = all(tree_leaves(tree_map(
+            lambda p, d: d.to_local().dtype == p.dtype
+            and torch.equal(d.to_local(), p), params, placed)))
+        local = sum(d.to_local().numel() * d.to_local().element_size()
+                    for d in tree_leaves(placed))
+        held = dryrun.tree_bytes(sh.param_shapes(cfg), specs, mesh,
+                                 lambda t: t.dtype)
+        bf16 = dryrun.tree_bytes(sh.param_shapes(cfg), specs, mesh,
+                                 lambda t: torch.bfloat16)
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        n_leaves = len(tree_leaves(placed))
+        del params, placed
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase S: {cfg.name}'s {n_leaves} parameter leaves distributed "
+          f"by the serve rules on a (1, 1) DeviceMesh over a world-size-1 "
+          f"NCCL group: local shards equal the originals bit for bit: "
+          f"{same}; {local} bytes a device held (f32), dry-run reckoning "
+          f"{held} (f32 as held; {bf16} at bf16 as it lowers them); "
+          f"all-reduce {float(one.item())}; {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    if not same or local != held or float(one.item()) != 1.0:
+        fail(f"phase S: local shards equal {same}, {local} bytes held "
+             f"against {held} reckoned")
+    return dict(phase="phase S", model=cfg.name, leaves=n_leaves,
+                bitwise=same, local_bytes=local, dryrun_bytes=held,
+                dryrun_bf16_bytes=bf16,
+                phase_s=time.perf_counter() - t0)
 
 
 def trained_serving_phase(torch, M, run, references, kernel_err, steps):
@@ -4046,8 +4220,28 @@ def main() -> int:
         sum_p["many_row_launches"]
     sum_q = trained_serving_phase(torch, M, run, references, kernel_err,
                                   SERVE_TRAIN_STEPS)
-    print(json.dumps({"training": dict(phase_P=sum_p, phase_Q=sum_q)}),
-          flush=True)
+    # ---- phase R: mamba2-130m at full width and depth fine-tuned, every
+    # SSD scan on the SSD kernel with its tensor-op gradient; phase
+    # R-hybrid: jamba's widths cut to an SSM and an attention layer (dense
+    # FFNs), the two gradients in one loss
+    sum_r = training_phase(torch, M, attn, fa, MAMBA2_130M, label="phase R",
+                           seed=42)
+    print(f"phase R done {time.perf_counter() - t_start:.1f} s into the "
+          f"script ({sum_r['phase_s']:.1f} s)", flush=True)
+    launches["ssd_scan_pallas"] += sum_r["ssd_launches"]
+    rcfg = JAMBA_V0_1_52B.with_overrides(n_layers=2, moe=None,
+                                         hybrid_attn_offset=1)
+    if layer_counts(rcfg) != {"attn": 1, "ssm": 1}:
+        fail(f"phase R-hybrid: the cut plan is {layer_counts(rcfg)}")
+    sum_rh = hybrid_grad_phase(torch, M, attn, fa, rcfg)
+    print(f"phase R-hybrid done {time.perf_counter() - t_start:.1f} s into "
+          f"the script ({sum_rh['phase_s']:.1f} s)", flush=True)
+    # ---- phase S: the sharding rules on a DeviceMesh of the one card
+    sum_s = sharding_phase(torch, M, QWEN2_0_5B)
+    print(json.dumps({"training": dict(phase_P=sum_p, phase_Q=sum_q,
+                                       phase_R=sum_r,
+                                       phase_R_hybrid=sum_rh),
+                      "sharding": dict(phase_S=sum_s)}), flush=True)
 
     print(json.dumps({"serving": summaries}), flush=True)
     print(json.dumps({"wallclock": wallclock}), flush=True)
@@ -4062,12 +4256,19 @@ def main() -> int:
                 if sm["kernel_launches"][name]}
 
     kernels = []
-    trained = {"phase P": sum_p["kernel_launches"]}
+    trained = {"phase P": sum_p["kernel_launches"],
+               "phase R-hybrid (gradient checks)": sum(
+                   c["launches"] for c in sum_rh["grad_check"].values())}
     extra = {"flash_attention_partial": dict(host=fa_host,
                                              training_launches=trained),
              "int8_gemv_call": dict(host=ig_host, crossover=crossover,
                                     launches_by_rows=int8_launch_classes),
              "ssd_scan_pallas": dict(host=sd_host, crossover=sd_crossover,
+                                     training_launches={
+                                         "phase R": sum_r["ssd_launches"],
+                                         "phase R-hybrid (gradient checks)":
+                                         sum(c["ssd_launches"] for c in
+                                             sum_rh["grad_check"].values())},
                                      in_place=sd_in_place,
                                      rec_max_l={"N128": sd.rec_max_l(128),
                                                 "N16": sd.rec_max_l(16)},

@@ -23,6 +23,14 @@ On a CUDA tensor both wrappers launch the kernel of `csrc/ssd_scan.cu`
 (`repro/models/ssm.py::ssd_chunked`) with a Python loop over chunks in
 place of `lax.scan`, and `ssd_slots_plain`.
 
+A call that asks for a gradient (grad mode on, an input that requires
+one) goes through `scan` (`SSDScanFunction`): the same forward, and
+`ssd_grad`, the chunked scan's adjoint in tensor ops (the TPU kernel had
+no backward; the reference differentiates its chunked scan with XLA's
+autodiff). Only `ssd` and `ssd_slots` with `state=None` (a full sequence
+from zeros: training) take it; a call that carries a state in place
+refuses a gradient on CUDA.
+
 `plan` picks the kernel's path from the shapes and the dtype alone: the
 recurrence for sequences of up to `rec_max_l(N)` tokens (decode,
 verification, commits), the tensor-core chunk path above; the rows of
@@ -346,10 +354,10 @@ def launch_plan(x, dt, A, B, C, state_in, state_out, slot_idx, p: Plan):
     index outside a gather does."""
     global _FN, LAUNCHES
     dev = x.device
-    refuse_grad("SSD scan kernel", "the scan has no gradient on the card "
-                "yet (ROADMAP.md queue 1, item 13's remainder: SSM and "
-                "hybrid training waits for it; the CPU's plain scan "
-                "differentiates)", x, dt, A, B, C, state_in)
+    refuse_grad("SSD scan kernel", "a scan that carries a state in "
+                "place has no gradient (the reference never "
+                "differentiates one); a full sequence with state=None "
+                "differentiates through `scan`", x, dt, A, B, C, state_in)
     # (messages are built only when a check fails: this runs per call)
     _check(x.dim() == 4 and dt.dim() == 3 and B.dim() == 4
            and C.shape == B.shape, "x (b, L, H, P), dt (b, L, H), "
@@ -427,11 +435,21 @@ def plan_for(x, B) -> Plan:
     return plan(b, L, H, P, B.shape[2], B.shape[3], x.dtype)
 
 
+def _wants_grad(*tensors) -> bool:
+    """Grad mode is on and one of `tensors` (None allowed) requires a
+    gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def ssd(x, dt, A, B, C, chunk, initial_state=None):
     """(y, final_state) of the SSD scan; see the module docstring.
 
     CUDA tensors launch the Hopper kernel (or raise on what it does not
-    take); CPU tensors run `ssd_chunked` with chunk length `chunk`."""
+    take); CPU tensors run `ssd_chunked` with chunk length `chunk`. A
+    call that asks for a gradient goes through `scan`."""
+    if _wants_grad(x, dt, A, B, C, initial_state):
+        return scan(x, dt, A, B, C, chunk, initial_state)
     if x.device.type == "cuda":
         b, _, H, P = x.shape
         final = torch.empty((b, H, P, B.shape[-1]), dtype=torch.float32,
@@ -454,7 +472,13 @@ def ssd_slots(x, dt, A, B, C, chunk, state, slot_idx=None, write=True):
     kernel with a CUDA error, on the CPU the gather raises.
 
     CUDA tensors launch the Hopper kernel (or raise on what it does not
-    take); CPU tensors run `ssd_slots_plain` with chunk length `chunk`."""
+    take); CPU tensors run `ssd_slots_plain` with chunk length `chunk`.
+    With `state=None` (a full sequence from zeros, the training forward)
+    a call that asks for a gradient goes through `scan`; one that carries
+    a state refuses it on CUDA (the reference never differentiates a
+    carried state)."""
+    if state is None and _wants_grad(x, dt, A, B, C):
+        return scan(x, dt, A, B, C, chunk)[0]
     if x.device.type == "cuda":
         return launch_plan(x, dt, A, B, C, state,
                            state if write else None, slot_idx,
@@ -463,3 +487,155 @@ def ssd_slots(x, dt, A, B, C, chunk, state, slot_idx=None, write=True):
         return ssd_slots_plain(x, dt, A, B, C, chunk, state, slot_idx,
                                write)
     raise ValueError(f"SSD scan: unsupported device {x.device}")
+
+
+# =====================================================================
+# the gradient of the scan
+# =====================================================================
+
+def _chunks(t, nc, chunk):
+    """(b, Lp, ...) -> (b, nc, chunk, ...) in f32."""
+    return t.reshape(t.shape[0], nc, chunk, *t.shape[2:]).float()
+
+
+def ssd_grad(x, dt, A, B, C, chunk, initial_state, dy, dfinal):
+    """(dx, ddt, dA, dB, dC, dinit) of `ssd_chunked` given the gradients
+    dy (b, L, H, P) of y and dfinal (b, H, P, N) of the final state
+    (either None: zeros): the chunked scan's adjoint in tensor ops, f32,
+    chunk by chunk with the forward's `chunk`. dinit is None without an
+    initial state; each other gradient is in its input's dtype.
+
+    Per (b, h) and chunk, with a_j = dt_j A, cum its running sum in the
+    chunk, L_ij = exp(cum_i - cum_j) (i >= j), S_ij = (C_i . B_j) L_ij,
+    u_j = dt_j x_j, s_c the state before chunk c and G_c its gradient:
+    the states come from a forward loop, G_c = exp(cum_Q) G_{c+1} +
+    sum_i exp(cum_i) dy_i (x) C_i from a reverse one; then within each
+    chunk (G = G_{c+1})
+      du_j = sum_{i>=j} S_ij dy_i + exp(cum_Q - cum_j) G B_j,
+      dC_i = sum_{j<=i} L_ij (dy_i . u_j) B_j + exp(cum_i) s_c^T dy_i,
+      dB_j = sum_{i>=j} L_ij (dy_i . u_j) C_i + exp(cum_Q - cum_j) G^T u_j,
+    and the gradient of cum from every exp that reads it, summed back
+    over the chunk into a (da = reverse cumulative sum of dcum)."""
+    b, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    dev = x.device
+    chunk = min(chunk, L)
+    pad = (-L) % chunk
+    nc = (L + pad) // chunk
+    rep = H // G
+
+    def padded(t):
+        if t is None or not pad:
+            return t
+        return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                       + (0, pad))
+
+    xc = _chunks(padded(x), nc, chunk)                         # (b,c,Q,H,P)
+    dtc = _chunks(padded(dt), nc, chunk)                       # (b,c,Q,H)
+    Bh = _chunks(padded(B), nc, chunk).repeat_interleave(rep, dim=3)
+    Ch = _chunks(padded(C), nc, chunk).repeat_interleave(rep, dim=3)
+    dyc = (torch.zeros_like(xc) if dy is None
+           else _chunks(padded(dy), nc, chunk))
+    Af = A.float()
+    u = xc * dtc[..., None]
+    cum = torch.cumsum(dtc * Af, dim=2)                        # (b,c,Q,H)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (b,c,Q,Q,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=dev))
+    Lmat = torch.exp(seg.masked_fill(~causal[None, None, :, :, None],
+                                     float("-inf")))
+    del seg
+    S = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * Lmat
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)                # (b,c,Q,H)
+    in_decay = torch.exp(cum)
+    chunk_decay = in_decay[:, :, -1]                           # (b,c,H)
+
+    # the states before each chunk, as the forward makes them
+    contrib = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, to_end, u)
+    s = (torch.zeros((b, H, P, N), dtype=torch.float32, device=dev)
+         if initial_state is None else initial_state.float())
+    before = []
+    for c in range(nc):
+        before.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + contrib[:, c]
+    s_before = torch.stack(before, dim=1)                      # (b,c,H,P,N)
+    del contrib, before
+
+    # the reverse recurrence: the gradient of the state after each chunk
+    to_state = torch.einsum("bcqhp,bcqhn,bcqh->bchpn", dyc, Ch, in_decay)
+    g = (torch.zeros((b, H, P, N), dtype=torch.float32, device=dev)
+         if dfinal is None else dfinal.float())
+    after = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        after[c] = g
+        g = g * chunk_decay[:, c, :, None, None] + to_state[:, c]
+    g_after = torch.stack(after, dim=1)                        # (b,c,H,P,N)
+    del to_state, after
+
+    dyu = torch.einsum("bcihp,bcjhp->bcijh", dyc, u)           # dy_i . u_j
+    gB = torch.einsum("bchpn,bcjhn->bcjhp", g_after, Bh)       # G B_j
+    du = (torch.einsum("bcijh,bcihp->bcjhp", S, dyc)
+          + to_end[..., None] * gB)
+    M = dyu * Lmat
+    del Lmat
+    sdy = torch.einsum("bchpn,bcihp->bcihn", s_before, dyc)    # s_c^T dy_i
+    dC = (torch.einsum("bcijh,bcjhn->bcihn", M, Bh)
+          + in_decay[..., None] * sdy)
+    dB = (torch.einsum("bcijh,bcihn->bcjhn", M, Ch)
+          + to_end[..., None]
+          * torch.einsum("bchpn,bcjhp->bcjhn", g_after, u))
+    del M
+
+    W = dyu * S
+    del dyu, S
+    dcum = W.sum(dim=3) - W.sum(dim=2)
+    del W
+    dcum = dcum + in_decay * (sdy * Ch).sum(-1)
+    w = to_end * (u * gB).sum(-1)                              # (b,c,Q,H)
+    dcum = dcum - w
+    dcum[:, :, -1] += (w.sum(dim=2) + chunk_decay
+                       * (g_after * s_before).sum((-1, -2)))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+
+    ddt = Af * da + (xc * du).sum(-1)
+    dx = du * dtc[..., None]
+    dA = (dtc * da).sum((0, 1, 2))
+
+    def back(t, like):
+        t = t.reshape(b, nc * chunk, *t.shape[3:])[:, :L]
+        return t.to(like.dtype)
+
+    def groups(t, like):
+        return back(t.reshape(*t.shape[:3], G, rep, N).sum(4), like)
+
+    dinit = None if initial_state is None else g.to(initial_state.dtype)
+    return (back(dx, x), back(ddt, dt), dA.to(A.dtype), groups(dB, B),
+            groups(dC, C), dinit)
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The SSD scan with a gradient. The forward is the Hopper kernel on
+    CUDA tensors (`launch_plan`, the same launch as `ssd`: autograd runs
+    it with grad mode off) and `ssd_chunked` on CPU tensors; the backward
+    `ssd_grad`: tensor ops, the counterpart of the reference's autodiff
+    through its chunked scan (the TPU kernel had no backward)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk, initial_state):
+        y, final = ssd(x, dt, A, B, C, chunk, initial_state)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C, initial_state = ctx.saved_tensors
+        grads = ssd_grad(x, dt, A, B, C, ctx.chunk, initial_state, dy,
+                         dfinal)
+        return (*grads[:5], None, grads[5])
+
+
+def scan(x, dt, A, B, C, chunk, initial_state=None):
+    """(y, final_state) of the SSD scan, differentiable in every input
+    and the initial state (`SSDScanFunction`); the arguments are `ssd`'s."""
+    return SSDScanFunction.apply(x, dt, A, B, C, chunk, initial_state)

@@ -3,9 +3,9 @@ fine-tuning and target pretraining on the synthetic multi-domain corpus.
 
 A step differentiates `models.model.lm_loss`; on CUDA every attention
 forward runs on the hand-written flash-attention kernel, with its
-gradient from `kernels.flash_attention.ops.attention_grad`. SSM and
-hybrid models train on the CPU only: the SSD scan kernel has no gradient
-yet and refuses a call that asks for one.
+gradient from `kernels.flash_attention.ops.attention_grad`, and every
+SSD scan on the SSD scan kernel, with its gradient from
+`kernels.ssd_scan.ops.ssd_grad`.
 
 Usage (runs on CUDA unless `--device cpu`):
   PYTHONPATH=src python -m repro_torch.launch.train --steps 200 --device cpu

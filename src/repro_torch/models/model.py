@@ -154,7 +154,8 @@ def effective_window(cfg: ModelConfig) -> int:
 def _generator(seed_or_gen, device) -> torch.Generator:
     if isinstance(seed_or_gen, torch.Generator):
         return seed_or_gen
-    gen = torch.Generator(device=device)
+    # (a meta tensor draws nothing: any generator will do)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(int(seed_or_gen))
     return gen
 

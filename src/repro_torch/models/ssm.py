@@ -3,9 +3,11 @@
 The scan goes through `kernels.ssd_scan.ops.ssd_slots`: on CUDA tensors
 the hand-written Hopper kernel, for every sequence length (decode, chain
 verification, commit and prefill chunks), reading and writing the
-layer's recurrent state in place; on CPU tensors its plain version. The
-plain chunked scan `ssd_chunked` is re-exported here; `ssd_reference`
-(the naive recurrence over time) is the oracle of the tests.
+layer's recurrent state in place; on CPU tensors its plain version. A
+self-contained call under autograd (training) differentiates through
+`ssd_ops.scan`. The plain chunked scan `ssd_chunked` is re-exported
+here; `ssd_reference` (the naive recurrence over time) is the oracle of
+the tests.
 
 SSM state does not page: the recurrent state (`ssm`, (B, H, P, N)), the
 conv tail (`conv`, (B, d_conv - 1, conv_dim)) and `pos` are O(1) per

@@ -1819,9 +1819,9 @@ def test_lm_loss_grads_through_kernel1(cuda):
     tokens = torch.randint(0, 96, (2, 40), device=cuda,
                            generator=torch.Generator(device=cuda)
                            .manual_seed(1))
-    loss_k, loss_p, err, n = smoke.grad_check(torch, M, attn, fa, cfg,
-                                              params, tokens)
-    assert n == cfg.n_layers
+    loss_k, loss_p, err, n, n_ssd = smoke.grad_check(torch, M, attn, fa,
+                                                     cfg, params, tokens)
+    assert (n, n_ssd) == (cfg.n_layers, 0)
     assert abs(loss_k - loss_p) <= 1e-5 * loss_p
     metric, tol = smoke.GRAD_TOL["float32"]
     assert err[metric] <= tol
@@ -1832,7 +1832,9 @@ def test_wrappers_refuse_a_gradient(cuda):
     """On CUDA tensors no wrapper returns an output without the gradient
     an input asks for: each raises (naming what has no gradient), and
     launches nothing; under torch.no_grad, or with inputs that ask for
-    none, each launches as before."""
+    none, each launches as before. The SSD scan refuses only a call that
+    carries a state in place; with state=None it differentiates through
+    `scan`, its forward one launch of the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     B, T, H, G, D, S, ps = 2, 3, 2, 2, 64, 64, 16
     q = torch.randn((B, T, H, G, D), generator=gen, device=cuda)
@@ -1849,15 +1851,16 @@ def test_wrappers_refuse_a_gradient(cuda):
     w8 = torch.randint(-127, 128, (96, 40), dtype=torch.int8, device=cuda,
                        generator=gen)
     sc = torch.rand((1, 40), generator=gen, device=cuda)
-    sx, dt, A, Bm, Cm, _ = _ssd_inputs(gen, 1, 8, 4, 16, 1, 16,
-                                       torch.float32, cuda)
+    sx, dt, A, Bm, Cm, s0 = _ssd_inputs(gen, 1, 8, 4, 16, 1, 16,
+                                        torch.float32, cuda)
     calls = {
         "flash-attention": (fa, lambda q: fa.attend_partial(
             q, k, k, qpos, kpos, scale=D ** -0.5)),
         "paged-attention": (pa, lambda q: pa.paged_attend_partial(
             q, kp, kp, qpos, pos, tbl, scale=D ** -0.5)),
         "int8 GEMV": (ig, lambda x: ig.int8_gemv(x, w8, sc)),
-        "SSD scan": (ssd, lambda x: ssd.ssd(x, dt, A, Bm, Cm, 16)),
+        "SSD scan": (ssd, lambda x: ssd.ssd_slots(x, dt, A, Bm, Cm, 16,
+                                                  s0.clone())),
     }
     inputs = {"flash-attention": q, "paged-attention": q, "int8 GEMV": x,
               "SSD scan": sx}
@@ -1868,12 +1871,62 @@ def test_wrappers_refuse_a_gradient(cuda):
             fn(t)
         assert name in str(e.value)
         if name == "SSD scan":
-            assert "item 13" in str(e.value)
+            assert "carries a state" in str(e.value)
         assert mod.LAUNCHES == before
         with torch.no_grad():
             fn(t)
         fn(t.detach())
         assert mod.LAUNCHES == before + 2
+    t = sx.clone().requires_grad_()
+    before = ssd.LAUNCHES
+    y, final = ssd.ssd(t, dt, A, Bm, Cm, 16)
+    y2 = ssd.ssd_slots(t, dt, A, Bm, Cm, 16, None)
+    assert ssd.LAUNCHES == before + 2
+    assert y.requires_grad and final.requires_grad and y2.requires_grad
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 300, 24, 64, 1, 128),
+                                   (2, 300, 128, 64, 1, 16)])
+def test_ssd_scan_gradient_on_the_kernel(cuda, shape, dtype):
+    """`SSDScanFunction` at mamba2-130m's and jamba's SSD widths (300
+    tokens: the chunk path, a ragged last chunk of 128), f32 and bf16:
+    its forward is one kernel launch whose y and final state are `ssd`'s
+    bits; its gradients are `ssd_grad`'s bits and within 2e-4 of each
+    leaf's largest value of autograd through the plain version (bf16 x,
+    B and C: plus one bf16 step of the element, each side rounding its
+    f32 gradient once)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ins = list(_ssd_inputs(gen, *shape, dtype, cuda))
+    dy = torch.randn((shape[0], shape[1], shape[2], shape[3]),
+                     generator=gen, device=cuda).to(dtype)
+    dfinal = torch.randn_like(ins[5])
+    chunk = 128
+    with torch.no_grad():
+        y_k, f_k = ssd.ssd(*ins[:5], chunk, ins[5])
+    leaves = [t.clone().requires_grad_() for t in ins]
+    before = ssd.LAUNCHES
+    y, final = ssd.scan(*leaves[:5], chunk, leaves[5])
+    assert ssd.LAUNCHES == before + 1
+    assert torch.equal(y, y_k) and torch.equal(final, f_k)
+    got = torch.autograd.grad((y.float() * dy.float()).sum()
+                              + (final * dfinal).sum(), leaves)
+    want = ssd.ssd_grad(*ins[:5], chunk, ins[5], dy, dfinal)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    plain = [t.clone().requires_grad_() for t in ins]
+    yp, fp = ssd.ssd_chunked(*plain[:5], chunk, plain[5])
+    ref = torch.autograd.grad((yp.float() * dy.float()).sum()
+                              + (fp * dfinal).sum(), plain)
+    assert ssd.LAUNCHES == before + 1
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.float(), r.float()
+        err = (g - r).abs()
+        if dtype == torch.bfloat16 and i in (0, 3, 4):
+            err = err - r.abs() * 2.0 ** -7
+        assert float(err.max()) <= 2e-4 * float(r.abs().max()), i
 
 
 @pytest.mark.gpu

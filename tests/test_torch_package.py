@@ -36,7 +36,8 @@ COPIED = ["config", "configs.drafters", "configs.qwen1_5_4b",
           "core.latency_model", "core.routing", "core.scheduler",
           "core.admission", "obs.metrics", "obs.trace", "obs.export",
           "obs.summarize", "data.synthetic", "serving.events",
-          "serving.cluster", "serving.pipeline", "serving.async_loop"]
+          "serving.cluster", "serving.pipeline", "serving.async_loop",
+          "analysis.analytic"]
 
 
 def _imported_roots(path: Path):

@@ -105,8 +105,8 @@ def test_grad_check_rehearsed_on_the_cpu(arch, one_torch_thread):
 
     fa.attention = counted
     try:
-        loss_k, loss_p, err, _ = smoke.grad_check(torch, M, attn, fa, cfg,
-                                                  params, tokens, fe)
+        loss_k, loss_p, err, _, n_ssd = smoke.grad_check(
+            torch, M, attn, fa, cfg, params, tokens, fe)
     finally:
         fa.attention = orig
     from repro_torch.optim.optimizers import tree_leaves
@@ -115,7 +115,7 @@ def test_grad_check_rehearsed_on_the_cpu(arch, one_torch_thread):
     # encoder-decoder, the MTP layer, the encoder's layers
     reads = cfg.n_layers * (1 + cfg.is_encdec) + cfg.mtp + \
         cfg.encoder_layers
-    assert len(calls) == reads
+    assert len(calls) == reads and n_ssd == 0
     assert loss_k == loss_p and err["max"] < 1e-5 and err["l2"] < 1e-5
     assert not any(t.requires_grad for t in tree_leaves(params))
     assert smoke.trees_equal(torch, params, params)
@@ -155,6 +155,46 @@ def test_training_phase_rehearsed_on_the_cpu(one_torch_thread):
         metric, tol = smoke.GRAD_TOL[dtype]
         assert check["grad_rel_err"][metric] <= tol
     assert out["flops_per_step"] == 6 * out["n_params"] * 2 * 17
+
+
+def test_ssm_training_phases_rehearsed_on_the_cpu(one_torch_thread,
+                                                  monkeypatch):
+    """Phases R and R-hybrid at tiny widths on the CPU: an SSM model
+    fine-tuned (its scans through `SSDScanFunction`, whose backward is
+    `ssd_grad`, against the plain oracle's autograd through
+    `ssd_chunked`), and a hybrid model's gradient checks; the oracle
+    restores the scan's entry when it ends."""
+    from repro_torch.config import ModelConfig, SSMConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as sd
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    grads = []
+    ssd_grad = sd.ssd_grad
+    monkeypatch.setattr(sd, "ssd_grad",
+                        lambda *a: grads.append(1) or ssd_grad(*a))
+    # (a vocabulary above the corpus's, as mamba2-130m's 50280 is on the
+    # card: the first steps learn which ids occur)
+    common = dict(n_layers=2, d_model=32, n_heads=4, n_kv_heads=2,
+                  head_dim=16, d_ff=64, vocab=4 * smoke.TRAIN_VOCAB,
+                  tie_embeddings=True,
+                  ssm=SSMConfig(d_state=16, head_dim=16, chunk_size=8))
+    ssm = ModelConfig(name="t-ssm", family="ssm", **common)
+    out = smoke.training_phase(torch, M, attn, fa, ssm, device="cpu",
+                               batch=2, seq=16, steps=4, label="phase R")
+    assert sd.ssd_slots.__module__ == sd.__name__
+    assert out["losses"][-1] < out["losses"][0]
+    # two gradient checks and four steps, each one scan a layer
+    assert len(grads) == 6 * ssm.n_layers
+    hybrid = ModelConfig(name="t-hybrid", family="hybrid",
+                         hybrid_attn_period=2, hybrid_attn_offset=1,
+                         **common)
+    assert smoke.layer_counts(hybrid) == {"attn": 1, "ssm": 1}
+    out = smoke.hybrid_grad_phase(torch, M, attn, fa, hybrid,
+                                  device="cpu", batch=2, seq=16)
+    for dtype, check in out["grad_check"].items():
+        metric, tol = smoke.GRAD_TOL[dtype]
+        assert check["grad_rel_err"][metric] <= tol
 
 
 def _ev(name, thread, start, end, kernels=(), dev=DeviceType.CPU):
