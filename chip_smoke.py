@@ -26,8 +26,9 @@ wrappers), then serves the CoSine path end to end through
   phase A  qwen1.5-4b target + two qwen2-0.5b drafters, full width,
            random f32 weights from a seed, max_len 1024, 4 requests
            (prompts of 64..600 tokens) of 32 new tokens each;
-  phase B  the same target with two "perfect" drafters that share its
-           weights (mean acceptance must exceed 1);
+  phase B  the target's first 8 layers (`B_LAYERS`) with two "perfect"
+           drafters that share its weights (mean acceptance must
+           exceed 1);
   phase C  phase A on the paged KV pool (page_size 64, a pool of 16
            pages per model that must grow): every pool read goes through
            the paged-attention kernel, and the committed streams equal
@@ -35,8 +36,9 @@ wrappers), then serves the CoSine path end to end through
   phase D  phase A with drafter 0 as int8 weights beside a
            full-precision drafter 1: every quantized product goes
            through the int8 GEMV kernel (launches printed by row count);
-  phase E  a mamba2-130m target (24 SSD layers, full width, random f32
-           weights, bf16 activations) with two mamba2-130m drafters, one
+  phase E  a mamba2-130m target (full width, cut to 8 of its 24 SSD
+           layers, `E_LAYERS`; random f32 weights, bf16 activations)
+           with two such mamba2-130m drafters, one
            sharing its weights, on the resident pool; chain-only
            verification; every SSM layer of every forward goes through
            the SSD scan kernel (launches counted by form: decode, the
@@ -60,21 +62,43 @@ wrappers), then serves the CoSine path end to end through
            few of phase H's iterations (device busy share, top device
            operations, the longest device-idle gaps with what each host
            thread was doing);
+  phases T-ar, T-vanilla, T-specinfer, T-pipeinfer, T-ablate (phase A's
+           models, prompts and references) the paper's baselines and the
+           ablation switches on the simulated backend: `ar` (no drafter
+           forward; the target's forwards are its iterations and prefill
+           writes), `vanilla` (drafter 0 alone decodes, chain trees),
+           `specinfer` (both drafters draft every request into one merged
+           tree), `pipeinfer` (the pipelined executor; draft-ahead
+           outcomes printed) and `cosine` with routing, fusion and
+           sub-batch drafting off and the burst prefill on, one drafter
+           a request (one masked prefill write for the burst, every
+           drafter decoding every request);
+  phases H-pipeinfer, H-paged, H-int8  the wall-clock backend serving
+           `pipeinfer` (`overlap_frac` >= 0.5), phase H on the paged pool
+           (streams equal phase H's; pages held and pool growths
+           printed) and phase H with phase D's drafters (streams equal
+           phase H's where phase D's equal A's; int8 launches by row
+           count), each held to phase H's contract (`check_async_run`)
+           and compared with its simulated twin (C, D: where the streams
+           differ, the first token and the reference's gap there);
   phase I  phase E on the wall-clock backend (the target's SSM state
            written in place on the server's stream);
-  phase K  phase A with int8 KV caches (`kv_dtype="int8"`) for the target
-           and both drafters: every cache read, snapshots included, goes
+  phase K  phase A's models cut to their first 8 and 4 layers
+           (`K_LAYERS`) with int8 KV caches (`kv_dtype="int8"`) for the
+           target and both drafters: every cache read, snapshots
+           included, goes
            through kernel 1's int8 K/V form (only verification's fresh
            segment, unquantized as in the reference, reads bf16 K/V);
   phase K-paged  phase K on the paged pool: every pool read through the
            paged kernel's int8 form, and the committed streams equal
            phase K's; then a `torch.profiler` window over 5 of phase K's
            iterations (the int8 forms' share of the device's busy time);
-  phase J  a qwen2-moe-a2.7b target at full width (24 layers, d_model
-           2048, MHA 16 x 128 with QKV bias, 60 routed experts top-4 of
-           width 1408 and a shared expert of 5632 in every layer, vocab
-           151936; ~57 GB of random f32 weights) with two qwen2-0.5b
-           drafters: every MoE layer of every forward counted with its
+  phase J  a qwen2-moe-a2.7b target at full width (d_model 2048, MHA
+           16 x 128 with QKV bias, 60 routed experts top-4 of width 1408
+           and a shared expert of 5632 in every layer, vocab 151936), cut
+           to 4 of its 24 layers (`J_LAYERS`; random f32 weights), with
+           two qwen2-0.5b drafters cut to 4 of their 24 layers: every
+           MoE layer of every forward counted with its
            one host read of the group sizes, the host wall time per MoE
            layer, and the router top-k sets that differ between a
            one-token decode and a batched prefill on the committed prefix;
@@ -96,17 +120,19 @@ wrappers), then serves the CoSine path end to end through
            L's iterations (the latent kernels' and the MoE layer's share
            of the device's busy time);
   phase M  (after L's weights are released) an h2o-danube3-4b target at
-           full width and depth (24 layers, d_model 3840, GQA 32/8 of
-           head width 120, SWA 4096; ~16 GB of random f32 weights) with
+           full width cut to 8 of its 24 layers (`M_LAYERS`; d_model
+           3840, GQA 32/8 of head width 120, SWA 4096; random f32
+           weights) with
            two llama-68m drafters (seeds 1 and 2): every cache read of
            the target on the kernels' (120, 120) instantiation;
   phase M-paged  phase M on the paged pool: streams equal phase M's;
   phase M-int8  phase M with int8 KV caches for the target and both
            drafters (resident): every D 120 cache read of the target on
            the kernels' int8 form, streams under the tie rule;
-  phase N  llama-3.2-vision-11b at full width and depth (40 layers,
-           d_model 4096, GQA 32/8 of 128, cross-attention layers 3, 8,
-           ..., 38 over 1601 frontend rows; ~41 GB of f32 weights): first
+  phase N  llama-3.2-vision-11b at full width cut to 10 of its 40 layers
+           (`N_LAYERS`; d_model 4096, GQA 32/8 of 128, cross-attention
+           layers 3 and 8 over 1601 frontend rows; random f32 weights):
+           first
            the image check (`image_check`: a seeded (4, 1601, 4096)
            frontend prefilled with the prompts, 16 batched greedy decodes
            reading the cross rows on kernel 1's non-causal form, held
@@ -199,6 +225,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import gc
 import json
 import subprocess
@@ -264,6 +291,24 @@ MAX_LEN = 1024
 NEW_TOKENS = 32
 PROMPT_LENS = (64, 200, 350, 600)
 PAGE_SIZE = 64
+# depth cuts of earlier phases, each model's first layers at full width,
+# which keep the whole script inside its time limit: every serving phase
+# is host-bound, so its seconds follow the layers it runs. Each cut model is a stack of one
+# repeated block (qwen2-moe-a2.7b: one MoE block; mamba2-130m: one SSD
+# block; llama-3.2-vision-11b: the period of 5 with its cross layer at 3,
+# so 10 layers keep cross layers 3 and 8), so every structure a phase
+# exercises stays. Phases A, C, D, H, H-serial and the baselines after
+# them keep qwen1.5-4b's 40 layers and the drafters' 24.
+B_LAYERS = 8        # phase B: qwen1.5-4b target = its perfect drafters
+K_LAYERS = (8, 4)   # phases K, K-paged: qwen1.5-4b target, qwen2-0.5b drafters
+E_LAYERS = 8        # phases E, I: mamba2-130m target and drafters
+J_LAYERS = (4, 4)   # phases J, J-f32: qwen2-moe-a2.7b, qwen2-0.5b drafters
+M_LAYERS = 8        # phases M, M-paged, M-int8: h2o-danube3-4b target
+N_LAYERS = 10       # phase N: llama-3.2-vision-11b target = its drafters
+# a traceback of every thread on standard error, and exit, this many
+# seconds into a run that has not ended: just before an outside limit of
+# 1200 s (which counts the interpreter's start too) stops it without one
+WATCHDOG_S = 1180
 POOL_PAGES = 16
 KERNEL_SOURCES = {
     "flash_attention_partial": (
@@ -322,6 +367,13 @@ KERNEL_SOURCES = {
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def progress(msg: str) -> None:
+    """A line on standard output and on standard error: how far a run
+    got shows in the end of either stream."""
+    print(msg, flush=True)
+    print(msg, file=sys.stderr, flush=True)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1778,11 +1830,12 @@ class PathCounters:
     kernel's launch counter against them; also counts any call of a
     plain version (there must be none). Every count is taken under one
     lock: on the async backend two threads run forwards at once. It also
-    records the CUDA stream each thread ran its forwards on and counts
-    calls of `torch.cuda.synchronize` (a device-wide wait that would
-    serialize the two threads)."""
+    counts the forwards of each params tree, records the CUDA stream each
+    thread ran its forwards on (`cuda=False`: none, a CPU rehearsal) and
+    counts calls of `torch.cuda.synchronize` (a device-wide wait that
+    would serialize the two threads)."""
 
-    def __init__(self):
+    def __init__(self, cuda: bool = True):
         import threading
 
         import torch
@@ -1823,6 +1876,9 @@ class PathCounters:
         self.int8_rows = {}
         self.int8_per_forward = {}
         self.forwards = 0
+        # forwards by params tree (one a model)
+        self.forwards_by_params = {}
+        self._cuda = cuda
         self.ssm_layer_calls = 0
         self.attn_layer_calls = 0
         self.snapshots_layers = 0
@@ -1922,10 +1978,13 @@ class PathCounters:
             n_moe = sum("router" in layer.get("ffn", {})
                         for layer in params["layers"])
             n_cross = sum("cross" in layer for layer in params["layers"])
-            where = (self._thread().name, cuda.current_stream().cuda_stream)
+            where = (self._thread().name, cuda.current_stream().cuda_stream
+                     if self._cuda else None)
             with lock:
                 self.int8_products += n_int8
                 self.forwards += 1
+                self.forwards_by_params[id(params)] = \
+                    self.forwards_by_params.get(id(params), 0) + 1
                 self.ssm_layer_calls += n_ssm
                 self.attn_layer_calls += len(params["layers"]) - n_ssm
                 self.moe_layer_calls += n_moe
@@ -2139,74 +2198,75 @@ class PathCounters:
                  "read went through a gathered copy)")
 
 
+def first_layers(cfg, params, n: int):
+    """`cfg` and `params` cut to their first `n` layers (an earlier
+    phase's depth cut): the widths, the kept layers' weights and every
+    other leaf as they were."""
+    return (cfg.with_overrides(n_layers=n),
+            dict(params, layers=params["layers"][:n]))
+
+
 def moe_layers(cfg) -> int:
     """MoE layers of a config's plan."""
     return sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
 
 
-def greedy_reference(torch, M, cfg, params, prompt, n):
-    """Port's own greedy decode; returns tokens and top-1/top-2 gaps."""
-    cache = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device="cuda")
+def greedy_reference(torch, M, cfg, params, prompt, n, device="cuda"):
+    """Port's own greedy decode; returns tokens, top-1/top-2 gaps and the
+    logit row each token was picked from (the prompt's prefill, then one
+    decode step a token: the decode path of `path_noise`)."""
+    cache = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device=device)
     lg, cache, _ = M.prefill(params, cfg, torch.tensor([prompt],
-                                                       device="cuda"), cache)
+                                                       device=device), cache)
     last = lg[0, -1, : cfg.vocab]
-    toks, gaps = [], []
-    for _ in range(n):
+    toks, gaps, rows = [], [], []
+    for i in range(n):
+        rows.append(last)
         top2 = torch.topk(last, 2).values
         gaps.append(float(top2[0] - top2[1]))
         t = int(torch.argmax(last))
         toks.append(t)
-        lg, cache, _ = M.decode_step(params, cfg,
-                                     torch.tensor([[t]], device="cuda"), cache)
-        last = lg[0, 0, : cfg.vocab]
-    return toks, gaps
+        if i + 1 < n:
+            lg, cache, _ = M.decode_step(
+                params, cfg, torch.tensor([[t]], device=device), cache)
+            last = lg[0, 0, : cfg.vocab]
+    return toks, gaps, rows
 
 
-def path_noise(torch, M, cfg, params, prompt, toks):
+def path_noise(torch, M, cfg, params, prompt, toks, rows, device="cuda"):
     """Max |logit| difference between two exact-arithmetic-equal paths
-    of the port: the greedy decode steps and one prefill over the whole
-    sequence (different batch shapes, cuBLAS algorithms and bf16 residual
-    roundings). Sets the scale of an allowed near-tie divergence."""
-    seq = list(prompt) + toks
-    c1 = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device="cuda")
-    lg_full, _, _ = M.prefill(params, cfg, torch.tensor([seq], device="cuda"),
-                              c1)
-    c2 = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device="cuda")
-    lg, c2, _ = M.prefill(params, cfg, torch.tensor([prompt], device="cuda"),
-                          c2)
-    diffs = [float((lg[0, -1, : cfg.vocab]
-                    - lg_full[0, len(prompt) - 1, : cfg.vocab]).abs().max())]
-    for i, t in enumerate(toks[:-1]):
-        lg, c2, _ = M.decode_step(params, cfg,
-                                  torch.tensor([[t]], device="cuda"), c2)
-        diffs.append(float((lg[0, 0, : cfg.vocab]
-                            - lg_full[0, len(prompt) + i, : cfg.vocab]
-                            ).abs().max()))
-    return max(diffs)
+    of the port: the greedy decode's logit rows (`rows`, as
+    `greedy_reference` returns them for `toks`) and one prefill over the
+    whole sequence (different batch shapes, cuBLAS algorithms and bf16
+    residual roundings). Sets the scale of an allowed near-tie
+    divergence."""
+    seq = list(prompt) + list(toks)
+    c = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device=device)
+    lg_full, _, _ = M.prefill(params, cfg, torch.tensor([seq], device=device),
+                              c)
+    P = len(prompt)
+    full = lg_full[0, P - 1: P - 1 + len(toks), : cfg.vocab]
+    return float((torch.stack(rows) - full).abs().max())
 
 
-def teacher_forced_gaps(torch, M, cfg, params, prompt, toks):
+def teacher_forced_gaps(torch, M, cfg, params, prompt, toks, device="cuda"):
     """For each committed token, how far its logit falls below the top
     logit of the target given the committed prefix (one prefill over
     prompt + toks); 0 where the token is the argmax."""
-    c = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device="cuda")
+    c = M.init_cache(cfg, 1, MAX_LEN, dtype=torch.float32, device=device)
     lg, _, _ = M.prefill(params, cfg,
                          torch.tensor([list(prompt) + list(toks)],
-                                      device="cuda"), c)
+                                      device=device), c)
     rows = lg[0, len(prompt) - 1: len(prompt) - 1 + len(toks), : cfg.vocab]
-    picked = rows.gather(1, torch.tensor(toks, device="cuda")[:, None])[:, 0]
+    picked = rows.gather(1, torch.tensor(toks, device=device)[:, None])[:, 0]
     return (rows.max(dim=1).values - picked).tolist()
 
 
-def router_flips(torch, M, cfg, params, prompt, toks):
-    """`path_noise` on a MoE target, recording each MoE layer's top-k
-    expert sets on both paths (one prefill over the whole sequence; a
-    prefill of the prompt, then one-token decodes). Returns (noise,
-    (layer, token) pairs whose sets differ, pairs compared): the routing
-    near-ties that bf16 rounding flips between batched and single-token
-    forwards."""
+@contextlib.contextmanager
+def route_records(records):
+    """Append each MoE layer's sorted top-k expert sets (on the host) to
+    `records` while the block runs."""
     from repro_torch.models import moe as moe_mod
-    records = []
     orig = moe_mod.route_topk
 
     def record(logits, k):
@@ -2216,35 +2276,52 @@ def router_flips(torch, M, cfg, params, prompt, toks):
 
     moe_mod.route_topk = record
     try:
-        noise = path_noise(torch, M, cfg, params, prompt, toks)
+        yield records
     finally:
         moe_mod.route_topk = orig
-    L, P, n = moe_layers(cfg), len(prompt), len(toks)
-    full, pre, steps = records[:L], records[L: 2 * L], records[2 * L:]
-    if len(steps) != (n - 1) * L:
-        fail(f"router records: {len(records)} for {L} layers, {n} tokens")
+
+
+def router_flips(cfg, P, n, decode, full):
+    """The (MoE layer, token) pairs whose top-k expert sets differ between
+    the two paths of `path_noise` on the committed prefix: `decode` the
+    records of `greedy_reference` (a prefill of the prompt's `P` tokens,
+    then `n` - 1 one-token decodes), `full` those of the one prefill over
+    the whole sequence. Returns (flips, pairs compared): the routing
+    near-ties that bf16 rounding flips between batched and single-token
+    forwards."""
+    L = moe_layers(cfg)
+    if len(full) != L or len(decode) != n * L:
+        fail(f"router records: {len(decode)} + {len(full)} for {L} layers, "
+             f"{n} tokens")
+    pre, steps = decode[:L], decode[L:]
     flips = 0
     for layer in range(L):
         f = full[layer]
         flips += int((f[:P] != pre[layer]).any(-1).sum())
         flips += sum(int((f[P + i] != steps[i * L + layer][0]).any())
                      for i in range(n - 1))
-    return noise, flips, L * (P + n - 1)
+    return flips, L * (P + n - 1)
 
 
-def target_references(torch, M, cfg, params, prompts):
+def target_references(torch, M, cfg, params, prompts, device="cuda"):
     """Greedy reference, top-1/top-2 gaps and path noise of each prompt
     (shared by every phase: all serve the same target and prompts); on a
     MoE target also the router top-k sets that differ between the two
     paths of `path_noise` on the committed prefix."""
     out = []
     for p in prompts:
-        ref, gaps = greedy_reference(torch, M, cfg, params, p, NEW_TOKENS)
+        decode, full = [], []    # stay empty without MoE layers
+        with route_records(decode):
+            ref, gaps, rows = greedy_reference(torch, M, cfg, params, p,
+                                               NEW_TOKENS, device=device)
+        with route_records(full):
+            noise = path_noise(torch, M, cfg, params, p, ref, rows,
+                               device=device)
+        del rows
         if cfg.moe is None:
-            out.append(dict(ref=ref, gaps=gaps,
-                            noise=path_noise(torch, M, cfg, params, p, ref)))
+            out.append(dict(ref=ref, gaps=gaps, noise=noise))
             continue
-        noise, flips, pairs = router_flips(torch, M, cfg, params, p, ref)
+        flips, pairs = router_flips(cfg, len(p), len(ref), decode, full)
         out.append(dict(ref=ref, gaps=gaps, noise=noise, router_flips=flips,
                         router_pairs=pairs))
         print(f"{cfg.name} prompt {len(p)}: router top-k sets differ "
@@ -2254,44 +2331,67 @@ def target_references(torch, M, cfg, params, prompts):
     return out
 
 
-def make_engine(target, drafters, paged=False, backend=None):
-    """The serving phases' engine: `cosine`, two drafters a request, tree
-    width 2, on the card."""
+def make_engine(target, drafters, paged=False, backend=None,
+                strategy="cosine", overrides=None, device="cuda"):
+    """The serving phases' engine: `strategy` (`cosine` unless a phase
+    serves a baseline), two drafters a request, tree width 2, with
+    `overrides` of any other `CoSineConfig` field, on the card."""
     from repro_torch.config import CoSineConfig
     from repro_torch.serving.engine import SpeculativeEngine
 
-    cos = CoSineConfig(n_drafters=len(drafters), drafters_per_request=2,
-                       tree_width=2, paged_pool=paged, page_size=PAGE_SIZE,
-                       pool_pages=POOL_PAGES)
-    return SpeculativeEngine(target, drafters, cos, strategy="cosine",
+    cos = CoSineConfig(**{**dict(
+        n_drafters=len(drafters), drafters_per_request=2, tree_width=2,
+        paged_pool=paged, page_size=PAGE_SIZE, pool_pages=POOL_PAGES),
+        **(overrides or {})})
+    return SpeculativeEngine(target, drafters, cos, strategy=strategy,
                              max_len=MAX_LEN, seed=0, backend=backend,
-                             device="cuda")
+                             device=device)
 
 
 def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
                 paged=False, int8=False, observe=None, attention=True,
                 ssm=False, backend=None, overlap=True, int8_kv=False,
-                moe=False, mla=False, d120=False, domains=None):
+                moe=False, mla=False, d120=False, domains=None,
+                strategy="cosine", overrides=None, device="cuda"):
     """Serve `prompts` through the engine and check the run; returns
     (summary, committed streams, launches by kernel). With
     `backend="async"` the run is also held to the wall-clock backend's
     contract (`check_async_run`) and its wall-clock quantities join the
     summary; `overlap=False` serves the serial twin (no draft-ahead).
     `domains` (one a prompt) are the requests' domain hints for the
-    router; the summary then gives the acceptance of each domain."""
+    router; the summary then gives the acceptance of each domain.
+    `strategy` and `overrides` (of `CoSineConfig` fields) select a
+    baseline or an ablation (`make_engine`); the summary counts the
+    forwards of each model, each drafter's decode steps and rows, and
+    each runner's prefill writes. `device="cpu"` rehearses a phase
+    without the card (no stream check, no device memory)."""
     from repro_torch.models import model as M
 
+    on_cuda = device != "cpu"
+    sync = torch.cuda.synchronize if on_cuda else (lambda: None)
     t0 = time.perf_counter()
-    eng = make_engine(target, drafters, paged=paged, backend=backend)
+    eng = make_engine(target, drafters, paged=paged, backend=backend,
+                      strategy=strategy, overrides=overrides, device=device)
     if backend == "async":
         eng.executor.overlap = overlap
-    torch.cuda.synchronize()
+    sync()
     t_setup = time.perf_counter() - t0
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, domain=d)
             for p, d in zip(prompts, domains or [None] * len(prompts))]
     extra = observe(eng) if observe is not None else None
-    torch.cuda.reset_peak_memory_stats()
-    with PathCounters() as calls:
+    decodes, decode_rows = [0] * len(drafters), [0] * len(drafters)
+    draft_decode = eng.backend.draft_decode
+
+    def counted_decode(di, rids, *a, **kw):
+        # drafting runs on the engine thread alone
+        decodes[di] += 1
+        decode_rows[di] += len(rids)
+        return draft_decode(di, rids, *a, **kw)
+
+    eng.backend.draft_decode = counted_decode
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with PathCounters(cuda=on_cuda) as calls:
         t0 = time.perf_counter()
         try:
             stats = eng.run()
@@ -2299,14 +2399,28 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
             # the server is joined before anything else runs on the card
             eng.backend.shutdown()
         syncs_in_run = calls.device_syncs
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    calls.check(label, paged, int8, attention=attention, ssm=ssm,
-                int8_kv=int8_kv, moe=moe, mla=mla, d120=d120)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_cuda else None
+    if on_cuda:
+        # (on the CPU every wrapper takes its plain version: nothing to
+        # hold the launch counters to)
+        calls.check(label, paged, int8, attention=attention, ssm=ssm,
+                    int8_kv=int8_kv, moe=moe, mla=mla, d120=d120)
+    runners = {"target": eng.target, **{f"drafter {i}": d for i, d in
+                                        enumerate(eng.drafters)}}
+    # forwards of each model, where no two share a params tree
+    ids = {id(r.params): name for name, r in runners.items()}
+    by_model = None
+    if len(ids) == len(runners):
+        by_model = {name: calls.forwards_by_params.get(id(r.params), 0)
+                    for name, r in runners.items()}
+        if sum(by_model.values()) != calls.forwards:
+            fail(f"{label}: forwards by model {by_model} for "
+                 f"{calls.forwards} forwards")
     if backend == "async":
         wallclock = check_async_run(torch, label, eng, stats, calls,
-                                    syncs_in_run, overlap)
+                                    syncs_in_run, overlap, cuda=on_cuda)
     if stats.total_committed != len(prompts) * NEW_TOKENS:
         fail(f"{label}: committed {stats.total_committed} tokens, expected "
              f"{len(prompts) * NEW_TOKENS}")
@@ -2340,7 +2454,8 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         # past a divergence the streams no longer share a context, so every
         # committed token is also held against the target given the
         # committed prefix itself: it must be the argmax or a near-tie
-        tf = teacher_forced_gaps(torch, M, tcfg, tparams, p, gen)
+        tf = teacher_forced_gaps(torch, M, tcfg, tparams, p, gen,
+                                 device=device)
         n_argmax = sum(1 for g in tf if g == 0.0)
         if max(tf) >= tie_tol:
             fail(f"{label}: request {r.rid} committed token "
@@ -2390,7 +2505,21 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
         moe_forwards=calls.moe_layer_calls // max(1, moe_layers(target[0])),
         moe_host_us_per_layer=(calls.moe_host_s / calls.moe_calls * 1e6
                                if calls.moe_calls else None),
-        setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results)
+        setup_s=t_setup, peak_mem_gb=peak_gb, requests_detail=results,
+        strategy=strategy, overrides=overrides or {},
+        forwards_by_model=by_model, draft_decodes_by_drafter=decodes,
+        draft_decode_rows_by_drafter=decode_rows,
+        prefill_writes={name: r.n_prefill_writes
+                        for name, r in runners.items()},
+        tree_nodes_per_request_iteration=sum(
+            rec.big_gamma for rec in stats.records) / max(1, sum(
+                rec.batch for rec in stats.records)),
+        one_token_a_request_iterations=sum(
+            rec.committed == rec.batch for rec in stats.records))
+    if backend != "async" and hasattr(eng.executor, "n_survived"):
+        # the simulated pipelined executor's draft-ahead outcomes
+        summary.update(draft_ahead_survived=eng.executor.n_survived,
+                       draft_ahead_invalidated=eng.executor.n_invalidated)
     if extra is not None:
         summary.update(extra())
     if backend == "async":
@@ -2429,15 +2558,202 @@ def serve_phase(torch, label, target, drafters, prompts, kernel_err, refs,
           f"pool reads {calls.paged}, int8 products {calls.int8_products}, "
           f"SSM layers {calls.ssm_layer_calls} of {calls.forwards} forwards "
           f"(SSD launches by form {calls.ssd_forms})", flush=True)
+    peak = "not measured (CPU)" if peak_gb is None else f"{peak_gb:.2f}"
+    print(f"{label} ({strategy}{', ' + str(overrides) if overrides else ''}"
+          f"): {calls.forwards} forwards (by model {by_model}), "
+          f"{len(stats.records)} iterations, {stats.total_committed} "
+          f"tokens committed, peak device GB {peak}, "
+          f"{stats.total_committed / wall:.2f} wall tokens/s; drafter "
+          f"decode steps {decodes} over {decode_rows} rows; prefill writes "
+          f"{summary['prefill_writes']}", flush=True)
     return summary, streams, calls.launches
 
 
-def check_async_run(torch, label, eng, stats, calls, syncs_in_run, overlap):
+# phase T-ablate: the four ablation switches of DESIGN.md at once, one
+# drafter a request (with two a request of two drafters, random routing
+# and the full fan-out would give every drafter every request anyway)
+ABLATION = dict(enable_routing=False, enable_fusion=False,
+                subbatch_drafting=False, batched_prefill=True,
+                drafters_per_request=1)
+
+
+def burst_prefill_writes(lens, chunk: int) -> int:
+    """Masked prefill writes of one burst (`ModelRunner.prefill_requests`)
+    of contexts of `lens` tokens: one write for all that fit a chunk (if
+    two or more do), and each longer one its own chunks."""
+    short = sum(1 for n in lens if 0 < n <= chunk)
+    return (1 if short > 1 else short) + sum(-(-n // chunk) for n in lens
+                                             if n > chunk)
+
+
+def first_differences(streams, other, refs):
+    """(request, first token where `streams` and `other` differ, the
+    reference's top-1/top-2 gap there) of each request whose streams
+    differ."""
+    out = []
+    for i, (a, b) in enumerate(zip(streams, other)):
+        if a != b:
+            t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            out.append((i, t, refs[i]["gaps"][t]))
+    return out
+
+
+def baseline_phases(torch, run, dense, full, mixed, twins,
+                    overlap_gate=0.5):
+    """The paper's baselines and the ablation switches, served with phase
+    A's models, prompts and references (`dense`; `full`: its two
+    drafters, `mixed`: phase D's, drafter 0 int8): T-ar (no drafter
+    forward; the target's forwards are its iterations and prefill
+    writes), T-vanilla (drafter 0 alone drafts chains), T-specinfer
+    (both drafters every request, one merged tree), T-pipeinfer (the
+    simulated pipelined executor), T-ablate (`ABLATION`: one masked
+    prefill write for the burst, every drafter decoding every request),
+    then on the wall-clock backend H-pipeinfer (`overlap_frac` >=
+    `overlap_gate`), H-paged and H-int8. Every stream is held to the
+    references under the tie rule by `run`; `twins` holds the committed
+    streams of phases A, C, D and H. H-paged's must equal phase H's
+    token for token (the same backend and burst prefill; the paged
+    kernel is bitwise kernel 1), and H-int8's must equal phase H's
+    where phase D's equal phase A's (the int8 drafter then moved no
+    committed token on the simulated backend); each is also compared
+    with its simulated twin (C, D), which prefills request by request:
+    `first_differences`. Returns the summaries by phase."""
+    from repro_torch.serving.runner import prefill_chunk_len
+
+    out = {}
+    n_d = len(full)
+
+    def decoders(label, sm, want):
+        """Fail unless exactly the drafters in `want` decoded."""
+        dec = sm["draft_decodes_by_drafter"]
+        if [i for i in range(n_d) if dec[i]] != want:
+            fail(f"{label}: drafter decode steps {dec}, expected decodes "
+                 f"by drafters {want} only")
+
+    # T-ar: one token a request an iteration, the drafters never run
+    sm, _ = run("phase T-ar", drafters=full, strategy="ar", **dense)
+    fw, it = sm["forwards_by_model"], sm["iterations"]
+    if fw is None or any(fw[f"drafter {i}"] for i in range(n_d)) \
+            or any(sm["prefill_writes"][f"drafter {i}"] for i in range(n_d)):
+        fail(f"phase T-ar: drafter forwards {fw}, prefill writes "
+             f"{sm['prefill_writes']} (ar runs no drafter)")
+    decoders("phase T-ar", sm, [])
+    if fw["target"] != it + sm["prefill_writes"]["target"] \
+            or sm["one_token_a_request_iterations"] != it:
+        fail(f"phase T-ar: {fw['target']} target forwards for {it} "
+             f"iterations and {sm['prefill_writes']['target']} prefill "
+             f"writes ({sm['one_token_a_request_iterations']} iterations "
+             "committed one token a request)")
+    print(f"phase T-ar: {fw['target']} target forwards = {it} iterations "
+          f"+ {sm['prefill_writes']['target']} prefill writes; no drafter "
+          "forward", flush=True)
+    out["phase T-ar"] = sm
+
+    # T-vanilla and T-pipeinfer: drafter 0 alone drafts (chain trees);
+    # drafter 1 is prefilled and takes the one-behind commits, as in the
+    # reference, but never decodes
+    for label, strategy in (("phase T-vanilla", "vanilla"),
+                            ("phase T-pipeinfer", "pipeinfer")):
+        sm, _ = run(label, drafters=full, strategy=strategy, **dense)
+        decoders(label, sm, [0])
+        print(f"{label}: mean acceptance {sm['mean_acceptance']:.3f}, "
+              f"{sm['tree_nodes_per_request_iteration']:.2f} tree nodes a "
+              f"request iteration; forwards by model "
+              f"{sm['forwards_by_model']}"
+              + (f"; draft-ahead survived {sm['draft_ahead_survived']}, "
+                 f"invalidated {sm['draft_ahead_invalidated']}"
+                 if "draft_ahead_survived" in sm else ""), flush=True)
+        out[label] = sm
+
+    # T-specinfer: every drafter drafts every request, one merged tree
+    sm, _ = run("phase T-specinfer", drafters=full, strategy="specinfer",
+                **dense)
+    decoders("phase T-specinfer", sm, list(range(n_d)))
+    rows = sm["draft_decode_rows_by_drafter"]
+    if len(set(rows)) != 1:
+        fail(f"phase T-specinfer: drafter decode rows {rows} (each drafter "
+             "drafts every request)")
+    print(f"phase T-specinfer: {sm['tree_nodes_per_request_iteration']:.2f}"
+          f" tree nodes a request iteration (tree width {n_d - 1}); mean "
+          f"acceptance {sm['mean_acceptance']:.3f}", flush=True)
+    out["phase T-specinfer"] = sm
+
+    # T-ablate: random routing, independent chains, the full fan-out and
+    # the burst prefill
+    sm, _ = run("phase T-ablate", drafters=full, overrides=ABLATION,
+                **dense)
+    tcfg = dense["target"][0]
+    lens = [len(p) for p in dense["prompts"]]
+    want = {"target": burst_prefill_writes(lens, prefill_chunk_len(tcfg))}
+    for i, (dcfg, _, _) in enumerate(full):
+        # the drafters hold one token less (one behind)
+        want[f"drafter {i}"] = burst_prefill_writes(
+            [n - 1 for n in lens], prefill_chunk_len(dcfg))
+    if sm["prefill_writes"] != want:
+        fail(f"phase T-ablate: prefill writes {sm['prefill_writes']}, "
+             f"expected {want} (one masked write for the burst)")
+    rows = sm["draft_decode_rows_by_drafter"]
+    decoders("phase T-ablate", sm, list(range(n_d)))
+    if len(set(rows)) != 1:
+        fail(f"phase T-ablate: drafter decode rows {rows} (the full "
+             "fan-out decodes every request on every drafter)")
+    print(f"phase T-ablate: prefill writes {sm['prefill_writes']} for "
+          f"prompts of {lens} tokens (one masked write for the burst); "
+          f"drafter decode rows {rows} at one drafter a request",
+          flush=True)
+    out["phase T-ablate"] = sm
+
+    # H-pipeinfer: the pipelined baseline on the wall-clock backend
+    sm, _ = run("phase H-pipeinfer", drafters=full, strategy="pipeinfer",
+                backend="async", **dense)
+    decoders("phase H-pipeinfer", sm, [0])
+    if sm["overlap_frac"] < overlap_gate:
+        fail(f"phase H-pipeinfer: overlap_frac {sm['overlap_frac']:.3f} < "
+             f"{overlap_gate} (drafting did not overlap verification)")
+    out["phase H-pipeinfer"] = sm
+
+    # H-paged and H-int8: phase H on the paged pool and with phase D's
+    # drafters
+    int8_moved_none = twins["D"] == twins["A"]
+    print(f"phase D's committed streams equal phase A's: {int8_moved_none} "
+          "(phase H-int8's must then equal phase H's)", flush=True)
+    for label, kw, sim, must in (
+            ("phase H-paged", dict(drafters=full, paged=True, observe=(
+                lambda e: observe_pools(e, "phase H-paged"))), "C", True),
+            ("phase H-int8", dict(drafters=mixed, int8=True), "D",
+             int8_moved_none)):
+        sm, streams = run(label, backend="async", **kw, **dense)
+        same = {t: sum(a == b for a, b in zip(streams, twins[t]))
+                for t in ("H", sim)}
+        sm["streams_equal"] = same
+        sm["first_differences"] = {t: first_differences(
+            streams, twins[t], dense["refs"]) for t in ("H", sim)}
+        print(f"{label}: committed streams equal token for token: "
+              f"{same['H']}/{len(streams)} phase H's, {same[sim]}/"
+              f"{len(streams)} phase {sim}'s (the simulated backend "
+              f"prefills request by request); first differences "
+              f"(request, token, reference top-1/top-2 gap) "
+              f"{sm['first_differences']}", flush=True)
+        if must and same["H"] != len(streams):
+            fail(f"{label}: committed other tokens than phase H")
+        out[label] = sm
+    classes = {}
+    for m, n in out["phase H-int8"]["int8_calls_by_rows"].items():
+        classes[int8_row_class(m)] = classes.get(int8_row_class(m), 0) + n
+    print(f"phase H-int8 int8 launches by rows "
+          f"{out['phase H-int8']['int8_calls_by_rows']}: {classes}",
+          flush=True)
+    return out
+
+
+def check_async_run(torch, label, eng, stats, calls, syncs_in_run, overlap,
+                    cuda=True):
     """Hold a run of the wall-clock backend to its contract and gather
     the reference's wall-clock quantities (`benchmarks/wallclock.py`):
     the target's forwards ran on the server thread's stream and the
     drafters' on the engine thread's, two distinct streams, neither the
-    legacy default one; no device-wide synchronize ran during the run.
+    legacy default one (`cuda=False`: on the two threads, which have no
+    streams); no device-wide synchronize ran during the run.
     Returns overlap_frac (the share of cohorts whose drafting began
     before the previous verification finished), the verifier idle
     fraction, the draft-ahead outcomes and the server's spans summed by
@@ -2447,8 +2763,9 @@ def check_async_run(torch, label, eng, stats, calls, syncs_in_run, overlap):
     b = eng.backend
     if not isinstance(b, AsyncTorchBackend):
         fail(f"{label}: the engine did not get the async backend")
-    default = torch.cuda.default_stream().cuda_stream
-    ts, ds = b.target_stream.cuda_stream, b.draft_stream.cuda_stream
+    default = torch.cuda.default_stream().cuda_stream if cuda else None
+    ts, ds = ((b.target_stream.cuda_stream, b.draft_stream.cuda_stream)
+              if cuda else (None, None))
     server, engine = set(), set()
     n_server = n_engine = 0
     for (thread, stream), n in calls.streams.items():
@@ -2458,7 +2775,8 @@ def check_async_run(torch, label, eng, stats, calls, syncs_in_run, overlap):
         else:
             engine.add(stream)
             n_engine += n
-    if server != {ts} or engine != {ds} or ts == ds or default in (ts, ds):
+    if server != {ts} or engine != {ds} or (cuda and (
+            ts == ds or default in (ts, ds))):
         fail(f"{label}: forwards ran on streams {calls.streams} (server "
              f"{ts}, drafters {ds}, default {default})")
     if syncs_in_run:
@@ -3176,9 +3494,11 @@ def deepseek_phases(torch, M, attn, cfg, run, references, make_prompts, err,
                              for p, r in zip(lprompts, lrefs)]
     sum_l["weights_gb"] = weights_gb
     # where L's device time goes: the latent kernels and the MoE layer
+    t0 = time.perf_counter()
     sum_l["profile"] = profile_latent_window(
         torch, (lcfg, lparams), [(lcfg, lparams, f"l{i}") for i in range(2)],
-        lprompts)
+        lprompts, warm=2, steps=2)
+    progress(f"phase L profiler window {time.perf_counter() - t0:.1f} s")
     del lparams, lp, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -3281,6 +3601,8 @@ def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
     weights. Each model's weights are freed before the next. Returns the
     phases' summaries and the image checks."""
     danube, vision, whisper = cfgs
+    danube = danube.with_overrides(n_layers=M_LAYERS)
+    vision = vision.with_overrides(n_layers=N_LAYERS)
     held_gb = torch.cuda.memory_allocated() / 1e9
     print(f"device memory held before phase M: {held_gb:.2f} GB", flush=True)
     if held_gb > 4.0:
@@ -3296,7 +3618,7 @@ def remaining_arch_phases(torch, M, fa, run, references, make_prompts,
               f" s, {gb:.2f} GB held", flush=True)
         return params, gb
 
-    # ---- phases M and M-paged: h2o-danube3-4b, full width and depth
+    # ---- phases M and M-paged: h2o-danube3-4b at full width, M_LAYERS deep
     mprompts = make_prompts(danube)
     mparams, gb = weights(danube, 50, f"{danube.n_layers} layers")
     mdraft = [M.init_params(drafter_cfg, seed=1 + i, device="cuda")
@@ -3852,6 +4174,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     # float32 products stay float32 (also set by repro_torch.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3865,8 +4188,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = [fa.LIBRARY, pa.LIBRARY, ig.LIBRARY, sd.LIBRARY]
     build.build_all(libraries)
-    print(f"kernel build+load ({len(libraries)} nvcc in parallel) "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    progress(f"kernel build+load ({len(libraries)} nvcc in parallel) "
+             f"{time.perf_counter() - t0:.1f} s")
     for lib in libraries:
         # ptxas report per instantiation: registers, shared memory, spills
         for line in (lib.build_log or "").splitlines():
@@ -3914,6 +4237,8 @@ def main() -> int:
     fa120_rows, pa120_rows = d120_kernel_phase(torch, fa, pa)
     nc_rows = noncausal_kernel_phase(torch, fa)
     sd_rows, sd_in_place, sd_crossover, sd_host = ssd_kernel_phase(torch, sd)
+    progress(f"kernel phases done {time.perf_counter() - t_start:.1f} s into "
+             "the script")
     many_rows = [r for r in fa_rows + fa120_rows + nc_rows
                  if r["form"] == "many-row"]
     paged_many_rows = [r for r in pa_rows + pa120_rows
@@ -3949,8 +4274,8 @@ def main() -> int:
         summaries.append(summary)
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"{label} done {time.perf_counter() - t_start:.1f} s into the "
-              "script", flush=True)
+        progress(f"{label} done {time.perf_counter() - t_start:.1f} s into "
+                 "the script")
         return summary, streams
 
     def references(cfg, params, prompts):
@@ -3975,14 +4300,19 @@ def main() -> int:
     # phase A: qwen1.5-4b target + two qwen2-0.5b drafters
     full = [(QWEN2_0_5B, dparams[i], f"d{i}") for i in range(2)]
     sum_a, streams_a = run("phase A", drafters=full, **dense)
-    # phase B: perfect drafters sharing the target's weights
-    sum_b, _ = run("phase B", drafters=[(QWEN1_5_4B, tparams, f"p{i}")
-                                        for i in range(2)], **dense)
+    # phase B: perfect drafters sharing the target's weights (the
+    # target's first B_LAYERS layers, with their own references)
+    bcfg, bparams = first_layers(QWEN1_5_4B, tparams, B_LAYERS)
+    sum_b, _ = run("phase B", target=(bcfg, bparams),
+                   drafters=[(bcfg, bparams, f"p{i}") for i in range(2)],
+                   prompts=prompts, refs=references(bcfg, bparams, prompts),
+                   err=kernel_err)
+    del bparams
     if not sum_b["mean_acceptance"] > 1.0:
         fail(f"phase B mean acceptance {sum_b['mean_acceptance']:.3f} <= 1")
     # phase C: phase A on the paged KV pool
-    _, streams_c = run("phase C", drafters=full, paged=True,
-                       observe=observe_pools, **dense)
+    sum_c, streams_c = run("phase C", drafters=full, paged=True,
+                           observe=observe_pools, **dense)
     same = sum(a == c for a, c in zip(streams_a, streams_c))
     print(f"phase C: {same}/{len(prompts)} committed streams equal phase "
           f"A's token for token (paged kernel bitwise equal to kernel 1 "
@@ -3993,8 +4323,8 @@ def main() -> int:
     # phase D: drafter 0 with int8 weights beside a full-precision drafter 1
     mixed = [(int8_variant(QWEN2_0_5B), dparams[0], "d0"),
              (QWEN2_0_5B, dparams[1], "d1")]
-    sum_d, _ = run("phase D", drafters=mixed, int8=True,
-                   observe=observe_drafter_steps, **dense)
+    sum_d, streams_d = run("phase D", drafters=mixed, int8=True,
+                           observe=observe_drafter_steps, **dense)
     per_fwd = sum_d["int8_products_per_forward"]
     if per_fwd != [0, QWEN2_0_5B.n_layers * 7 + 1]:
         fail(f"phase D: quantized products per forward {per_fwd}, expected "
@@ -4008,24 +4338,40 @@ def main() -> int:
     # phases H and H-serial: phase A on the wall-clock backend, drafting
     # the next cohort while a verification is in flight, then its serial
     # twin (no draft-ahead); then a profiler window over phase H's loop
-    sum_h, _ = run("phase H", drafters=full, backend="async", **dense)
+    sum_h, streams_h = run("phase H", drafters=full, backend="async",
+                           **dense)
     sum_hs, _ = run("phase H-serial", drafters=full, backend="async",
                     overlap=False, **dense)
     wallclock = compare_wallclock(sum_h, sum_hs, sum_a)
     if sum_h["overlap_frac"] < 0.5:
         fail(f"phase H: overlap_frac {sum_h['overlap_frac']:.3f} < 0.5 "
              "(drafting did not overlap verification: serialized)")
-    wallclock["profile"] = profile_async_window(torch, target, full, prompts)
+    t0 = time.perf_counter()
+    wallclock["profile"] = profile_async_window(torch, target, full, prompts,
+                                                warm=2, steps=2)
+    progress(f"phase H profiler window {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    # phases K and K-paged: phase A with int8 KV caches for the target and
-    # both drafters, resident and paged: every cache read on the kernels'
-    # int8 form
-    kcfg = QWEN1_5_4B.with_overrides(kv_dtype="int8")
-    kdcfg = QWEN2_0_5B.with_overrides(kv_dtype="int8")
-    kv8 = dict(target=(kcfg, tparams), prompts=prompts,
-               refs=references(kcfg, tparams, prompts), err=kernel_err,
-               drafters=[(kdcfg, dparams[i], f"d{i}") for i in range(2)],
+    # phases T-ar .. H-int8: the paper's baselines, the ablation switches,
+    # and the wall-clock backend with the pipelined baseline, the paged
+    # pool and int8 drafters, all on phase A's weights and references
+    baselines = baseline_phases(torch, run, dense, full, mixed, dict(
+        A=streams_a, C=streams_c, D=streams_d, H=streams_h))
+    wallclock["phase H-pipeinfer"] = compare_wallclock(
+        baselines["phase H-pipeinfer"], None, baselines["phase T-pipeinfer"])
+    for label, twin in (("phase H-paged", sum_c), ("phase H-int8", sum_d)):
+        wallclock[label] = compare_wallclock(baselines[label], None, twin)
+    # phases K and K-paged: phase A's models cut to K_LAYERS with int8 KV
+    # caches for the target and both drafters, resident and paged: every
+    # cache read on the kernels' int8 form
+    kcfg, kparams = first_layers(QWEN1_5_4B, tparams, K_LAYERS[0])
+    kcfg = kcfg.with_overrides(kv_dtype="int8")
+    kdraft = [first_layers(QWEN2_0_5B, dparams[i], K_LAYERS[1])
+              for i in range(2)]
+    kv8 = dict(target=(kcfg, kparams), prompts=prompts,
+               refs=references(kcfg, kparams, prompts), err=kernel_err,
+               drafters=[(c.with_overrides(kv_dtype="int8"), p_, f"d{i}")
+                         for i, (c, p_) in enumerate(kdraft)],
                int8_kv=True)
     sum_k, streams_k = run("phase K", **kv8)
     _, streams_kp = run("phase K-paged", paged=True,
@@ -4041,9 +4387,11 @@ def main() -> int:
         fail("phase K-paged: the paged int8 pool committed other tokens "
              "than the resident int8 pool")
     # where K's device time goes: the int8 K/V forms' share of it
+    t0 = time.perf_counter()
     sum_k["profile"] = profile_int8kv_window(torch, kv8["target"],
                                              kv8["drafters"], prompts)
-    del kv8
+    progress(f"phase K profiler window {time.perf_counter() - t0:.1f} s")
+    del kv8, kparams, kdraft
     gc.collect()
     torch.cuda.empty_cache()
     del tparams, dparams, full, mixed, target, dense
@@ -4058,11 +4406,14 @@ def main() -> int:
     int8_rows = (most_frequent(1, 8, 4), most_frequent(9, 63, 24), 512)
     ig_rows, crossover, ig_host = int8_kernel_phase(torch, ig, quantize,
                                                     int8_rows)
+    progress(f"int8 kernel phase done {time.perf_counter() - t_start:.1f} s "
+             "into the script")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase E: mamba2-130m target and drafters (SSD layers only)
-    mcfg = MAMBA2_130M
+    # ---- phase E: mamba2-130m target and drafters (SSD layers only), cut
+    # to E_LAYERS
+    mcfg = MAMBA2_130M.with_overrides(n_layers=E_LAYERS)
     mprompts = make_prompts(mcfg)
     mparams = M.init_params(mcfg, seed=10, device="cuda")
     mdraft = M.init_params(mcfg, seed=11, device="cuda")
@@ -4128,14 +4479,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- phase J: qwen2-moe-a2.7b at full width (24 layers, 60 routed
-    # experts top-4 and a shared expert in every layer) with two
-    # qwen2-0.5b drafters, resident pool
-    jcfg = QWEN2_MOE_A2_7B
+    # ---- phase J: qwen2-moe-a2.7b at full width (60 routed experts top-4
+    # and a shared expert in every layer), with two qwen2-0.5b drafters,
+    # both cut to J_LAYERS, resident pool
+    jcfg = QWEN2_MOE_A2_7B.with_overrides(n_layers=J_LAYERS[0])
+    jdcfg = QWEN2_0_5B.with_overrides(n_layers=J_LAYERS[1])
     jprompts = make_prompts(jcfg)
     t0 = time.perf_counter()
     jparams = M.init_params(jcfg, seed=30, device="cuda")
-    jdraft = [M.init_params(QWEN2_0_5B, seed=31 + i, device="cuda")
+    jdraft = [M.init_params(jdcfg, seed=31 + i, device="cuda")
               for i in range(2)]
     torch.cuda.synchronize()
     print(f"qwen2-moe-a2.7b weights {time.perf_counter() - t0:.1f} s, "
@@ -4143,7 +4495,7 @@ def main() -> int:
           flush=True)
     jrefs = references(jcfg, jparams, jprompts)
     sum_j, _ = run("phase J", target=(jcfg, jparams),
-                   drafters=[(QWEN2_0_5B, jdraft[i], f"d{i}")
+                   drafters=[(jdcfg, jdraft[i], f"d{i}")
                              for i in range(2)],
                    prompts=jprompts, refs=jrefs, err=kernel_err, moe=True)
     # phase J-f32: phase J with f32 activations (the same weights): at
@@ -4152,7 +4504,7 @@ def main() -> int:
     # at f32 the paths agree far more closely and the rule is tight
     jcfg32 = jcfg.with_overrides(dtype="float32")
     sum_j32, _ = run("phase J-f32", target=(jcfg32, jparams),
-                     drafters=[(QWEN2_0_5B, jdraft[i], f"d{i}")
+                     drafters=[(jdcfg, jdraft[i], f"d{i}")
                                for i in range(2)],
                      prompts=jprompts,
                      refs=references(jcfg32, jparams, jprompts),
@@ -4213,8 +4565,8 @@ def main() -> int:
     # the reference's tiny deployment trained on the card, checkpointed
     # and served
     sum_p = training_phase(torch, M, attn, fa, QWEN2_0_5B)
-    print(f"phase P done {time.perf_counter() - t_start:.1f} s into the "
-          f"script ({sum_p['phase_s']:.1f} s)", flush=True)
+    progress(f"phase P done {time.perf_counter() - t_start:.1f} s into the "
+             f"script ({sum_p['phase_s']:.1f} s)")
     launches["flash_attention_partial"] += sum_p["kernel_launches"]
     launches["flash_attention_partial_many_rows"] += \
         sum_p["many_row_launches"]
@@ -4226,16 +4578,16 @@ def main() -> int:
     # FFNs), the two gradients in one loss
     sum_r = training_phase(torch, M, attn, fa, MAMBA2_130M, label="phase R",
                            seed=42)
-    print(f"phase R done {time.perf_counter() - t_start:.1f} s into the "
-          f"script ({sum_r['phase_s']:.1f} s)", flush=True)
+    progress(f"phase R done {time.perf_counter() - t_start:.1f} s into the "
+             f"script ({sum_r['phase_s']:.1f} s)")
     launches["ssd_scan_pallas"] += sum_r["ssd_launches"]
     rcfg = JAMBA_V0_1_52B.with_overrides(n_layers=2, moe=None,
                                          hybrid_attn_offset=1)
     if layer_counts(rcfg) != {"attn": 1, "ssm": 1}:
         fail(f"phase R-hybrid: the cut plan is {layer_counts(rcfg)}")
     sum_rh = hybrid_grad_phase(torch, M, attn, fa, rcfg)
-    print(f"phase R-hybrid done {time.perf_counter() - t_start:.1f} s into "
-          f"the script ({sum_rh['phase_s']:.1f} s)", flush=True)
+    progress(f"phase R-hybrid done {time.perf_counter() - t_start:.1f} s "
+             f"into the script ({sum_rh['phase_s']:.1f} s)")
     # ---- phase S: the sharding rules on a DeviceMesh of the one card
     sum_s = sharding_phase(torch, M, QWEN2_0_5B)
     print(json.dumps({"training": dict(phase_P=sum_p, phase_Q=sum_q,
@@ -4355,8 +4707,8 @@ def main() -> int:
                  + (f"; {no_library[name]}" if None in lib else ""),
             shapes=rows))
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    progress(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

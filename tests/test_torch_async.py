@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig, ModelConfig
 from repro.models import model as JM
@@ -38,6 +39,14 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.backend import (AsyncTorchBackend, SimulatedBackend,
                                          make_backend)
 from repro_torch.serving.engine import SpeculativeEngine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 MAX_LEN = 96
 NEW = 10

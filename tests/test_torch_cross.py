@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from repro.config import ModelConfig
 from repro.configs import ARCHS
 from repro.models import model as JM
@@ -42,6 +43,14 @@ from repro_torch.serving.engine import SpeculativeEngine
 from repro_torch.serving.runner import (ModelRunner, PagedSlotCacheManager,
                                        SlotCacheManager)
 from test_torch_paged import _drive
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 TOL = 1e-4
 MAX_LEN = 96

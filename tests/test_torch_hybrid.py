@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig
 from repro.models import model as JM
@@ -34,6 +35,14 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.runner import ModelRunner, PagedSlotCacheManager
 from test_torch_ssm import caches_close
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 MAX_LEN = 96
 TOL = 1e-4

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from repro.kernels.common import flash_attention_partial as jax_partial
 from repro.kernels.common import merge_partials as jax_merge
 from repro.kernels.decode_attention.ref import (decode_attention_ref,
@@ -26,6 +27,14 @@ from repro.kernels.tree_attention.ref import tree_attention_ref
 from repro_torch.kernels.build import SMEM_LIMIT
 from repro_torch.kernels.flash_attention import ops as fa
 from test_kernels import DECODE_CASES, TREE_CASES
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 
 def _np(seed, shape):

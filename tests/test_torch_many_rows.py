@@ -22,6 +22,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from _jax_fast_compile import fast_compile
 from repro.configs import ARCHS
 from repro.models import model as JM
 from repro_torch.kernels.flash_attention import ops as fa
@@ -30,6 +31,14 @@ from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from test_torch_int8kv import _eq, _tcfg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 
 @pytest.mark.parametrize("size", [4, 2])

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from repro.config import CoSineConfig, MLAConfig, ModelConfig, MoEConfig
 from repro.kernels.common import flash_attention_partial as jax_partial
 from repro.models import attention as JA
@@ -51,6 +52,14 @@ from repro_torch.serving.engine import SpeculativeEngine
 from repro_torch.serving.runner import (ModelRunner, PagedSlotCacheManager,
                                        SlotCacheManager)
 from test_torch_paged import _drive
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 MAX_LEN = 96
 NEW = 10

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.models import attention as JA
 from repro.models import model as JM
@@ -23,6 +24,14 @@ from repro_torch.config import ModelConfig as TModelConfig
 from repro_torch.models import attention as TA
 from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 TOL = 1e-4
 MAX_LEN = 40

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig, ModelConfig, MoEConfig, SSMConfig
 from repro.configs.drafters import int8_variant
@@ -40,6 +41,14 @@ from repro_torch.models import moe as TMOE
 from repro_torch.models import quantize as TQ
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import SpeculativeEngine
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 TOL = 1e-4
 MAX_LEN = 64

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig
 from repro.kernels.decode_attention.ops import decode_attention_paged
@@ -40,6 +41,14 @@ from repro_torch.models import model as TM
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import SpeculativeEngine
 from repro_torch.serving.runner import ModelRunner, PagedSlotCacheManager
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 MAX_LEN = 96
 

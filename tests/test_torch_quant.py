@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig, ModelConfig
 from repro.configs.drafters import int8_variant
@@ -39,6 +40,14 @@ from repro_torch.models import quantize as TQ
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import SpeculativeEngine
 from repro_torch.serving.runner import ModelRunner
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 MAX_LEN = 64
 NEW = 8

@@ -3,7 +3,9 @@
 Both engines get the same numpy-bridged tiny weights, the same seed and
 the same prompts, with two drafters: a random one and a "perfect" one
 that shares the target's weights, so trees really get accepted. For
-`cosine` (the main path) and `specinfer`:
+every strategy (`cosine`, the main path, and the paper's four
+baselines: `ar`, `vanilla`, `specinfer`, `pipeinfer`; the two
+single-drafter baselines draft with the perfect drafter):
 
   * every committed stream equals the port's own greedy reference
     (`prefill` + `decode_step`) token for token — the losslessness
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.config import CoSineConfig, ModelConfig
 from repro.models import model as JM
@@ -31,6 +34,13 @@ from repro_torch.serving.engine import SpeculativeEngine
 
 MAX_LEN = 96
 NEW = 12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
 
 
 def _tcfg(cfg):
@@ -78,26 +88,37 @@ def _serve(engine_cls, target, drafters, cos, strategy, prompts, **kw):
     reqs = [eng.submit(p, max_new_tokens=NEW) for p in prompts]
     stats = eng.run()
     return ([list(map(int, r.generated)) for r in reqs],
-            [rec.committed for rec in stats.records], stats)
+            [rec.committed for rec in stats.records], stats, eng)
 
 
-@pytest.mark.parametrize("strategy", ["cosine", "specinfer"])
+@pytest.mark.parametrize("strategy", ["cosine", "specinfer", "ar",
+                                      "vanilla", "pipeinfer"])
 def test_engine_matches_reference_and_jax(models, strategy):
     (jt, jd), (tt, td), prompts = models
+    if strategy in ("vanilla", "pipeinfer"):
+        # they draft with drafter 0 alone: make it the perfect one
+        jd, td = jd[::-1], td[::-1]
     cos = CoSineConfig(n_drafters=2, draft_len=4, drafters_per_request=2,
                        tree_width=2)
-    t_streams, t_iters, t_stats = _serve(SpeculativeEngine, tt, td,
-                                         _tcfg(cos), strategy, prompts,
-                                         device="cpu")
+    t_streams, t_iters, t_stats, t_eng = _serve(
+        SpeculativeEngine, tt, td, _tcfg(cos), strategy, prompts,
+        device="cpu")
     for stream, p in zip(t_streams, prompts):
         assert stream == _greedy(tt[0], tt[1], p, NEW)
-    j_streams, j_iters, j_stats = _serve(JaxEngine, jt, jd, cos, strategy,
-                                         prompts)
+    j_streams, j_iters, j_stats, _ = _serve(JaxEngine, jt, jd, cos,
+                                            strategy, prompts)
     assert t_streams == j_streams
     assert t_stats.total_committed == j_stats.total_committed
     assert t_iters == j_iters
-    # the perfect drafter makes speculation pay off
-    assert t_stats.mean_acceptance > 1.0
+    if strategy == "ar":
+        # one token a request an iteration, and no drafter ran (not
+        # even a prefill)
+        assert all(rec.committed == rec.batch for rec in t_stats.records)
+        assert t_stats.draft_calls == 0
+        assert [d.n_prefill_writes for d in t_eng.drafters] == [0, 0]
+    else:
+        # the perfect drafter makes speculation pay off
+        assert t_stats.mean_acceptance > 1.0
 
 
 def test_burst_prefill_matches_per_request(models):

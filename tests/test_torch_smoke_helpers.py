@@ -297,3 +297,136 @@ def test_gqa_bounds_at_both_rates():
     assert bf["ops_ms"] == flops / 989e12 * 1e3
     assert bf["cuda_core_ops_ms"] == f32["cuda_core_ops_ms"]
     assert smoke._gqa_bounds(1e12, 1.0, "float32")["bound_by"] == "bytes"
+
+
+def test_baseline_phases_rehearsed_on_the_cpu(one_torch_thread,
+                                              monkeypatch):
+    """Phases T-ar .. H-int8 at tiny widths on the CPU, through
+    `make_engine` / `serve_phase`'s `strategy` and `overrides`: every
+    stream greedy under the tie rule; ar
+    runs no drafter and one target forward an iteration beside its
+    prefill writes; vanilla and pipeinfer decode on drafter 0 alone,
+    specinfer on both; the ablation's burst is one masked prefill write
+    (a prompt longer than a chunk its own chunks) and its full fan-out
+    decodes every request on both drafters; the wall-clock phases run
+    the target on the server thread alone (the CPU has no streams, so
+    their overlap is not gated here), H-paged's pools grow and H-int8's
+    drafter 0 is int8."""
+    import copy
+
+    import numpy as np
+    # short prompts and 8 new tokens a request in caches of 256, and a
+    # pool of 2 pages a model, which they outgrow
+    for name, value in (("NEW_TOKENS", 8), ("MAX_LEN", 256),
+                        ("POOL_PAGES", 2)):
+        monkeypatch.setattr(smoke, name, value)
+
+    from repro_torch.config import ModelConfig
+    from repro_torch.configs.drafters import int8_variant
+    from repro_torch.models import model as M
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=32,
+                      n_heads=4, n_kv_heads=2, head_dim=16, d_ff=64,
+                      vocab=64, tie_embeddings=True, dtype="float32")
+    dcfg = cfg.with_overrides(name="d", n_layers=1)
+    tparams = M.init_params(cfg, 0, device="cpu")
+    # drafter 0 holds the target's weights in a tree of its own (trees
+    # are told apart by identity), drafter 1 random ones
+    full = [(cfg, copy.deepcopy(tparams), "d0"),
+            (dcfg, M.init_params(dcfg, 1, device="cpu"), "d1")]
+    mixed = [(int8_variant(cfg), full[0][1], "d0"), full[1]]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist()
+               for n in (16, 40, 72, 100)]
+    refs = smoke.target_references(torch, M, cfg, tparams, prompts,
+                                   device="cpu")
+    dense = dict(target=(cfg, tparams), prompts=prompts, refs=refs, err=0.0)
+    seen = {}
+
+    def run(label, target, drafters, prompts, refs, err, **kw):
+        sm, streams, _ = smoke.serve_phase(torch, label, target, drafters,
+                                           prompts, err, refs,
+                                           device="cpu", **kw)
+        assert [s[:len(r["ref"])] for s, r in zip(streams, refs)] \
+            == [r["ref"] for r in refs]
+        seen[label] = (kw.get("strategy", "cosine"), kw.get("overrides"))
+        return sm, streams
+
+    greedy = [r["ref"] for r in refs]
+    out = smoke.baseline_phases(torch, run, dense, full, mixed,
+                                dict.fromkeys("ACDH", greedy),
+                                overlap_gate=0.0)
+    assert list(out) == list(seen) == [
+        "phase T-ar", "phase T-vanilla", "phase T-pipeinfer",
+        "phase T-specinfer", "phase T-ablate", "phase H-pipeinfer",
+        "phase H-paged", "phase H-int8"]
+    assert seen["phase T-ablate"] == ("cosine", smoke.ABLATION)
+    assert out["phase T-ablate"]["prefill_writes"] == {
+        "target": 1, "drafter 0": 1, "drafter 1": 1}
+    # phase A's prompts on the card: the three short ones in one write,
+    # the 600-token one in two chunks of at most 512
+    assert smoke.burst_prefill_writes(smoke.PROMPT_LENS, 512) == 3
+    assert smoke.burst_prefill_writes([63, 599], 512) == 3
+    assert smoke.burst_prefill_writes([5], 512) == 1
+    assert out["phase T-ar"]["forwards_by_model"]["drafter 1"] == 0
+    assert out["phase T-vanilla"]["mean_acceptance"] > 1.0
+    assert out["phase H-int8"]["int8_products"] > 0
+    assert all(out[label]["streams_equal"] == {"H": 4, sim: 4}
+               and out[label]["first_differences"] == {"H": [], sim: []}
+               for label, sim in (("phase H-paged", "C"),
+                                  ("phase H-int8", "D")))
+    assert all(sm["backend"] == "async" and sm["server_forwards"] > 0
+               for label, sm in out.items() if label.startswith("phase H"))
+    assert all(p["pool_growths"] >= 1 for p in
+               out["phase H-paged"]["pools"].values())
+    eng = smoke.make_engine((cfg, tparams), full, strategy="specinfer",
+                            overrides=dict(draft_len=3), device="cpu")
+    assert (eng.strategy, eng.cfg.draft_len, eng.cfg.tree_width) == (
+        "specinfer", 3, 2)
+
+
+@pytest.mark.parametrize("arch", ["dense", "moe"])
+def test_reference_noise_from_the_greedy_rows(arch, monkeypatch,
+                                              one_torch_thread):
+    """`target_references` takes the path noise (and a MoE target's router
+    flips) from the greedy decode's own logit rows: the same numbers as
+    running the decode path a second time beside the one prefill over the
+    whole sequence, as the noise is defined."""
+    import numpy as np
+
+    from repro_torch.configs import QWEN2_0_5B, QWEN2_MOE_A2_7B
+    from repro_torch.models import model as M
+    monkeypatch.setattr(smoke, "NEW_TOKENS", 6)
+    monkeypatch.setattr(smoke, "MAX_LEN", 64)
+    cfg = (QWEN2_0_5B if arch == "dense" else QWEN2_MOE_A2_7B).reduced()
+    params = M.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab, n).tolist() for n in (5, 12)]
+    refs = smoke.target_references(torch, M, cfg, params, prompts,
+                                   device="cpu")
+    V, L = cfg.vocab, smoke.moe_layers(cfg)
+    for p, r in zip(prompts, refs):
+        assert len(r["ref"]) == len(r["gaps"]) == 6
+        P, toks, records = len(p), r["ref"], []
+        with smoke.route_records(records):
+            c = M.init_cache(cfg, 1, 64, dtype=torch.float32, device="cpu")
+            full, _, _ = M.prefill(params, cfg, torch.tensor([p + toks]), c)
+            c = M.init_cache(cfg, 1, 64, dtype=torch.float32, device="cpu")
+            lg, c, _ = M.prefill(params, cfg, torch.tensor([p]), c)
+            diffs = [(lg[0, -1, :V] - full[0, P - 1, :V]).abs().max()]
+            assert int(torch.argmax(lg[0, -1, :V])) == toks[0]
+            for i, t in enumerate(toks[:-1]):
+                lg, c, _ = M.decode_step(params, cfg, torch.tensor([[t]]), c)
+                diffs.append((lg[0, 0, :V] - full[0, P + i, :V]).abs().max())
+                assert int(torch.argmax(lg[0, 0, :V])) == toks[i + 1]
+        assert r["noise"] == float(max(diffs))
+        if arch == "dense":
+            assert "router_flips" not in r
+            continue
+        assert L > 0 and len(records) == (1 + 1 + len(toks) - 1) * L
+        f, pre, steps = records[:L], records[L: 2 * L], records[2 * L:]
+        flips = sum(int((f[j][:P] != pre[j]).any(-1).sum())
+                    + sum(int((f[j][P + i] != steps[i * L + j][0]).any())
+                          for i in range(len(toks) - 1))
+                    for j in range(L))
+        assert (r["router_flips"], r["router_pairs"]) == (
+            flips, L * (P + len(toks) - 1))

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import fast_compile
 from conftest import tiny_model_cfg
 from repro.kernels.ssd_scan.ops import ssd as jax_ssd_pallas
 from repro.models import model as JM
@@ -41,6 +42,14 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TS
 from repro_torch.models.convert import params_from_numpy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fast_reference_compile():
+    """The JAX package's programs compiled cheaply (`_jax_fast_compile`)."""
+    with fast_compile():
+        yield
+
 
 SSD_TOL = 2e-4
 TOL = 1e-4

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from _jax_fast_compile import OPTIONS as _FAST_COMPILE
 from repro.configs import ARCHS
 from repro.configs.drafters import tiny_drafter
 from repro.data.synthetic import SyntheticCorpus as JCorpus
@@ -231,13 +232,6 @@ def _frontend(cfg, batch):
 
 
 _REFERENCE = {}
-# XLA's CPU backend spends most of a reference's seconds optimizing the
-# compiled program and generating its fused loops; compiled without those
-# passes and with its older loop emitters it computes the same f32
-# function (in another summation order at most) in a fifth of the time
-_FAST_COMPILE = {"xla_backend_optimization_level": 0,
-                 "xla_llvm_disable_expensive_passes": True,
-                 "xla_cpu_use_fusion_emitters": False}
 
 
 _JIT = jax.jit
