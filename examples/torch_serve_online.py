@@ -20,6 +20,11 @@ grows.
 With --trace [DIR] the cosine run's (or the async run's) telemetry is
 exported as DIR/torch_serve_online_<run>.json — a Perfetto-loadable
 trace plus a sibling .metrics.json — and can be summarized with
+the line below. The async run's trace also holds the wall spans of its
+two threads (tracks `engine` and `server`: each drafter step, the waits,
+the walk, each server task's launch and sync, with CPU time and parent
+in `args`) and its metrics the host reads (`host.syncs`,
+`host.d2h_bytes`, by site and thread):
 
   PYTHONPATH=src python -m repro_torch.obs.summarize DIR/torch_serve_online_cosine.json
 

@@ -329,10 +329,12 @@ class CoSineConfig:
     # ablation switches (paper §6.4)
     enable_routing: bool = True    # False -> random drafter selection
     enable_fusion: bool = True     # False -> independent per-drafter chains
-    # observability (DESIGN.md §2.6): span tracing is cheap (simulated
-    # clocks, no wall time) and on by default; obs_max_events > 0 ring-
-    # bounds both the EventLog and the Tracer for long runs (oldest
-    # entries drop; drop counts are surfaced in the metrics export)
+    # observability (DESIGN.md §2.6), on by default: span tracing on the
+    # simulated clocks; on the wall-clock backend also wall spans of its
+    # two threads (a few us each) and the host-read counters
+    # (`host.syncs`, `host.d2h_bytes`). obs_max_events > 0 ring-bounds
+    # both the EventLog and the Tracer for long runs (oldest entries
+    # drop; drop counts are surfaced in the metrics export)
     enable_tracing: bool = True
     obs_max_events: int = 0
     # --- paged KV/SSM pool (DESIGN.md §2.8) ---

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import apply_mlp, dense_init, mlp_params
 from repro_torch.models.quantize import qdot
+from repro_torch.obs.wall import note_host_read
 
 
 def moe_params(gen: torch.Generator, cfg: ModelConfig, moe: MoEConfig,
@@ -67,7 +68,9 @@ def route_topk(logits, top_k: int):
 def group_sizes_host(expert_of_copy, n_experts: int) -> list:
     """Copies routed to each expert, read to the host (the one
     device-to-host copy of a MoE layer, on the current stream)."""
-    return torch.bincount(expert_of_copy, minlength=n_experts).tolist()
+    sizes = torch.bincount(expert_of_copy, minlength=n_experts)
+    note_host_read("moe_sizes", sizes.numel() * sizes.element_size())
+    return sizes.tolist()
 
 
 def apply_moe(p, x, cfg: ModelConfig, moe: MoEConfig):

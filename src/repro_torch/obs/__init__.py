@@ -1,6 +1,7 @@
 """Serving telemetry layer (DESIGN.md §2.6).
 
-Three pieces, all dependency-free and deterministic:
+Three pieces, all dependency-free and deterministic, and a fourth of
+the port's own:
 
   * `obs.trace`   — `Tracer`: per-request lifecycle + per-stage occupancy
                     spans built from instrumentation hooks in the serving
@@ -11,11 +12,16 @@ Three pieces, all dependency-free and deterministic:
                     (every λ/γ/admission decision with its inputs).
   * `obs.export`  — Chrome/Perfetto ``trace_event`` JSON export and a
                     flat metrics JSON (byte-identical across same-seed
-                    runs), consumed by ``python -m repro.obs.summarize``.
+                    runs), consumed by ``python -m repro_torch.obs.summarize``.
+  * `obs.wall`    — `WallTracer` (the engine's tracer): wall spans of the
+                    wall-clock backend's two threads (CPU time, parent
+                    span, a profiler range each while a profiler
+                    records), and the host-read counters.
 
-The span schema is the contract the future async wall-clock serve loop
-must emit, so its measured overlap can be diffed against the
-discrete-event executor's prediction (ROADMAP headline item).
+The wall-clock serve loop (`serving.async_loop.WallClockExecutor` on
+`serving.backend.AsyncTorchBackend`) emits the same stage schema from
+measured time, so its overlap can be diffed against the discrete-event
+executor's prediction.
 """
 from repro_torch.obs.metrics import DecisionLog, MetricsRegistry
 from repro_torch.obs.trace import Span, Tracer

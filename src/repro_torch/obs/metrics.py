@@ -8,9 +8,11 @@ back — no ad-hoc `total_x += ...` fields scattered across modules.
 Naming convention: dotted ``subsystem.metric[_unit]`` names with optional
 labels, e.g. ``verify.busy_ms``, ``serve.committed_tokens``,
 ``draft.node_tokens{node=3}``. Everything is plain Python floats/ints —
-no deps, no locks (the serving loop is single-threaded), and
-`to_dict()` is deterministically ordered so a metrics JSON export is
-byte-identical across same-seed runs.
+no deps, no locks (no counter has two writing threads: under the
+wall-clock backend the server thread writes only the host-read counters
+labelled ``thread=server``, `obs.wall`), and `to_dict()` is
+deterministically ordered so a metrics JSON export is byte-identical
+across same-seed runs.
 
 `DecisionLog` records why the controllers changed anything: every
 λ-multiplier update, per-request `slo_gamma` trim, `balance_gamma` cap

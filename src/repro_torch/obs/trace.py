@@ -15,11 +15,12 @@ A `Span` is one closed interval on one *track* of the serving timeline:
     include the request — the per-request waterfall.
 
 Span identity is deterministic: `seq` is a global monotone counter in
-host execution order (single-threaded serving loop), and the exported id
-is derived from (track, cohort, rid, name, seq); all times come from the
-simulated stage clocks. Two same-seed runs therefore produce
-byte-identical exports (tested), which is the validation contract the
-future async wall-clock loop must satisfy against this executor.
+host execution order (the simulated serving loop is single-threaded; the
+wall-clock loop's two threads write through `obs.wall.WallTracer`, which
+orders them under a lock), and the exported id is derived from (track,
+cohort, rid, name, seq); all times come from the simulated stage
+clocks. Two same-seed runs therefore produce byte-identical exports
+(tested). The wall-clock loop emits the same schema from measured time.
 
 Memory is bounded by `max_spans` (a ring: oldest spans drop, the drop
 count is surfaced in the metrics export); with the cap unhit the trace

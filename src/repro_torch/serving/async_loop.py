@@ -1,4 +1,4 @@
-"""Wall-clock serving loop for the `AsyncJaxBackend` (DESIGN.md §2.7).
+"""Wall-clock serving loop for the `AsyncTorchBackend` (DESIGN.md §2.7).
 
 `WallClockExecutor` is the measured twin of `pipeline.PipelineExecutor`:
 the same policy sequence (admission → cohort plan → optimistic
@@ -8,14 +8,15 @@ rather than booked:
 
   * the verification forward for cohort k is dispatched to the
     backend's verification-server thread and left **in flight** while
-    the engine thread drafts cohort k+1 (the GIL is released inside
-    XLA, so drafter forwards and the target forward genuinely share the
-    machine);
+    the engine thread drafts cohort k+1 (on CUDA the two threads launch
+    on streams of their own, so the card runs both; their host work
+    shares one interpreter lock, which each torch call releases and
+    takes back);
   * cold requests' prompt forwards are queued on the same server
     (`prefill_target_async`) — FIFO order guarantees the slots exist
     before the first verification that reads them — and their logits
     are resolved lazily right before the acceptance walk;
-  * `device_get` of the verification logits is deferred to
+  * the host copy of the verification logits is deferred to
     `VerifyHandle.result()`, i.e. the host transfer happens after the
     draft-ahead work has been dispatched.
 
@@ -32,8 +33,16 @@ lulls (an empty pool is not a stall). The same rule applies to the
 serial and the overlapped loop, so the serial path's drafting — and
 both paths' host-side walk — count as verifier idle. These feed the
 same `IterationRecord` fields the simulated executors fill, so
-`ServeStats`, the §2.6 trace schema and `benchmarks/wallclock.py`'s
-predicted-vs-measured comparison all work unchanged.
+`ServeStats` and the §2.6 trace schema work unchanged.
+
+Tracing (`CoSineConfig.enable_tracing`) adds wall spans of the engine
+thread (`obs.wall.WallTracer.wall`): ``iteration`` (one `step`), ``prefill`` (a
+cohort's cold requests: the target's prefill queued, the drafters'
+run), ``draft`` / ``redraft`` (stage spans, as before), and inside the
+engine's calls ``draft.step``, ``draft.extend``, ``wait.verify``,
+``walk`` and ``commit.drafters``; an ``admit`` instant when a request's
+first target prefill is queued; and the host reads of every step,
+counted under ``thread=engine``.
 
 Losslessness is inherited: the token-level math is identical to the
 simulated path (same `_draft_entries` / `_verify_commit`), so greedy
@@ -55,6 +64,7 @@ import numpy as np
 
 from repro_torch.core.scheduler import PipelineObservation
 from repro_torch.obs.trace import STAGE
+from repro_torch.obs import wall as _wall
 from repro_torch.serving.events import DRAFT, VERIFY
 from repro_torch.serving.pipeline import DraftJob
 
@@ -198,20 +208,27 @@ class WallClockExecutor:
         cold = [r for r in cands if r.rid not in eng.entry_logits
                 and r.rid not in self._pending_prefill]
         if cold:
-            for r in cold:
-                if r.n_preemptions > 0 and r.generated:
-                    eng.tracer.mark("readmit", r.rid, t_now)
-            ctxs = {r.rid: list(r.prompt) + r.generated for r in cold}
-            # one masked slot_extend on the verification server, in
-            # flight while we prefill the drafters and draft below
-            fut = eng.backend.prefill_target_async(ctxs)
-            for r in cold:
-                self._pending_prefill[r.rid] = fut
-            lls = eng.backend.prefill_drafters(
-                {rid: c[:-1] for rid, c in ctxs.items()})
-            if eng.strategy == "cosine" and eng.cfg.enable_routing:
-                for rid in ctxs:
-                    eng.router.set_prior(rid, lls[rid])
+            with self.tracer.wall("prefill", _wall.ENGINE, cohort=cohort,
+                                  rids=tuple(r.rid for r in cold)):
+                for r in cold:
+                    if r.n_preemptions > 0 and r.generated:
+                        eng.tracer.mark("readmit", r.rid, t_now)
+                ctxs = {r.rid: list(r.prompt) + r.generated for r in cold}
+                # one masked slot_extend on the verification server, in
+                # flight while we prefill the drafters and draft below
+                fut = eng.backend.prefill_target_async(ctxs)
+                t_q = eng.backend.now_ms()
+                for r in cold:
+                    self._pending_prefill[r.rid] = fut
+                    # its first prefill (only an admitted request is
+                    # ever preempted)
+                    if r.n_preemptions == 0:
+                        eng.tracer.mark("admit", r.rid, t_q)
+                lls = eng.backend.prefill_drafters(
+                    {rid: c[:-1] for rid, c in ctxs.items()})
+                if eng.strategy == "cosine" and eng.cfg.enable_routing:
+                    for rid in ctxs:
+                        eng.router.set_prior(rid, lls[rid])
 
         extra = {r.rid: opt_ext(r) for r in cands if r.rid in inflight}
         batch, gammas = eng._plan_cohort(cands, observation=obs,
@@ -220,17 +237,17 @@ class WallClockExecutor:
                  for r in batch if r.rid in inflight}
         parts = [eng._participants(r) for r in batch]
         rids = tuple(r.rid for r in batch)
-        t0 = eng.backend.now_ms()
-        entries = eng._draft_entries(batch, gammas, optimistic=optim,
-                                     parts=parts)
-        for e in entries:
-            if e.req.rid in optim:
-                e.assumed = [int(t) for t in inflight[e.req.rid].fused_t]
-        self._observe_conf(entries)
-        t1 = eng.backend.now_ms()
+        with self.tracer.wall("draft", DRAFT, cat=STAGE, cohort=cohort,
+                              rids=rids):
+            t0 = eng.backend.now_ms()
+            entries = eng._draft_entries(batch, gammas, optimistic=optim,
+                                         parts=parts)
+            for e in entries:
+                if e.req.rid in optim:
+                    e.assumed = [int(t) for t in inflight[e.req.rid].fused_t]
+            self._observe_conf(entries)
+            t1 = eng.backend.now_ms()
         self._draft_busy_ms += t1 - t0
-        self.tracer.span("draft", STAGE, DRAFT, t0, t1, cohort=cohort,
-                         rids=rids)
         return DraftJob(entries, t0, t1 - t0, t1,
                         eng.n_active(entries), cohort=cohort)
 
@@ -275,14 +292,14 @@ class WallClockExecutor:
         if redo:
             gammas = eng._cohort_gammas(redo)
             parts = [eng._participants(r) for r in redo]
-            t0 = eng.backend.now_ms()
-            redo_entries = eng._draft_entries(redo, gammas, parts=parts)
-            self._observe_conf(redo_entries)
-            t1 = eng.backend.now_ms()
+            with self.tracer.wall("redraft", DRAFT, cat=STAGE,
+                                  cohort=ahead.cohort,
+                                  rids=tuple(r.rid for r in redo)):
+                t0 = eng.backend.now_ms()
+                redo_entries = eng._draft_entries(redo, gammas, parts=parts)
+                self._observe_conf(redo_entries)
+                t1 = eng.backend.now_ms()
             self._draft_busy_ms += t1 - t0
-            self.tracer.span("redraft", STAGE, DRAFT, t0, t1,
-                             cohort=ahead.cohort,
-                             rids=tuple(r.rid for r in redo))
             ahead.entries = keep + redo_entries
             ahead.draft_ms += t1 - t0
             ahead.ready_ms = max(ahead.ready_ms, t1)
@@ -295,13 +312,23 @@ class WallClockExecutor:
     def step(self):
         """One wall-clock serving iteration: draft (or reuse the
         draft-ahead job), dispatch verification, walk acceptance,
-        commit, and spawn the next draft-ahead job."""
+        commit, and spawn the next draft-ahead job. Traced as the wall
+        span ``iteration``, its host reads counted for the engine."""
+        if self.tracer.clock is None:
+            return self._step(_wall.OFF)
+        with _wall.counting_host_reads(self.eng.metrics, _wall.ENGINE), \
+                self.tracer.wall("iteration", _wall.ENGINE) as it:
+            return self._step(it)
+
+    def _step(self, it):
         eng = self.eng
         job, self.next_job = self.next_job, None
         if job is None:
             job = self._spawn(None)
             if job is None:
                 return None
+        # the server tasks this iteration queues carry its cohort
+        it.cohort = job.cohort
 
         batch = [e.req for e in job.entries]
         big_gamma = sum(e.tree.n_nodes for e in job.entries)

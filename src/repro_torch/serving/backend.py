@@ -33,7 +33,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs.wall import (SERVER, WallTracer, counting_host_reads,
+                                  note_host_read)
 from repro_torch.serving.runner import ModelRunner
+
+
+def _verify_to_host(lg, B: int, vocab: int) -> np.ndarray:
+    """The verification logits of the cohort's B rows, read to the host
+    (one counted host read: bytes from the shape, no device read)."""
+    out = lg[:B, :, :vocab].float()
+    note_host_read("verify", out.numel() * 4)
+    return out.cpu().numpy()
 
 
 class VerifyHandle:
@@ -248,7 +258,13 @@ class AsyncTorchBackend(ExecutionBackend):
     `timeline` records each target task's measured span ({kind, t0, t1},
     appended by the worker); the executor drains it to attribute
     busy/idle time and emit wall-clock spans through the same trace
-    schema the simulated clocks use."""
+    schema the simulated clocks use.
+
+    With the engine's tracing on, each task is also traced on the server
+    thread as two wall spans, ``<kind>.launch`` (the host's dispatch of
+    its work) and ``<kind>.sync`` (the wait for the server's stream),
+    with the cohort of the engine's span that queued it (``cause`` its
+    seq), and the task's host reads count under ``thread=server``."""
 
     is_wallclock = True
 
@@ -273,6 +289,13 @@ class AsyncTorchBackend(ExecutionBackend):
             max_workers=1, thread_name_prefix="verify-server")
         self.timeline: List[dict] = []
         self._timeline_pos = 0
+        self.tracer = WallTracer(enabled=False)
+        self.metrics = None
+
+    def bind(self, engine):
+        """Attach the engine; its tracer and metrics trace the server."""
+        super().bind(engine)
+        self.tracer, self.metrics = engine.tracer, engine.metrics
 
     def now_ms(self) -> float:
         """Wall-clock ms since backend construction."""
@@ -291,15 +314,26 @@ class AsyncTorchBackend(ExecutionBackend):
         span) where span's t0/t1 are filled in by the worker."""
         span = {"kind": kind, "t0": 0.0, "t1": 0.0}
         stream = self.target_stream
+        tr = self.tracer
+        cause = tr.current()
+        tag = (dict(cohort=cause.cohort, cause=cause.seq)
+               if cause is not None else {})
+        counting = (counting_host_reads(self.metrics, SERVER)
+                    if tr.clock is not None else contextlib.nullcontext())
 
         def _task():
             span["t0"] = self.now_ms()
             try:
-                if stream is None:
-                    return fn()
-                with torch.cuda.stream(stream):
-                    out = fn()
-                stream.synchronize()
+                with counting:
+                    with tr.wall(kind + ".launch", SERVER, **tag):
+                        if stream is None:
+                            out = fn()
+                        else:
+                            with torch.cuda.stream(stream):
+                                out = fn()
+                    with tr.wall(kind + ".sync", SERVER, **tag):
+                        if stream is not None:
+                            stream.synchronize()
                 return out
             finally:
                 span["t1"] = self.now_ms()
@@ -341,7 +375,7 @@ class AsyncTorchBackend(ExecutionBackend):
                                                         rel_pos, seg_mask))
         return VerifyHandle(
             future=fut, span=span,
-            convert=lambda lg: lg[:B, :, :vocab].float().cpu().numpy())
+            convert=lambda lg: _verify_to_host(lg, B, vocab))
 
     def commit_target(self, committed):
         """Blocking cache commit (see `commit_target_async`)."""

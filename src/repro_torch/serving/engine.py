@@ -58,7 +58,8 @@ from repro_torch.core.routing import AdaptiveRouter
 from repro_torch.core.scheduler import (PipelineObservation, RequestScheduler,
                                   adaptive_speculation)
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import STAGE, Tracer
+from repro_torch.obs.trace import STAGE
+from repro_torch.obs.wall import ENGINE, WallTracer
 from repro_torch.serving.backend import (ExecutionBackend, VerifyHandle,
                                          make_backend)
 from repro_torch.serving.events import DRAFT, VERIFY
@@ -321,7 +322,6 @@ class SpeculativeEngine:
             backend, target, drafters, max_len,
             paged=cosine.paged_pool, page_size=cosine.page_size,
             pool_pages=cosine.pool_pages, device=device)
-        self.backend.bind(self)
         self.target = self.backend.target
         self.drafters = self.backend.drafters
         self.drafter_domains = [d for _, _, d in drafters]
@@ -330,8 +330,13 @@ class SpeculativeEngine:
         # telemetry (DESIGN.md §2.6): one registry + tracer per engine;
         # the controllers share the registry's decision log
         self.metrics = MetricsRegistry()
-        self.tracer = Tracer(enabled=cosine.enable_tracing,
-                             max_spans=cosine.obs_max_events)
+        # wall spans (WallTracer.wall) on the wall-clock backend's clock
+        self.tracer = WallTracer(enabled=cosine.enable_tracing,
+                                 max_spans=cosine.obs_max_events,
+                                 clock=(self.backend.now_ms
+                                        if self.backend.is_wallclock
+                                        else None))
+        self.backend.bind(self)
         self.router = AdaptiveRouter(len(self.drafters), cosine,
                                      self.target.embed_np, seed)
         self.sched = RequestScheduler(cosine, self.lat,
@@ -696,7 +701,9 @@ class SpeculativeEngine:
                 t_rows = teach[di][rows]
                 feed = np.concatenate([prev_last[rows][:, None],
                                        t_rows[:, :-1]], axis=1)
-                temp[di] = self.backend.draft_extend(di, temp[di], feed)
+                with self.tracer.wall("draft.extend", ENGINE, drafter=di,
+                                      rows=len(rows)):
+                    temp[di] = self.backend.draft_extend(di, temp[di], feed)
                 prev_node[di] = t_rows[:, -1].astype(np.int32).copy()
 
         # drafter-compute accounting: each node pays K steps over its own
@@ -715,11 +722,15 @@ class SpeculativeEngine:
             step_confs = np.full((N, B), -1.0, np.float32)
             for di in active:
                 rows = rows_of[di]
-                lg, temp[di] = self.backend.draft_decode(
-                    di, [rids[b] for b in rows], prev_node[di], temp[di])
-                probs = _softmax_f32(lg)
-                tok = np.argmax(probs, -1)
-                conf = np.take_along_axis(probs, tok[:, None], -1)[:, 0]
+                # one drafter's step: its forward, the logits' host copy
+                # and the host softmax
+                with self.tracer.wall("draft.step", ENGINE, drafter=di,
+                                      rows=len(rows)):
+                    lg, temp[di] = self.backend.draft_decode(
+                        di, [rids[b] for b in rows], prev_node[di], temp[di])
+                    probs = _softmax_f32(lg)
+                    tok = np.argmax(probs, -1)
+                    conf = np.take_along_axis(probs, tok[:, None], -1)[:, 0]
                 step_tokens[di, rows] = tok
                 step_confs[di, rows] = conf
             all_tokens[:, :, i] = step_tokens
@@ -841,7 +852,8 @@ class SpeculativeEngine:
         trees = [e.tree for e in entries]
         if handle is None:
             handle = self._verify_dispatch(entries)
-        node_logits = handle.result()
+        with self.tracer.wall("wait.verify", ENGINE):
+            node_logits = handle.result()
         # previous commit's tail logits must land before the walk below
         # reads entry_logits (async backends defer the commit forward)
         self._resolve_tails()
@@ -850,23 +862,25 @@ class SpeculativeEngine:
                              else int(r.prompt[-1])) for r in batch}
         committed: Dict[int, List[int]] = {}
         total_committed = 0
-        for b, (e, r) in enumerate(zip(entries, batch)):
-            t = trees[b]
-            node_argmax = np.argmax(node_logits[b, : t.n_nodes], -1)
-            entry_argmax = int(np.argmax(self.entry_logits[r.rid]))
-            acc_tokens, acc_nodes, correction = tree_mod.accept_tree_greedy(
-                t, node_argmax, entry_argmax)
-            toks = acc_tokens + [int(correction)]
-            remaining = r.max_new_tokens - len(r.generated)
-            toks = toks[: max(remaining, 1)]
-            if self.eos is not None and self.eos in toks:
-                toks = toks[: toks.index(self.eos) + 1]
-            committed[r.rid] = toks
-            total_committed += len(toks)
-            r.record_acceptance(len(toks), e.gamma)
-            # routing update (Eq. 1-2) from this iteration's evidence
-            if self.strategy == "cosine":
-                self.router.update(r.rid, e.d_toks, e.d_confs, toks, e.parts)
+        with self.tracer.wall("walk", ENGINE):
+            for b, (e, r) in enumerate(zip(entries, batch)):
+                t = trees[b]
+                node_argmax = np.argmax(node_logits[b, : t.n_nodes], -1)
+                entry_argmax = int(np.argmax(self.entry_logits[r.rid]))
+                acc_tokens, acc_nodes, correction = \
+                    tree_mod.accept_tree_greedy(t, node_argmax, entry_argmax)
+                toks = acc_tokens + [int(correction)]
+                remaining = r.max_new_tokens - len(r.generated)
+                toks = toks[: max(remaining, 1)]
+                if self.eos is not None and self.eos in toks:
+                    toks = toks[: toks.index(self.eos) + 1]
+                committed[r.rid] = toks
+                total_committed += len(toks)
+                r.record_acceptance(len(toks), e.gamma)
+                # routing update (Eq. 1-2) from this iteration's evidence
+                if self.strategy == "cosine":
+                    self.router.update(r.rid, e.d_toks, e.d_confs, toks,
+                                       e.parts)
 
         # ---- commit to target + drafters ----
         if self.backend.is_wallclock:
@@ -884,7 +898,8 @@ class SpeculativeEngine:
             # token plus all but the last newly committed one
             d_committed = {rid: [prev_last[rid]] + toks[:-1]
                            for rid, toks in committed.items()}
-            self.backend.commit_drafters(d_committed)
+            with self.tracer.wall("commit.drafters", ENGINE):
+                self.backend.commit_drafters(d_committed)
         return committed, total_committed
 
     # ------------------------------------------------------------ one step

@@ -37,6 +37,7 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import model as M
 from repro_torch.models import quantize
 from repro_torch.models.attention import RING_MARGIN, cache_capacity
+from repro_torch.obs.wall import note_host_read
 
 # Shape-bucket constants, as in the reference: an arbitrary-length prompt
 # streams through `slot_extend` as full PREFILL_CHUNK-sized writes plus
@@ -406,7 +407,9 @@ class ModelRunner:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
     def _host(self, t) -> np.ndarray:
-        return t.float().cpu().numpy()
+        t = t.float()
+        note_host_read("logits", t.numel() * 4)
+        return t.cpu().numpy()
 
     # ----------------------------------------------------------- lifecycle
     def prefill_request(self, rid: int, tokens: np.ndarray):

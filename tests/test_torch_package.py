@@ -6,7 +6,9 @@
   import).
 * The framework-free modules are copies: each equals its original token
   for token, comments aside, once the package name in its import lines
-  is mapped back, and so do its public names and dataclass fields.
+  is mapped back and the deliberate changes `_copied_patches.py` lists
+  are made to the original, and so do its public names and dataclass
+  fields.
 * The entry points run on CUDA by default: without CUDA they raise unless
   the caller asks for the CPU.
 * The plans the port once refused (cross-attention blocks, on attention
@@ -23,6 +25,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+
+from _copied_patches import PATCHES
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -80,16 +84,6 @@ def _code_tokens(src: str):
             if t.type not in (tokenize.COMMENT, tokenize.NL)]
 
 
-# the one deliberate change to a copy, as (original, port) source: the
-# reference's `build_metrics` reads `engine.executor.log`, which the
-# wall-clock executor does not have, so exporting an async engine's
-# metrics fails there
-PATCHED = {"obs.export": (
-    """    if engine.executor is not None:
-        m.set_gauge("obs.events_dropped", engine.executor.log.n_dropped)""",
-    """    log = getattr(engine.executor, "log", None)
-    if log is not None:
-        m.set_gauge("obs.events_dropped", log.n_dropped)""")}
 
 
 @pytest.mark.parametrize("name", COPIED)
@@ -97,8 +91,7 @@ def test_copied_module_equals_original(name):
     rel = Path(*name.split(".")).with_suffix(".py")
     port_src = (PORT / rel).read_text()
     orig_src = (ROOT / "src" / "repro" / rel).read_text()
-    if name in PATCHED:
-        was, now = PATCHED[name]
+    for was, now in PATCHES.get(name, ()):
         assert orig_src.count(was) == 1
         orig_src = orig_src.replace(was, now)
     assert _code_tokens(re.sub(r"\brepro_torch\.", "repro.", port_src)) \
